@@ -1,0 +1,439 @@
+"""Fused distance + top-k kernels for exact flat search, and their plain
+PyTorch versions.
+
+The counterpart of the JAX package's `ops/pallas_flat.py`. Three wrappers,
+one per TPU kernel path, each launching a hand-written CUDA kernel
+(`csrc/flat_topk.cu`) on a CUDA tensor and running its plain version on a
+CPU tensor — never a fallback from one to the other:
+
+  flat_topk_exact   (K1) replaces flat_topk_pallas(mode="exact")
+  flat_topk_sketch  (K2) replaces flat_topk_pallas(mode="sketch"),
+                         including the int8 x int8 -> int32 path
+  flat_topk_large   (K3) replaces flat_topk_large (certified large k)
+
+Each wrapper counts its kernel launches in `<wrapper>.launches`, a plain
+int that a run resets and reads to show which kernels it went through.
+
+Shared input contract (as the TPU kernels'): corpus (N, D) fp32, bf16 or
+int8 rows; corpus_sqnorms (N,) fp32 with tombstoned rows raised past
+DELETED_THRESHOLD; queries (Q, D); rows >= n_valid are padding;
+corpus_scales (N,) fp32 dequant scales (int8) or None. Queries are scored
+in the storage dtype (bf16 for int8 storage). Scores are larger-is-better:
+mult·(q·x)·scale − csq with mult = 2 for sqeuclidean, 1 for inner product,
+csq = sqnorm + pad penalty (sqeuclidean) or pad penalty + deletion penalty
+(inner product). A slot scoring <= −1e29 (pad, deleted, or k beyond the
+live rows) comes back as score −inf, id −1. Unlike the TPU kernels, N need
+not be a multiple of any tile: the CUDA kernels mask the ragged edge.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from cuvs_rag_tpu_torch.ops import distance as dist_ops
+from cuvs_rag_tpu_torch.ops import topk as topk_ops
+from cuvs_rag_tpu_torch.utils.config import Metric
+
+MAX_KERNEL_K = 32  # K1/K2 keep a warp-held top-k: one lane per slot
+MAX_LARGE_K = 8192
+MAX_SKETCH_CLASSES = 2048  # K2's merge stages the class winners in shared memory
+MAX_R_PLANES = 88  # K3 keeps a query's planes in 88 KB of shared memory
+NEG_INF = -float("inf")
+_PAD_PENALTY = 1e30
+_VALID_MIN = -dist_ops.DELETED_THRESHOLD
+# Tile shape of csrc/flat_topk.cu (TQ, TC): used only to size the splits.
+_TQ, _TC = 16, 128
+# Blocks per SM the split count aims for: enough to hide memory latency
+# without multiplying the partials the merge pass reads.
+_BLOCKS_PER_SM = 4
+_SOURCE = "flat_topk.cu"
+_COMBO = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_INT8_X_INT8 = 3
+
+
+# --------------------------------------------------------------- inputs ---
+
+
+def _prepare(corpus, corpus_sqnorms, queries, n_valid, corpus_scales, metric,
+             int8_compute=False):
+    """Validate, cast queries to the scoring dtype (or quantize them for
+    int8 x int8), and default the scales. Returns (queries, qscales,
+    scales); qscales is None unless int8_compute."""
+    if corpus.ndim != 2 or queries.ndim != 2:
+        raise ValueError("corpus and queries must be 2-D")
+    if corpus.dtype not in _COMBO:
+        raise ValueError(f"unsupported storage dtype {corpus.dtype}")
+    n, d = corpus.shape
+    if queries.shape[1] != d:
+        raise ValueError(f"query dim {queries.shape[1]} != corpus dim {d}")
+    if corpus_sqnorms.shape != (n,) or corpus_sqnorms.dtype != torch.float32:
+        raise ValueError("corpus_sqnorms must be (N,) float32")
+    if not 0 <= int(n_valid) <= n:
+        raise ValueError(f"n_valid {n_valid} outside [0, {n}]")
+    if metric not in (Metric.SQEUCLIDEAN, Metric.INNER_PRODUCT):
+        raise ValueError(f"kernel metric must be sqeuclidean or inner_product, got {metric!r}")
+    if corpus_scales is None:
+        corpus_scales = torch.ones(n, dtype=torch.float32, device=corpus.device)
+    elif corpus_scales.shape != (n,) or corpus_scales.dtype != torch.float32:
+        raise ValueError("corpus_scales must be (N,) float32")
+    for t in (corpus_sqnorms, queries, corpus_scales):
+        if t.device != corpus.device:
+            raise ValueError(f"tensors on {t.device} and {corpus.device}")
+    if int8_compute:
+        if corpus.dtype != torch.int8:
+            raise ValueError("int8_compute requires an int8 corpus")
+        q, qscales = dist_ops.quantize_rows(queries)
+        return q, qscales, corpus_scales
+    return queries.to(topk_ops.query_dtype(corpus.dtype)), None, corpus_scales
+
+
+def _csq_slot(corpus_sqnorms, n_valid: int, metric: str) -> torch.Tensor:
+    """The per-row term every score subtracts: sqnorm + pad penalty for
+    sqeuclidean, pad penalty + deletion penalty for inner product."""
+    n = corpus_sqnorms.shape[0]
+    rows = torch.arange(n, device=corpus_sqnorms.device)
+    pen = torch.where(rows < int(n_valid), 0.0, _PAD_PENALTY).to(torch.float32)
+    if metric == Metric.SQEUCLIDEAN:
+        return corpus_sqnorms + pen
+    return pen + dist_ops.deletion_penalty(corpus_sqnorms)
+
+
+def _scores_plain(corpus, corpus_sqnorms, queries, n_valid, scales, metric,
+                  qscales=None) -> torch.Tensor:
+    """(Q, N) fp32 scores exactly as the kernels' score tile forms them."""
+    mult = 2.0 if metric == Metric.SQEUCLIDEAN else 1.0
+    if qscales is None:
+        ip = dist_ops.pairwise_inner_product(queries, corpus)
+        t = mult * (ip * scales[None, :])
+    else:
+        # int8 x int8: integer products, exact in fp32 while D*127^2 < 2^24
+        exact = torch.float32 if corpus.shape[1] * 127 * 127 < 2 ** 24 \
+            else torch.float64
+        ip = (queries.to(exact) @ corpus.to(exact).T).float()
+        t = (mult * qscales[:, None]) * (ip * scales[None, :])
+    return t - _csq_slot(corpus_sqnorms, n_valid, metric)[None, :]
+
+
+def _mask_invalid(s, i):
+    live = s > _VALID_MIN
+    return (torch.where(live, s, torch.full_like(s, NEG_INF)),
+            torch.where(live, i, torch.full_like(i, -1)))
+
+
+def _by_class(scores, tile_c: int):
+    """(Q, N) -> (Q, ceil(N / tile_c), tile_c): row r lands in class
+    r % tile_c of tile r // tile_c; the ragged last tile pads with -inf."""
+    q, n = scores.shape
+    nt = -(-n // tile_c)
+    if nt * tile_c != n:
+        scores = torch.cat(
+            [scores, torch.full((q, nt * tile_c - n), NEG_INF,
+                                device=scores.device)], dim=1)
+    return scores.view(q, nt, tile_c)
+
+
+def _require_cuda(corpus):
+    if corpus.device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {corpus.device}")
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _exact_splits(n_rows: int, n_q: int, sm_count: int):
+    """(rows_per_split, n_splits) for K1: about _BLOCKS_PER_SM blocks per SM
+    over (query tiles x splits), each split at least 4 tiles long."""
+    q_tiles = -(-n_q // _TQ)
+    want = max(1, -(-_BLOCKS_PER_SM * sm_count // q_tiles))
+    n_splits = max(1, min(want, -(-n_rows // (4 * _TC))))
+    per = topk_ops.round_up(-(-n_rows // n_splits), _TC)
+    return per, -(-n_rows // per)
+
+
+def _class_splits(n_rows: int, n_q: int, tile_c: int, sm_count: int):
+    """(tiles_per_split, n_splits) for K2/K3, whose blocks cover (query tile
+    x class chunk x split of the corpus tiles)."""
+    blocks = -(-n_q // _TQ) * -(-tile_c // _TC)
+    n_tiles = -(-n_rows // tile_c)
+    want = max(1, -(-_BLOCKS_PER_SM * sm_count // blocks))
+    per = -(-n_tiles // max(1, min(want, n_tiles)))
+    return per, -(-n_tiles // per)
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+# ------------------------------------------------------------------- K1 ---
+
+
+def flat_topk_exact_plain(corpus, corpus_sqnorms, queries, n_valid,
+                          corpus_scales=None, *, k: int, metric: str):
+    """Plain PyTorch version of K1: full score matrix, then top-k."""
+    queries, _, scales = _prepare(corpus, corpus_sqnorms, queries, n_valid,
+                                  corpus_scales, metric)
+    s = _scores_plain(corpus, corpus_sqnorms, queries, n_valid, scales, metric)
+    ids = torch.arange(corpus.shape[0], dtype=torch.int32, device=s.device)
+    return topk_ops.merge_topk(s, ids[None, :].expand_as(s), k)
+
+
+def flat_topk_exact(corpus, corpus_sqnorms, queries, n_valid,
+                    corpus_scales=None, *, k: int, metric: str):
+    """K1: exact top-k, k <= 32. Returns ((Q, k) fp32 scores descending,
+    (Q, k) int32 ids).
+
+    Replaces cuvs_rag_tpu/ops/pallas_flat.py flat_topk_pallas(mode="exact")
+    (`_kernel`, `_score_tile`, `_select_topk_*`). Its floor on the H100 is
+    the one HBM read of the corpus (about 16 multiply-adds per byte at a
+    batch of 16); this version is bound instead by its fp32 CUDA-core inner
+    loop (shared-memory loads feeding FMAs), measured at ~16% of that floor
+    on a 6.29M x 384 bf16 corpus. Blocks over (16-query tile x corpus split)
+    keep the score tile in
+    registers, and each warp holds its two queries' running top-k in its
+    lanes behind a k-th-best threshold, so selection costs one ballot per
+    score; the per-split partials (Q, S, k) are reduced by a merge pass.
+    Scores stay exact fp32 (the TPU's 11-bit key truncation is not copied).
+    """
+    if not 1 <= k <= MAX_KERNEL_K:
+        raise ValueError(f"k must be in [1, {MAX_KERNEL_K}], got {k}")
+    if corpus.device.type == "cpu":
+        return flat_topk_exact_plain(corpus, corpus_sqnorms, queries, n_valid,
+                                     corpus_scales, k=k, metric=metric)
+    _require_cuda(corpus)
+    queries, _, scales = _prepare(corpus, corpus_sqnorms, queries, n_valid,
+                                  corpus_scales, metric)
+    from cuvs_rag_tpu_torch.kernels import build
+
+    dev = corpus.device
+    n, d = corpus.shape
+    n_q = queries.shape[0]
+    per, n_splits = _exact_splits(n, n_q, _sm_count(dev))
+    queries = queries.contiguous()
+    corpus = corpus.contiguous()
+    part_s = torch.empty((n_q, n_splits, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((n_q, n_splits, k), dtype=torch.int32, device=dev)
+    out_s = torch.empty((n_q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n_q, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = build.load(_SOURCE).flat_exact_topk(
+            _COMBO[corpus.dtype], _ptr(queries), _ptr(corpus),
+            _ptr(corpus_sqnorms.contiguous()), _ptr(scales.contiguous()),
+            n_q, d, n, int(n_valid), int(metric == Metric.SQEUCLIDEAN), k,
+            per, n_splits, _ptr(part_s), _ptr(part_i), _ptr(out_s),
+            _ptr(out_i), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    build.check(err, "flat_exact_topk")
+    flat_topk_exact.launches += 1
+    return out_s, out_i
+
+
+flat_topk_exact.launches = 0
+
+
+# ------------------------------------------------------------------- K2 ---
+
+
+def flat_topk_sketch_plain(corpus, corpus_sqnorms, queries, n_valid,
+                           corpus_scales=None, *, k: int, metric: str,
+                           tile_c: int, int8_compute: bool = False):
+    """Plain PyTorch version of K2: per-class first-max over the corpus
+    tiles, then the top-k of the class winners (lower class first on ties)."""
+    queries, qscales, scales = _prepare(corpus, corpus_sqnorms, queries,
+                                        n_valid, corpus_scales, metric,
+                                        int8_compute)
+    s = _scores_plain(corpus, corpus_sqnorms, queries, n_valid, scales,
+                      metric, qscales)
+    best, tile = _by_class(s, tile_c).max(dim=1)  # first max = earliest row
+    cls = torch.arange(tile_c, device=s.device)
+    rows = (tile * tile_c + cls[None, :]).to(torch.int32)
+    order = torch.sort(best, dim=1, descending=True, stable=True).indices
+    top = order[:, :k]
+    out_s, out_i = _mask_invalid(torch.gather(best, 1, top),
+                                 torch.gather(rows, 1, top))
+    if out_s.shape[1] < k:  # fewer classes than k
+        out_s, out_i = topk_ops.merge_topk(out_s, out_i, k)
+    return out_s, out_i
+
+
+def flat_topk_sketch(corpus, corpus_sqnorms, queries, n_valid,
+                     corpus_scales=None, *, k: int, metric: str, tile_c: int,
+                     int8_compute: bool = False):
+    """K2: sketch top-k, k <= 32 — the best (score, row) per column class
+    (row mod tile_c), then the top-k over the class winners. Recall is about
+    1 - C(k,2)/tile_c per query. With int8_compute (int8 storage), queries
+    are quantized per row and the dot runs int8 x int8 -> int32.
+
+    Replaces cuvs_rag_tpu/ops/pallas_flat.py flat_topk_pallas(mode="sketch")
+    (`_sketch_kernel`, `_quantize_query_rows`). Bound like K1 (same score
+    tile; int8 x int8 runs as int32 multiply-adds). Blocks over (query tile x 128-class chunk x split of the corpus
+    tiles) keep each (query, class) winner in registers with a strict > so
+    the earliest row wins a tie; the merge pass takes the per-class max
+    across splits in row order, then the top-k of the winners.
+    """
+    if not 1 <= k <= MAX_KERNEL_K:
+        raise ValueError(f"k must be in [1, {MAX_KERNEL_K}], got {k}")
+    if not 1 <= tile_c <= MAX_SKETCH_CLASSES:
+        raise ValueError(f"tile_c must be in [1, {MAX_SKETCH_CLASSES}]")
+    if corpus.device.type == "cpu":
+        return flat_topk_sketch_plain(
+            corpus, corpus_sqnorms, queries, n_valid, corpus_scales, k=k,
+            metric=metric, tile_c=tile_c, int8_compute=int8_compute)
+    _require_cuda(corpus)
+    queries, qscales, scales = _prepare(corpus, corpus_sqnorms, queries,
+                                        n_valid, corpus_scales, metric,
+                                        int8_compute)
+    from cuvs_rag_tpu_torch.kernels import build
+
+    dev = corpus.device
+    n, d = corpus.shape
+    n_q = queries.shape[0]
+    per, n_splits = _class_splits(n, n_q, tile_c, _sm_count(dev))
+    queries = queries.contiguous()
+    corpus = corpus.contiguous()
+    part_s = torch.empty((n_splits, n_q, tile_c), dtype=torch.float32, device=dev)
+    part_i = torch.empty((n_splits, n_q, tile_c), dtype=torch.int32, device=dev)
+    out_s = torch.empty((n_q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n_q, k), dtype=torch.int32, device=dev)
+    combo = _INT8_X_INT8 if int8_compute else _COMBO[corpus.dtype]
+    with torch.cuda.device(dev):
+        err = build.load(_SOURCE).flat_sketch_topk(
+            combo, _ptr(queries), _ptr(corpus),
+            _ptr(corpus_sqnorms.contiguous()), _ptr(scales.contiguous()),
+            _ptr(qscales), n_q, d, n, int(n_valid),
+            int(metric == Metric.SQEUCLIDEAN), tile_c, k, per, n_splits,
+            _ptr(part_s), _ptr(part_i), _ptr(out_s), _ptr(out_i),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    build.check(err, "flat_sketch_topk")
+    flat_topk_sketch.launches += 1
+    return out_s, out_i
+
+
+flat_topk_sketch.launches = 0
+
+
+# ------------------------------------------------------------------- K3 ---
+
+
+def default_r_planes(k: int, tile_c: int) -> int:
+    """Poisson-tail plane count: P(some class holds > R of the true top-k)
+    small. lambda = k/tile_c true hits per class; mean + 5*sqrt + slack."""
+    lam = k / tile_c
+    return max(2, int(math.ceil(lam + 5.0 * math.sqrt(lam + 0.5) + 2.0)))
+
+
+def _large_args(k, tile_c, r_planes):
+    if not 1 <= k <= MAX_LARGE_K:
+        raise ValueError(f"k must be in [1, {MAX_LARGE_K}], got {k}")
+    r_planes = r_planes or default_r_planes(k, tile_c)
+    if r_planes > MAX_R_PLANES:
+        raise ValueError(f"r_planes={r_planes} > {MAX_R_PLANES}: raise tile_c")
+    if k > r_planes * tile_c:
+        raise ValueError(f"k={k} > r_planes*tile_c={r_planes * tile_c}")
+    return r_planes
+
+
+def _finish_large(planes_s, planes_i, rej, k):
+    """Top-k of the R*tile_c class candidates and the exactness certificate
+    max(rej) < tau (ties conservatively fail), as the TPU wrapper does."""
+    q = planes_s.shape[0]
+    cand_s = planes_s.reshape(q, -1)
+    top_s, arg = torch.topk(cand_s, k, dim=1)
+    top_i = torch.gather(planes_i.reshape(q, -1), 1, arg)
+    top_s, top_i = _mask_invalid(top_s, top_i)
+    certified = rej.amax(dim=1) < top_s[:, k - 1]
+    return top_s, top_i, certified
+
+
+def flat_topk_large_plain(corpus, corpus_sqnorms, queries, n_valid,
+                          corpus_scales=None, *, k: int, metric: str,
+                          tile_c: int = 1024, r_planes: int = 0):
+    """Plain PyTorch version of K3: each class's R best rows and its
+    (R+1)-th best value (`rej`), then the top-k and the certificate."""
+    r_planes = _large_args(k, tile_c, r_planes)
+    queries, _, scales = _prepare(corpus, corpus_sqnorms, queries, n_valid,
+                                  corpus_scales, metric)
+    s = _scores_plain(corpus, corpus_sqnorms, queries, n_valid, scales, metric)
+    by_class = _by_class(s, tile_c)
+    q, nt, _ = by_class.shape
+    vals, tile = torch.topk(by_class, min(r_planes + 1, nt), dim=1)
+    if nt <= r_planes:  # fewer tiles than planes: empty planes, nothing rejected
+        fill = r_planes + 1 - nt
+        vals = torch.cat([vals, torch.full((q, fill, tile_c), NEG_INF,
+                                           device=s.device)], dim=1)
+        tile = torch.cat([tile, torch.zeros((q, fill, tile_c),
+                                            dtype=tile.dtype,
+                                            device=s.device)], dim=1)
+    cls = torch.arange(tile_c, device=s.device)
+    rows = (tile[:, :r_planes] * tile_c + cls).to(torch.int32)
+    planes_s, planes_i = _mask_invalid(vals[:, :r_planes], rows)
+    return _finish_large(planes_s, planes_i, vals[:, r_planes], k)
+
+
+def flat_topk_large(corpus, corpus_sqnorms, queries, n_valid,
+                    corpus_scales=None, *, k: int, metric: str,
+                    tile_c: int = 1024, r_planes: int = 0):
+    """K3: certified large-k selection (k up to 8192, the reference's
+    top_k=2000 regime). Returns (scores (Q, k) descending, ids (Q, k),
+    certified (Q,) bool). certified[q] PROVES row q exact: every class
+    (row mod tile_c) kept its R best rows and `rej`, the best value it ever
+    rejected; a true top-k member that was missed lies at or below its
+    class's rej, so max(rej) < tau (the k-th collected score) rules it out.
+    Uncertified rows must be recomputed by the caller.
+
+    Replaces cuvs_rag_tpu/ops/pallas_flat.py flat_topk_large (`_topr_kernel`,
+    `default_r_planes`). Bound like K1 once the inserts stay on chip:
+    blocks over (query tile x 128-class chunk x split of the corpus
+    tiles) own disjoint (query, class) states, whose planes live in the
+    block's shared memory (an insert chain through global memory measured
+    2.5x slower end to end: each round trip waits on the previous stores).
+    Plane R-1 and rej stay in registers, and the chain runs only for a
+    candidate that beats plane R-1. The merge pass keeps each class's R best
+    of the union of the splits and folds every value it displaces into rej,
+    which keeps the certificate sound.
+    """
+    r_planes = _large_args(k, tile_c, r_planes)
+    if corpus.device.type == "cpu":
+        return flat_topk_large_plain(
+            corpus, corpus_sqnorms, queries, n_valid, corpus_scales, k=k,
+            metric=metric, tile_c=tile_c, r_planes=r_planes)
+    _require_cuda(corpus)
+    queries, _, scales = _prepare(corpus, corpus_sqnorms, queries, n_valid,
+                                  corpus_scales, metric)
+    from cuvs_rag_tpu_torch.kernels import build
+
+    dev = corpus.device
+    n, d = corpus.shape
+    n_q = queries.shape[0]
+    per, n_splits = _class_splits(n, n_q, tile_c, _sm_count(dev))
+    queries = queries.contiguous()
+    corpus = corpus.contiguous()
+    part_s = torch.empty((n_splits, n_q, r_planes, tile_c), dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty((n_splits, n_q, r_planes, tile_c), dtype=torch.int32,
+                         device=dev)
+    part_rej = torch.empty((n_splits, n_q, tile_c), dtype=torch.float32,
+                           device=dev)
+    planes_s = torch.empty((n_q, r_planes, tile_c), dtype=torch.float32,
+                           device=dev)
+    planes_i = torch.empty((n_q, r_planes, tile_c), dtype=torch.int32,
+                           device=dev)
+    rej = torch.empty((n_q, tile_c), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = build.load(_SOURCE).flat_topr(
+            _COMBO[corpus.dtype], _ptr(queries), _ptr(corpus),
+            _ptr(corpus_sqnorms.contiguous()), _ptr(scales.contiguous()),
+            n_q, d, n, int(n_valid), int(metric == Metric.SQEUCLIDEAN),
+            tile_c, r_planes, per, n_splits, _ptr(part_s), _ptr(part_i),
+            _ptr(part_rej), _ptr(planes_s), _ptr(planes_i), _ptr(rej),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    build.check(err, "flat_topr")
+    flat_topk_large.launches += 1
+    return _finish_large(planes_s, planes_i, rej, k)
+
+
+flat_topk_large.launches = 0

@@ -1,0 +1,329 @@
+"""RAG retrieval pipeline: encode → search → assemble context.
+
+The counterpart of the JAX package's `rag/pipeline.py` for one device and
+the exact flat family: query texts are encoded on the index's device, the
+embeddings go to `flat.search` without leaving it, and the returned ids
+become passages. Other families and placements arrive with their ROADMAP
+slices and raise NotImplementedError until then.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Any, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from cuvs_rag_tpu_torch.index import base
+from cuvs_rag_tpu_torch.index import flat
+from cuvs_rag_tpu_torch.index import io as index_io
+from cuvs_rag_tpu_torch.rag import corpus as corpus_mod
+from cuvs_rag_tpu_torch.rag.corpus import Corpus
+from cuvs_rag_tpu_torch.utils import config as config_mod
+from cuvs_rag_tpu_torch.utils.metrics import default_registry as metrics
+
+# What each unported family or placement waits for (ROADMAP.md queue 1).
+_PENDING = {
+    "ivf_flat": "slice 2 (IVF-Flat)",
+    "ivf_pq": "slice 3 (IVF-PQ)",
+    "cagra": "slice 4 (CAGRA)",
+    "shard": "slice 6 (multi-GPU)",
+    "replicate": "slice 6 (multi-GPU)",
+}
+
+_PARAM_CLASSES = (
+    "FlatParams", "FlatSearchParams",
+    "IVFFlatParams", "IVFFlatSearchParams",
+    "IVFPQParams", "IVFPQSearchParams",
+    "CagraParams", "CagraSearchParams",
+)
+
+
+def _params_to_meta(p):
+    """Typed param dataclasses <-> JSON (Retriever.save/load)."""
+    if p is None:
+        return None
+    return {"cls": type(p).__name__, "fields": dataclasses.asdict(p)}
+
+
+def _params_from_meta(meta):
+    if meta is None:
+        return None
+    # explicit allowlist: retriever.json is data, and resolving arbitrary
+    # names via getattr would make every callable in utils.config reachable
+    if meta["cls"] not in _PARAM_CLASSES:
+        raise ValueError(f"unknown params class {meta['cls']!r}")
+    return getattr(config_mod, meta["cls"])(**meta["fields"])
+
+
+def _require_ported(family: str, placement: str = "single") -> None:
+    for key in (family, placement):
+        if key in _PENDING:
+            raise NotImplementedError(
+                f"{key!r} is not ported yet: it arrives with ROADMAP "
+                f"{_PENDING[key]}"
+            )
+    if family != "flat":
+        raise ValueError(f"unknown family {family!r}")
+    if placement != "single":
+        raise ValueError(f"unknown placement {placement!r}")
+
+
+def _index_device(device, encoder, embeddings=None) -> torch.device:
+    """Where the index lives: `device` if given, else a tensor's own device,
+    else the encoder's `device`. Raises when none of them names one, so a
+    numpy corpus never lands on the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(embeddings, torch.Tensor):
+        return embeddings.device
+    enc_device = getattr(encoder, "device", None)
+    if enc_device is None:
+        raise ValueError(
+            "no device for the index: pass device=..., or an encoder with "
+            "a device, or the embeddings as a tensor on the device"
+        )
+    return torch.device(enc_device)
+
+
+def encode_on_device(encoder, texts: List[str], device) -> torch.Tensor:
+    """Query embeddings as a tensor on `device`. Encoders with
+    `encode_device` (models.bert_encoder) keep them on their own device;
+    numpy encoders (hashing, transformers) take one host -> device copy."""
+    fn = getattr(encoder, "encode_device", None)
+    if fn is not None:
+        return fn(texts).to(device)
+    return torch.as_tensor(encoder.encode(texts), device=device)
+
+
+@dataclasses.dataclass
+class RetrievedPassage:
+    text: str
+    index: int
+    distance: float
+    title: Optional[str] = None
+
+
+@dataclasses.dataclass
+class RetrievalResult:
+    """Per-query retrieval output."""
+
+    passages: List[RetrievedPassage]
+    query_time_s: float
+
+
+class Retriever:
+    """encoder + index + passages. Build via `Retriever.build(...)`."""
+
+    def __init__(self, encoder, index: Any, corpus: Corpus, *, family: str,
+                 search_params: Any = None, params: Any = None):
+        self.encoder = encoder
+        self.index = index
+        self.corpus = corpus
+        self.family = family
+        self.search_params = search_params
+        self.params = params
+
+    # -- construction ----------------------------------------------------
+
+    @classmethod
+    def build(cls, corpus: Corpus, encoder, *, family: str = "flat",
+              params: Any = None, placement: str = "single",
+              search_params: Any = None, encode_batch_size: int = 64,
+              device=None) -> "Retriever":
+        """Build over `corpus`, encoding its passages when it carries no
+        embeddings. Embeddings may be a numpy array (stored as fp32, as the
+        JAX package does) or a tensor (kept in its own float dtype). The
+        index lives on `device`; None means the embeddings' own device for
+        a tensor, else the encoder's `device`, and raises if it has none."""
+        _require_ported(family, placement)
+        if corpus.embeddings is None:
+            corpus.embeddings = encoder.encode(
+                corpus.passages, batch_size=encode_batch_size
+            )
+        emb = corpus.embeddings
+        if isinstance(emb, np.ndarray):
+            emb = np.asarray(emb, dtype=np.float32)
+        device = _index_device(device, encoder, emb)
+        params = params if params is not None else config_mod.FlatParams()
+        index = flat.build(params, emb, device=device)
+        return cls(encoder, index, corpus, family=family,
+                   search_params=search_params, params=params)
+
+    # -- retrieval -------------------------------------------------------
+
+    def retrieve(self, query: str, k: int = 5) -> RetrievalResult:
+        return self.retrieve_batch([query], k)[0]
+
+    def retrieve_ids(self, queries: Sequence[str], k: int = 5):
+        """Raw-array retrieval: (distances, ids) as (Q, k) numpy arrays with
+        no passage assembly."""
+        dists, idx, _ = self._search_arrays(queries, k)
+        return dists, idx
+
+    def retrieve_batch(self, queries: Sequence[str],
+                       k: int = 5) -> List[RetrievalResult]:
+        dists, idx, dt = self._search_arrays(queries, k)
+        results = []
+        per_query = dt / max(len(queries), 1)
+        for row in range(len(queries)):
+            passages = [
+                RetrievedPassage(
+                    text=self.corpus.passages[j],
+                    index=int(j),
+                    distance=float(dists[row, c]),
+                    title=self.corpus.titles[j] if self.corpus.titles else None,
+                )
+                for c, j in enumerate(idx[row])
+                if j >= 0
+            ]
+            results.append(RetrievalResult(passages=passages,
+                                            query_time_s=per_query))
+        return results
+
+    def _search_arrays(self, queries, k):
+        metrics.inc("retriever.queries", len(queries))
+        t0 = time.time()
+        q = encode_on_device(self.encoder, list(queries), self.index.device)
+        dists, idx = flat.search(self.search_params, self.index, q, k)
+        dists, idx = dists.cpu().numpy(), idx.cpu().numpy()
+        dt = time.time() - t0
+        metrics.observe("retriever.batch_seconds", dt)
+        metrics.observe("retriever.latency_per_query", dt / max(len(queries), 1))
+        return dists, idx, dt
+
+    # -- persistence (warm restart) --------------------------------------
+
+    def save(self, directory: str) -> None:
+        """Index + corpus text/titles + embeddings + build/search params, in
+        the JAX package's layout (either package loads the other's)."""
+        os.makedirs(directory, exist_ok=True)
+        with open(os.path.join(directory, "corpus.jsonl"), "w") as f:
+            for i, p in enumerate(self.corpus.passages):
+                rec = {"text": p}
+                if self.corpus.titles:
+                    rec["title"] = self.corpus.titles[i]
+                f.write(json.dumps(rec) + "\n")
+        emb, emb_meta = self.corpus.embeddings, None
+        if emb is not None:
+            if isinstance(emb, torch.Tensor):
+                emb = emb.float().cpu().numpy()
+            corpus_mod.save_embeddings(
+                os.path.join(directory, "embeddings"), np.asarray(emb)
+            )
+            emb_meta = {"kind": "npy"}
+        index_io.save_index(os.path.join(directory, "index.npz"), self.index)
+        with open(os.path.join(directory, "retriever.json"), "w") as f:
+            json.dump({
+                "format": 1,
+                "family": self.family,
+                "placement": "single",
+                "params": _params_to_meta(self.params),
+                "search_params": _params_to_meta(self.search_params),
+                "embeddings": emb_meta,
+            }, f)
+
+    @classmethod
+    def load(cls, directory: str, encoder, *, device=None) -> "Retriever":
+        """Restore a `save()`d retriever with a caller-supplied encoder, onto
+        `device` (None: the encoder's `device`; raises if it has none)."""
+        with open(os.path.join(directory, "retriever.json")) as f:
+            meta = json.load(f)
+        _require_ported(meta["family"], meta["placement"])
+        device = _index_device(device, encoder)
+        passages, titles = [], []
+        with open(os.path.join(directory, "corpus.jsonl")) as f:
+            for line in f:
+                rec = json.loads(line)
+                passages.append(rec["text"])
+                titles.append(rec.get("title", ""))
+        if not any(titles):
+            titles = None
+        emb = None
+        emb_meta = meta.get("embeddings")
+        if emb_meta is not None:
+            if emb_meta["kind"] != "npy":
+                raise NotImplementedError(
+                    "disk-backed embedding stores arrive with ROADMAP slice 3"
+                )
+            emb = corpus_mod.load_embeddings(os.path.join(directory, "embeddings"))
+        index = index_io.load_index(
+            os.path.join(directory, "index.npz"), device=device
+        )
+        return cls(
+            encoder, index,
+            Corpus(passages=passages, embeddings=emb, titles=titles),
+            family=meta["family"],
+            search_params=_params_from_meta(meta["search_params"]),
+            params=_params_from_meta(meta["params"]),
+        )
+
+    def extend(self, texts: Optional[Sequence[str]] = None, *, vectors=None,
+               titles: Optional[Sequence[str]] = None) -> range:
+        """Append passages; they get ids total..total+B-1, existing ids stay
+        stable and prior deletions survive. Returns the new ids as a range.
+
+        Provide `texts` (encoded with the retriever's encoder), or `vectors`
+        (raw rows; `texts` then optionally supplies the aligned passages,
+        else they default to "").
+        """
+        if texts is None and vectors is None:
+            raise ValueError("provide texts and/or vectors")
+        if texts is not None:
+            texts = list(texts)
+            if not texts or not all(isinstance(t, str) for t in texts):
+                raise ValueError("texts must be a non-empty list of strings")
+        if vectors is None:
+            vectors = np.asarray(self.encoder.encode(texts), np.float32)
+        vectors = base.as_tensor(vectors, self.index.device)
+        if vectors.ndim != 2 or vectors.shape[0] == 0:
+            raise ValueError(f"vectors must be (B, dim), got {tuple(vectors.shape)}")
+        if texts is None:
+            texts = [""] * len(vectors)
+        if len(texts) != len(vectors):
+            raise ValueError(
+                f"texts ({len(texts)}) and vectors ({len(vectors)}) must be "
+                "row-aligned"
+            )
+        if titles is not None and len(titles) != len(texts):
+            raise ValueError("titles must align with texts")
+
+        # Build the new index first: if it rejects the rows, the corpus must
+        # not have grown. The index is swapped last, so a reader that sees
+        # the new index finds the passages already appended.
+        new_index = flat.extend(self.index, vectors)
+        start = len(self.corpus.passages)
+        if titles is not None and self.corpus.titles is None:
+            self.corpus.titles = [""] * start
+        self.corpus.passages.extend(texts)
+        if self.corpus.titles is not None:
+            self.corpus.titles.extend(
+                list(titles) if titles is not None else [""] * len(texts)
+            )
+        emb = self.corpus.embeddings
+        if isinstance(emb, torch.Tensor):
+            self.corpus.embeddings = torch.cat(
+                [emb, vectors.to(emb.device, emb.dtype)], dim=0
+            )
+        elif emb is not None:
+            self.corpus.embeddings = np.concatenate(
+                [emb, vectors.float().cpu().numpy().astype(emb.dtype)], axis=0
+            )
+        self.index = new_index
+        metrics.inc("retriever.extended_rows", len(texts))
+        return range(start, start + len(texts))
+
+    def delete(self, ids) -> None:
+        """Remove passages by corpus index (tombstone; id-stable)."""
+        self.index = flat.delete(self.index, ids)
+
+    def assemble_context(self, query: str, k: int = 5,
+                         separator: str = "\n\n") -> str:
+        """The RAG 'retrieve + assemble' step: top-k passages joined into a
+        prompt context block."""
+        res = self.retrieve(query, k)
+        return separator.join(p.text for p in res.passages)

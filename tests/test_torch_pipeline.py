@@ -1,0 +1,171 @@
+"""The port's Retriever against the JAX package's on the same Corpus and the
+same encoder weights: same passages at k = 5 and k = 40, through delete,
+extend and save/load (including a directory saved by the JAX package).
+
+Tolerance: the two encoders agree to ~1e-6 (test_torch_encoder.py), so
+distances are held to rtol/atol 1e-4 and ids agree up to swaps among
+distances tied within it.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from cuvs_rag_tpu.models import encoder as jenc
+from cuvs_rag_tpu.models import flax_encoder as fe
+from cuvs_rag_tpu.rag.corpus import Corpus as JCorpus
+from cuvs_rag_tpu.rag.pipeline import Retriever as JRetriever
+from cuvs_rag_tpu_torch.models import bert_encoder as be
+from cuvs_rag_tpu_torch.rag.corpus import Corpus
+from cuvs_rag_tpu_torch.rag.pipeline import Retriever
+from torch_parity import compare_topk
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def encoders():
+    cfg = fe.BertConfig(vocab_size=200, hidden_size=32, num_layers=2,
+                        num_heads=4, intermediate_size=64, max_position=64)
+    params = fe.BertEncoderModel(cfg).init(
+        jax.random.PRNGKey(7), jnp.zeros((1, 8), jnp.int32),
+        jnp.ones((1, 8), jnp.int32))
+    params = jax.tree_util.tree_map(np.asarray, params)
+    tok = jenc.HashTokenizer(cfg.vocab_size - 1)
+    tcfg = be.BertConfig(**vars(cfg))
+    model = be.BertEncoderModel(tcfg)
+    model.load_state_dict(be.from_flax_params(params, tcfg))
+    return (fe.FlaxSentenceEncoder(cfg, params, tok, max_length=32),
+            be.TorchSentenceEncoder(tcfg, model, tok, max_length=32,
+                                    device="cpu"))
+
+
+def _passages(n=240):
+    rng = np.random.default_rng(5)
+    words = [f"t{i}" for i in range(150)]
+    return [f"doc {i} " + " ".join(rng.choice(words, int(rng.integers(3, 20))))
+            for i in range(n)]
+
+
+@pytest.fixture
+def pair(encoders):
+    jencoder, tencoder = encoders
+    passages = _passages()
+    titles = [f"title {i}" for i in range(len(passages))]
+    return (
+        JRetriever.build(JCorpus(passages=list(passages), titles=list(titles)),
+                         jencoder),
+        Retriever.build(Corpus(passages=list(passages), titles=list(titles)),
+                        tencoder),
+        passages,
+    )
+
+
+def _queries(passages):
+    return passages[:6] + ["t1 t2 t3", "doc t9 t40 t77", "nothing like it"]
+
+
+def _assert_same(tr, jr, queries, k):
+    d, i = tr.retrieve_ids(queries, k)
+    rd, ri = jr.retrieve_ids(queries, k)
+    assert i.shape == (len(queries), k)
+    compare_topk(-d, i, -rd, ri, **TOL)  # sqeuclidean: smaller is better
+
+
+@pytest.mark.parametrize("k", [5, 40])
+def test_same_passages_as_jax_retriever(pair, k):
+    jr, tr, passages = pair
+    _assert_same(tr, jr, _queries(passages), k)
+    res = tr.retrieve_batch(passages[:3], k)
+    assert [r.passages[0].index for r in res] == [0, 1, 2]
+    assert res[1].passages[0].text == passages[1]
+    assert res[1].passages[0].title == "title 1"
+    assert tr.assemble_context(passages[2], 2).startswith(passages[2])
+
+
+def test_delete_and_extend_match_jax(pair):
+    jr, tr, passages = pair
+    for r in (jr, tr):
+        r.delete([0, 3, 10])
+    new = ["a brand new passage t5 t6", "another fresh doc t7"]
+    assert list(jr.extend(new)) == list(tr.extend(new)) == [240, 241]
+    assert tr.corpus.embeddings.shape == (242, 32)
+    queries = _queries(passages) + new
+    _assert_same(tr, jr, queries, 5)
+    ids = tr.retrieve_ids(passages[:4] + new, 5)[1]
+    assert not np.isin(ids, [0, 3, 10]).any()
+    assert ids[-2:, 0].tolist() == [240, 241]
+
+
+def test_save_load_round_trip_and_cross_load(pair, encoders, tmp_path):
+    jr, tr, passages = pair
+    tr.delete([4])
+    jr.delete([4])
+    tr.save(str(tmp_path / "torch"))
+    jr.save(str(tmp_path / "jax"))
+    _, tencoder = encoders
+    queries = _queries(passages)
+    want = tr.retrieve_ids(queries, 8)
+    for d in ("torch", "jax"):
+        loaded = Retriever.load(str(tmp_path / d), tencoder)
+        assert loaded.corpus.titles[2] == "title 2"
+        got = loaded.retrieve_ids(queries, 8)
+        compare_topk(-got[0], got[1], -want[0], want[1], **TOL)
+    # and the JAX package loads the port's directory
+    jloaded = JRetriever.load(str(tmp_path / "torch"), encoders[0])
+    _assert_same(tr, jloaded, queries, 8)
+
+
+def test_unported_families_and_placements_raise(encoders):
+    _, tencoder = encoders
+    corpus = Corpus(passages=["a", "b"])
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        Retriever.build(corpus, tencoder, family="ivf_flat")
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        Retriever.build(corpus, tencoder, placement="shard")
+
+
+def test_index_device_is_never_chosen_silently(tmp_path):
+    """A numpy corpus with an encoder that has no device needs device=...;
+    given one, the index lives there and save/load keeps to the same rule."""
+    from cuvs_rag_tpu_torch.models.encoder import HashingEncoder
+
+    encoder = HashingEncoder(dim=16)
+    passages = ["alpha beta", "gamma delta", "epsilon zeta"]
+    with pytest.raises(ValueError, match="no device"):
+        Retriever.build(Corpus(passages=list(passages)), encoder)
+    r = Retriever.build(Corpus(passages=list(passages)), encoder, device="cpu")
+    assert r.index.device == torch.device("cpu")
+    assert r.retrieve_ids(passages, 1)[1][:, 0].tolist() == [0, 1, 2]
+    r.save(str(tmp_path / "r"))
+    with pytest.raises(ValueError, match="no device"):
+        Retriever.load(str(tmp_path / "r"), encoder)
+    loaded = Retriever.load(str(tmp_path / "r"), encoder, device="cpu")
+    assert loaded.retrieve_ids(passages, 1)[1][:, 0].tolist() == [0, 1, 2]
+
+
+def test_import_leaves_jax_out():
+    """The port never imports JAX, flax or the JAX package."""
+    code = (
+        "import sys, cuvs_rag_tpu_torch\n"
+        "from cuvs_rag_tpu_torch.rag import pipeline\n"
+        "from cuvs_rag_tpu_torch.models import bert_encoder, encoder\n"
+        "from cuvs_rag_tpu_torch.kernels import build\n"
+        "from cuvs_rag_tpu_torch.index import io\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'cuvs_rag_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
