@@ -7,7 +7,8 @@ never imports JAX.
 
 Layering mirrors the JAX package:
   ops/      — score algebra, top-k helpers and the CUDA kernel wrappers
-  index/    — index families as dataclasses of tensors
+  index/    — index families as dataclasses of tensors, filtered views
+  eval/     — recall against the exact oracle
   models/   — text encoders (BERT family as an nn.Module)
   rag/      — retrieval pipeline + corpus store
   utils/    — typed configs, metrics

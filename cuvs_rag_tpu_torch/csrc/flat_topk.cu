@@ -1,7 +1,7 @@
 // Fused score tile + top-k selection for exact flat search on Hopper (sm_90a).
 //
 // Replaces the three Pallas TPU kernel paths of cuvs_rag_tpu/ops/pallas_flat.py:
-//   K1  flat_topk_pallas(mode="exact")   -> exact_scan_kernel + exact_merge_kernel
+//   K1  flat_topk_pallas(mode="exact")   -> exact_scan_kernel + merge_partials_kernel
 //   K2  flat_topk_pallas(mode="sketch")  -> sketch_scan_kernel + sketch_merge_kernel
 //   K3  flat_topk_large                  -> topr_scan_kernel + topr_merge_kernel
 //
@@ -32,6 +32,8 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "topk_common.cuh"
+
 namespace {
 
 constexpr int TQ = 16;            // queries per block
@@ -41,15 +43,6 @@ constexpr int THREADS = 256;      // 8 warps
 constexpr int QPT = TQ / 8;       // queries per thread (warp w: w, w + 8)
 constexpr int CPT = TC / 32;      // rows per thread (lane l: l + 32 j)
 constexpr float PAD_PENALTY = 1e30f;
-constexpr float DELETED_THRESHOLD = 1e29f;
-constexpr float VALID_MIN = -1e29f;
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float neg_inf() { return -__int_as_float(0x7f800000); }
-
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ float load_f(const int8_t* p) { return (float)*p; }
 
 template <bool INT8C>
 struct Stage {
@@ -144,44 +137,6 @@ __device__ __forceinline__ void score_tile(
   }
 }
 
-// Warp-held sorted top-k (k <= 32): lane l < k holds the l-th best (score,
-// id), descending. A candidate enters only if strictly better than the
-// current k-th; among equal scores the earlier-offered one stays first.
-struct WarpTopK {
-  float s;
-  int id;
-  float thresh;  // the k-th best score (lane k - 1), same in every lane
-
-  __device__ __forceinline__ void init() {
-    s = neg_inf();
-    id = -1;
-    thresh = neg_inf();
-  }
-
-  // Offer one candidate per lane; lanes are taken in order 0..31.
-  __device__ __forceinline__ void offer(float cand, int cand_id, int k, int lane) {
-    unsigned pending = __ballot_sync(FULL, cand > thresh);
-    while (pending) {
-      const int src = __ffs(pending) - 1;
-      pending &= pending - 1;
-      const float cs = __shfl_sync(FULL, cand, src);
-      const int ci = __shfl_sync(FULL, cand_id, src);
-      if (!(cs > thresh)) continue;  // thresh rose since the ballot
-      const int pos = __popc(__ballot_sync(FULL, lane < k && s >= cs));
-      const float up_s = __shfl_up_sync(FULL, s, 1);
-      const int up_i = __shfl_up_sync(FULL, id, 1);
-      if (lane > pos) {
-        s = up_s;
-        id = up_i;
-      } else if (lane == pos) {
-        s = cs;
-        id = ci;
-      }
-      thresh = __shfl_sync(FULL, s, k - 1);
-    }
-  }
-};
-
 // ---------------------------------------------------------------- K1 -----
 // grid (ceil(n_q / TQ), n_splits); split s covers rows
 // [s * rows_per_split, min(n_rows, (s + 1) * rows_per_split)). Warp w keeps
@@ -222,32 +177,6 @@ __global__ void __launch_bounds__(THREADS) exact_scan_kernel(
       part_s[o] = top[i].s;
       part_i[o] = top[i].id;
     }
-  }
-}
-
-// One warp per query: top-k over the S * k partials in split order, then the
-// validity rule (score <= -1e29 -> -inf / -1).
-__global__ void exact_merge_kernel(const float* __restrict__ part_s,
-                                   const int* __restrict__ part_i, int n_q,
-                                   int n_splits, int k, float* __restrict__ out_s,
-                                   int* __restrict__ out_i) {
-  const int lane = threadIdx.x & 31;
-  const int qq = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (qq >= n_q) return;  // whole warp exits together
-  WarpTopK top;
-  top.init();
-  const long long n = (long long)n_splits * k;
-  const long long base = (long long)qq * n;
-  for (long long e0 = 0; e0 < n; e0 += 32) {
-    const long long e = e0 + lane;
-    const float c = e < n ? part_s[base + e] : neg_inf();
-    const int ci = e < n ? part_i[base + e] : -1;
-    top.offer(c, ci, k, lane);
-  }
-  if (lane < k) {
-    const bool ok = top.s > VALID_MIN;
-    out_s[(long long)qq * k + lane] = ok ? top.s : neg_inf();
-    out_i[(long long)qq * k + lane] = ok ? top.id : -1;
   }
 }
 
@@ -362,27 +291,6 @@ __global__ void __launch_bounds__(THREADS) sketch_merge_kernel(
     out_s[(long long)qq * k + lane] = ok ? top.s : neg_inf();
     out_i[(long long)qq * k + lane] = ok ? top.id : -1;
   }
-}
-
-// Insertion chain over one (query, class)'s R planes (sorted descending,
-// `stride` apart in memory), as in the TPU kernel: a strict > lets the
-// candidate in after every plane >= it. Returns the value that fell off the
-// end (the candidate itself if it entered nowhere); `last` becomes plane R-1.
-__device__ __forceinline__ float chain_insert(float* ps, int* pi, int stride,
-                                              int r_planes, float cand, int cid,
-                                              float& last) {
-  for (int r = 0; r < r_planes; ++r) {
-    const float b = ps[r * stride];
-    if (cand > b) {
-      const int bi = pi[r * stride];
-      ps[r * stride] = cand;
-      pi[r * stride] = cid;
-      cand = b;
-      cid = bi;
-    }
-  }
-  last = ps[(r_planes - 1) * stride];
-  return cand;
 }
 
 // K3: per-(query, class) top-R planes + `rej`, the best value the class ever
@@ -535,7 +443,7 @@ int flat_exact_topk(int combo, const void* q, const void* x, const float* sqn,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int warps = 8;
-  exact_merge_kernel<<<(n_q + warps - 1) / warps, 32 * warps, 0, stream>>>(
+  merge_partials_kernel<<<(n_q + warps - 1) / warps, 32 * warps, 0, stream>>>(
       part_s, part_i, n_q, n_splits, k, out_s, out_i);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,133 @@
+"""Filtered (allow-list) search — FAISS `IDSelector` / cuVS prefilter parity.
+
+The counterpart of the JAX package's `index/filters.py`. A filtered view
+(`filtered_view(index, allow)`) is a same-type index that shares the
+vector storage and replaces one (rows,)-shaped bookkeeping tensor: the
+sqnorm slots of excluded rows are raised past the deletion threshold, the
+same convention as tombstone deletion, so every search path and kernel
+already honours it and a view searches at the cost of a normal search.
+Views compose with deletion (deleted rows stay dead) and are positionally
+exact: search(view) equals search restricted to the allowed rows.
+
+Ported: FlatIndex and IVFFlatIndex. IVF-PQ views arrive with ROADMAP slice
+3, and CAGRA's post-filter with slice 4.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from cuvs_rag_tpu_torch.ops import distance as dist_ops
+
+# What each unported family's filtering waits for (ROADMAP.md queue 1).
+_PENDING = {
+    "IVFPQIndex": "slice 3 (IVF-PQ)",
+    "CagraIndex": "slice 4 (CAGRA, post-filter)",
+}
+
+
+def allow_from_ids(n: int, ids) -> np.ndarray:
+    """(n,) bool mask allowing exactly `ids` (out-of-range ids ignored)."""
+    ids = np.asarray(ids, dtype=np.int64).reshape(-1)
+    mask = np.zeros((n,), dtype=bool)
+    mask[ids[(ids >= 0) & (ids < n)]] = True
+    return mask
+
+
+def deny_from_ids(n: int, ids) -> np.ndarray:
+    """(n,) bool mask allowing everything EXCEPT `ids`."""
+    return ~allow_from_ids(n, ids)
+
+
+def _as_mask(allow, n: int, device) -> torch.Tensor:
+    """Validate an allow mask for an n-row corpus; a bool tensor on
+    `device`."""
+    mask = torch.as_tensor(allow, device=device)
+    if mask.dtype != torch.bool:
+        raise ValueError(
+            f"allow must be a boolean mask, got dtype {mask.dtype}; build one "
+            "with filters.allow_from_ids/deny_from_ids")
+    if mask.ndim != 1 or mask.shape[0] != n:
+        raise ValueError(f"allow mask must be ({n},) to match the corpus "
+                         f"rows, got {tuple(mask.shape)}")
+    return mask
+
+
+def _penalize_slots(sqnorms: torch.Tensor, allow: torch.Tensor) -> torch.Tensor:
+    """Raise excluded rows' sqnorm slots past the deletion threshold."""
+    return sqnorms + torch.where(allow, 0.0, dist_ops.DELETED_PENALTY)
+
+
+def _gather_by_row_ids(allow: torch.Tensor, row_ids: torch.Tensor) -> torch.Tensor:
+    """Permute an original-id mask into a sorted-CSR layout:
+    out[slot] = allow[row_ids[slot]], False on pads (row_ids -1) and on
+    ids past the mask."""
+    n = allow.shape[0]
+    ext = torch.cat([allow, allow.new_zeros(1)])
+    idx = torch.where((row_ids >= 0) & (row_ids < n), row_ids,
+                      torch.full_like(row_ids, n))
+    return ext[idx.long()]
+
+
+def view_traced(index, allow: torch.Tensor):
+    """Core of `filtered_view`, without validation. `allow` is a bool mask
+    over original ids: for FlatIndex as wide as the padded row count, for
+    IVFFlatIndex any width (ids past it read False)."""
+    from cuvs_rag_tpu_torch.index import flat as flat_mod
+    from cuvs_rag_tpu_torch.index import ivf_flat as ivf_mod
+
+    if isinstance(index, flat_mod.FlatIndex):
+        return dataclasses.replace(
+            index, sqnorms=_penalize_slots(index.sqnorms, allow))
+    if isinstance(index, ivf_mod.IVFFlatIndex):
+        a = _gather_by_row_ids(allow, index.row_ids)
+        return dataclasses.replace(
+            index, sqnorms=_penalize_slots(index.sqnorms, a))
+    raise _unsupported(index)
+
+
+def _unsupported(index) -> Exception:
+    name = type(index).__name__
+    if name in _PENDING:
+        return NotImplementedError(
+            f"filtering {name} is not ported yet: it arrives with ROADMAP "
+            f"{_PENDING[name]}")
+    return TypeError(f"filtered views do not support {name}")
+
+
+def filtered_view(index, allow):
+    """Same-type index restricted to `allow`, a (n_valid,) bool mask over
+    ORIGINAL corpus ids (numpy or tensor). Shares the vector storage.
+    Deleted rows stay deleted whatever the mask. Reusable across searches:
+    build once per filter."""
+    from cuvs_rag_tpu_torch.index import flat as flat_mod
+    from cuvs_rag_tpu_torch.index import ivf_flat as ivf_mod
+
+    if not isinstance(index, (flat_mod.FlatIndex, ivf_mod.IVFFlatIndex)):
+        raise _unsupported(index)
+    mask = _as_mask(allow, int(index.n_valid), index.device)
+    if isinstance(index, flat_mod.FlatIndex) and index.size > mask.shape[0]:
+        mask = torch.cat([mask, mask.new_zeros(index.size - mask.shape[0])])
+    return view_traced(index, mask)
+
+
+def _family_module(index):
+    from cuvs_rag_tpu_torch.index import flat as flat_mod
+    from cuvs_rag_tpu_torch.index import ivf_flat as ivf_mod
+
+    if isinstance(index, flat_mod.FlatIndex):
+        return flat_mod
+    if isinstance(index, ivf_mod.IVFFlatIndex):
+        return ivf_mod
+    raise TypeError(type(index).__name__)
+
+
+def search(search_params, index, queries, k: int, allow):
+    """Filtered search for any ported family: (distances, original ids),
+    always ⊆ allow; surplus slots report id -1 when fewer than k allowed
+    rows are reachable. Exact view semantics."""
+    view = filtered_view(index, allow)
+    return _family_module(view).search(search_params, view, queries, k)

@@ -3,8 +3,9 @@
 One .npz file per index: each tensor field as an array (bf16 stored as its
 uint16 bit pattern, listed under "bf16"), `n_valid` as a 0-d int32 array,
 and a `__meta__` JSON record {"__class__", "static", "bf16", "format"}. A
-file saved by either package loads in the other. Only FlatIndex is ported
-so far; the other families arrive with their slices (see ROADMAP.md).
+file saved by either package loads in the other. FlatIndex and
+IVFFlatIndex are ported so far; the other families arrive with their slices
+(see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ _BF16 = "bf16"
 
 def _registry():
     from cuvs_rag_tpu_torch.index.flat import FlatIndex
+    from cuvs_rag_tpu_torch.index.ivf_flat import IVFFlatIndex
 
-    return {"FlatIndex": FlatIndex}
+    return {"FlatIndex": FlatIndex, "IVFFlatIndex": IVFFlatIndex}
 
 
 def save_index(path: str, index: Any) -> None:

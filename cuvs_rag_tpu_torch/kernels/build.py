@@ -3,8 +3,9 @@
 Each `.cu` file is compiled by nvcc for sm_90a into a shared library with a
 plain C interface, loaded with ctypes. The build runs at first use into
 `build/kernels/` at the repository root and is keyed by a hash of the
-source and the flags, so a changed source rebuilds and an unchanged one
-loads the library already built. Nothing here runs at import time.
+source, the shared `.cuh` headers and the flags, so a changed source
+rebuilds and an unchanged one loads the library already built. Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -46,6 +47,16 @@ SIGNATURES = {
             _P, _P, _P, _P, _P, _P, _P,
         ],
     },
+    "ivf_scan.cu": {
+        "ivf_scan_topk": [
+            _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+            _P, _P, _P, _P, _P,
+        ],
+        "ivf_scan_topr": [
+            _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+            _P, _P, _P, _P,
+        ],
+    },
 }
 
 
@@ -63,8 +74,10 @@ def _nvcc() -> str:
 
 def _build(source: str) -> Path:
     src = CSRC / source
+    # the shared headers are part of every source
+    parts = [src.read_bytes()] + [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(parts) + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib = BUILD_DIR / f"{src.stem}_{digest}.so"
     if lib.exists():

@@ -336,7 +336,7 @@ def _large_args(k, tile_c, r_planes):
     return r_planes
 
 
-def _finish_large(planes_s, planes_i, rej, k):
+def finish_large(planes_s, planes_i, rej, k):
     """Top-k of the R*tile_c class candidates and the exactness certificate
     max(rej) < tau (ties conservatively fail), as the TPU wrapper does."""
     q = planes_s.shape[0]
@@ -370,7 +370,7 @@ def flat_topk_large_plain(corpus, corpus_sqnorms, queries, n_valid,
     cls = torch.arange(tile_c, device=s.device)
     rows = (tile[:, :r_planes] * tile_c + cls).to(torch.int32)
     planes_s, planes_i = _mask_invalid(vals[:, :r_planes], rows)
-    return _finish_large(planes_s, planes_i, vals[:, r_planes], k)
+    return finish_large(planes_s, planes_i, vals[:, r_planes], k)
 
 
 def flat_topk_large(corpus, corpus_sqnorms, queries, n_valid,
@@ -433,7 +433,7 @@ def flat_topk_large(corpus, corpus_sqnorms, queries, n_valid,
         )
     build.check(err, "flat_topr")
     flat_topk_large.launches += 1
-    return _finish_large(planes_s, planes_i, rej, k)
+    return finish_large(planes_s, planes_i, rej, k)
 
 
 flat_topk_large.launches = 0

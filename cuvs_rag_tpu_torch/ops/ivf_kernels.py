@@ -1,0 +1,323 @@
+"""Probed-list scan kernels of IVF-Flat, and their plain PyTorch versions.
+
+The counterpart of the JAX package's `ops/pallas_ivf.py`. Two wrappers,
+one per TPU kernel, each launching a hand-written CUDA kernel
+(`csrc/ivf_scan.cu`) on a CUDA tensor and running its plain version on a
+CPU tensor — never a fallback from one to the other:
+
+  ivf_scan        (K4) replaces ivf_scan_pallas (k <= 32)
+  ivf_scan_large  (K5) replaces ivf_scan_pallas_large (certified large k)
+
+Each wrapper counts its kernel launches in `<wrapper>.launches`.
+
+Input contract (ivf_scan_pallas's, without its 128-alignment asserts):
+sorted_vectors (cap, D) fp32, bf16 or int8 residual rows; sorted_sqnorms
+(cap,) fp32 reconstruction sqnorms, raised past DELETED_THRESHOLD for
+deleted or filtered-out rows; sorted_scales (cap,) fp32 (1.0 for floats);
+queries (Q, D); probe_offsets and probe_counts (Q, P) int32 window starts
+and list lengths; coarse_ip (Q, P) fp32, added for int8 storage only.
+A window is [offset, offset + min(count, window)). Queries are cast to the
+storage dtype (bf16 for int8). Scores are larger-is-better: 2(q.w) - sqn
+(sqeuclidean) or (q.w) - max(sqn - 1e29, 0) (inner product), with q.w
+times the row scale plus coarse_ip for int8. A slot scoring <= -1e29 comes
+back as -inf / -1. Outputs are positions in the sorted layout.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cuvs_rag_tpu_torch.ops import distance as dist_ops
+from cuvs_rag_tpu_torch.ops import flat_kernels
+from cuvs_rag_tpu_torch.ops import topk as topk_ops
+from cuvs_rag_tpu_torch.utils.config import Metric
+
+MAX_KERNEL_K = 32  # K4 keeps a warp-held top-k: one lane per slot
+MAX_LARGE_K = 8192
+MAX_R_PLANES = 64  # past this the insertion chain rivals the window read
+_K4_CHUNK = 256  # window rows per K4 block (csrc/ivf_scan.cu CHUNK)
+_K5_CLASSES = 128  # classes per K5 block (csrc/ivf_scan.cu CLASSES)
+# Shared memory a K5 block may take (query + planes): two blocks per SM.
+_K5_SMEM = 96 * 1024
+_SOURCE = "ivf_scan.cu"
+_COMBO = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# Elements of the gathered (queries, probes, window, D) block per chunk of
+# queries in the plain versions: bounds the fp32 temporary at 1 GiB.
+_PLAIN_ELEMS = 1 << 28
+
+
+def _prepare(vectors, sqnorms, scales, queries, offsets, counts, coarse_ip,
+             window, metric):
+    """Validate; return (queries in the scoring dtype, offsets, counts,
+    coarse) with int32 offsets/counts and fp32 coarse (zeros when None)."""
+    if vectors.ndim != 2 or queries.ndim != 2:
+        raise ValueError("sorted_vectors and queries must be 2-D")
+    if vectors.dtype not in _COMBO:
+        raise ValueError(f"unsupported storage dtype {vectors.dtype}")
+    cap, d = vectors.shape
+    if queries.shape[1] != d:
+        raise ValueError(f"query dim {queries.shape[1]} != layout dim {d}")
+    for name, t in (("sorted_sqnorms", sqnorms), ("sorted_scales", scales)):
+        if t.shape != (cap,) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be ({cap},) float32")
+    shape = (queries.shape[0], offsets.shape[-1])
+    if offsets.shape != shape or counts.shape != shape:
+        raise ValueError(f"probe offsets/counts must be {shape}")
+    if coarse_ip is None:
+        coarse_ip = torch.zeros(shape, dtype=torch.float32,
+                                device=vectors.device)
+    elif coarse_ip.shape != shape:
+        raise ValueError(f"coarse_ip must be {shape}")
+    if window < 1:
+        raise ValueError(f"window must be positive, got {window}")
+    if metric not in (Metric.SQEUCLIDEAN, Metric.INNER_PRODUCT):
+        raise ValueError(f"kernel metric must be sqeuclidean or "
+                         f"inner_product, got {metric!r}")
+    for t in (sqnorms, scales, queries, offsets, counts, coarse_ip):
+        if t.device != vectors.device:
+            raise ValueError(f"tensors on {t.device} and {vectors.device}")
+    return (queries.to(topk_ops.query_dtype(vectors.dtype)),
+            offsets.to(torch.int32), counts.to(torch.int32),
+            coarse_ip.to(torch.float32))
+
+
+def _window_scores_plain(vectors, sqnorms, scales, queries, offsets, counts,
+                         coarse, window, metric):
+    """(Q, P, window) fp32 scores and int32 layout positions of every probed
+    window, -inf past each window's count, as the kernels form them."""
+    cap, d = vectors.shape
+    q_n, p_n = offsets.shape
+    dev = vectors.device
+    col = torch.arange(window, device=dev)
+    scaled = vectors.dtype == torch.int8
+    qf = queries.float()
+    out_s = []
+    step = max(1, _PLAIN_ELEMS // max(1, p_n * window * d))
+    pos = offsets.long()[:, :, None] + col  # (Q, P, window)
+    slots = torch.clamp(pos, max=cap - 1)
+    for q0 in range(0, q_n, step):
+        sl = slots[q0:q0 + step]
+        ip = torch.einsum("qpwd,qd->qpw", vectors[sl].float(), qf[q0:q0 + step])
+        aux0 = sqnorms[sl]
+        if scaled:
+            ip = ip * scales[sl]
+        cf = coarse[q0:q0 + step, :, None]
+        if metric == Metric.SQEUCLIDEAN:
+            s = 2.0 * ip - aux0
+            if scaled:
+                s = s + cf
+        else:
+            s = (ip + cf if scaled else ip) - dist_ops.deletion_penalty(aux0)
+        out_s.append(s)
+    s = torch.cat(out_s)
+    live = col < torch.clamp(counts.long(), max=window)[:, :, None]
+    return (torch.where(live, s, torch.full_like(s, topk_ops.NEG_INF)),
+            pos.to(torch.int32))
+
+
+def _require_cuda(t):
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {t.device}")
+
+
+# ------------------------------------------------------------------- K4 ---
+
+
+def ivf_scan_plain(sorted_vectors, sorted_sqnorms, sorted_scales, queries,
+                   probe_offsets, probe_counts, *, k: int, window: int,
+                   metric: str, coarse_ip=None):
+    """Plain PyTorch version of K4: gather every probed window, score it,
+    top-k. Takes any k (it is also the exact reference for K5)."""
+    q, offs, cnts, coarse = _prepare(
+        sorted_vectors, sorted_sqnorms, sorted_scales, queries, probe_offsets,
+        probe_counts, coarse_ip, window, metric)
+    s, pos = _window_scores_plain(sorted_vectors, sorted_sqnorms,
+                                  sorted_scales, q, offs, cnts, coarse,
+                                  window, metric)
+    q_n = s.shape[0]
+    return topk_ops.merge_topk(s.reshape(q_n, -1), pos.reshape(q_n, -1), k)
+
+
+def ivf_scan(sorted_vectors, sorted_sqnorms, sorted_scales, queries,
+             probe_offsets, probe_counts, *, k: int, window: int,
+             metric: str, coarse_ip=None):
+    """K4: exact top-k (k <= 32) of each query's probed windows. Returns
+    ((Q, k) fp32 scores descending, (Q, k) int32 layout positions).
+
+    Replaces cuvs_rag_tpu/ops/pallas_ivf.py ivf_scan_pallas (`_kernel`,
+    `_window_scores`). It is bound by reading the probed windows' bytes
+    (<= 0.5 GB per batch of 16 at 20 probes of 2,048 x 384 bf16 rows).
+    Blocks over (query x probe x 256-row chunk of the window) put more than
+    nprobe blocks on the card even for one query, take the list count as
+    their loop bound (no dead tail is read; chunks past the count exit at
+    once), score 32 rows per warp with coalesced row reads, and keep a
+    warp-held top-k behind a k-th-best threshold; a merge pass reduces the
+    (query, probe, chunk) partials to (Q, k). Scores stay exact fp32.
+    """
+    if not 1 <= k <= MAX_KERNEL_K:
+        raise ValueError(f"k must be in [1, {MAX_KERNEL_K}], got {k}")
+    if sorted_vectors.device.type == "cpu":
+        return ivf_scan_plain(sorted_vectors, sorted_sqnorms, sorted_scales,
+                              queries, probe_offsets, probe_counts, k=k,
+                              window=window, metric=metric,
+                              coarse_ip=coarse_ip)
+    _require_cuda(sorted_vectors)
+    q, offs, cnts, coarse = _prepare(
+        sorted_vectors, sorted_sqnorms, sorted_scales, queries, probe_offsets,
+        probe_counts, coarse_ip, window, metric)
+    from cuvs_rag_tpu_torch.kernels import build
+
+    dev = sorted_vectors.device
+    q_n, p_n = offs.shape
+    n_chunks = -(-window // _K4_CHUNK)
+    part_s = torch.empty((q_n, p_n * n_chunks, k), dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty((q_n, p_n * n_chunks, k), dtype=torch.int32,
+                         device=dev)
+    out_s = torch.empty((q_n, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q_n, k), dtype=torch.int32, device=dev)
+    args = [q, sorted_vectors, sorted_sqnorms, sorted_scales, offs, cnts,
+            coarse]
+    args = [t.contiguous() for t in args]  # held until the call returns
+    with torch.cuda.device(dev):
+        err = build.load(_SOURCE).ivf_scan_topk(
+            _COMBO[sorted_vectors.dtype], *(t.data_ptr() for t in args),
+            q_n, p_n, sorted_vectors.shape[1], window,
+            int(metric == Metric.SQEUCLIDEAN),
+            int(sorted_vectors.dtype == torch.int8), k, n_chunks,
+            part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
+            out_i.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    build.check(err, "ivf_scan_topk")
+    ivf_scan.launches += 1
+    return out_s, out_i
+
+
+ivf_scan.launches = 0
+
+
+# ------------------------------------------------------------------- K5 ---
+
+
+def large_k_config(window: int, dim: int, k: int):
+    """(n_sub, r_planes) of K5 on the card, or None when K5 does not take
+    this k. A block holds 128 classes of one query whatever the class
+    width, so the width is the whole window (n_sub = 1): splitting it, as
+    the TPU did to fit its VMEM double buffer, would only raise R. R =
+    default_r_planes(k, window) must stay <= MAX_R_PLANES, and the block's
+    query and planes must fit its shared-memory budget."""
+    if not MAX_KERNEL_K < k <= MAX_LARGE_K or window < 1:
+        return None
+    r = flat_kernels.default_r_planes(k, window)
+    if k > r * window or r > MAX_R_PLANES:
+        return None
+    if dim * 4 + r * _K5_CLASSES * 8 > _K5_SMEM:
+        return None
+    return 1, r
+
+
+def _large_args(k, window, n_sub, r_planes):
+    if not 1 <= k <= MAX_LARGE_K:
+        raise ValueError(f"k must be in [1, {MAX_LARGE_K}], got {k}")
+    if n_sub < 1 or window % n_sub:
+        raise ValueError(f"n_sub={n_sub} must divide window={window}")
+    subwin = window // n_sub
+    r_planes = r_planes or flat_kernels.default_r_planes(k, subwin)
+    if r_planes > MAX_R_PLANES:
+        raise ValueError(f"r_planes={r_planes} > {MAX_R_PLANES}")
+    if k > r_planes * subwin:
+        raise ValueError(f"k={k} > r_planes*subwin={r_planes * subwin}")
+    return subwin, r_planes
+
+
+def ivf_scan_large_plain(sorted_vectors, sorted_sqnorms, sorted_scales,
+                         queries, probe_offsets, probe_counts, *, k: int,
+                         window: int, metric: str, coarse_ip=None,
+                         n_sub: int = 1, r_planes: int = 0):
+    """Plain PyTorch version of K5: the same classes (column of the
+    sub-window), each class's R best and its (R+1)-th best (`rej`), then
+    the top-k and the certificate."""
+    subwin, r_planes = _large_args(k, window, n_sub, r_planes)
+    q, offs, cnts, coarse = _prepare(
+        sorted_vectors, sorted_sqnorms, sorted_scales, queries, probe_offsets,
+        probe_counts, coarse_ip, window, metric)
+    s, pos = _window_scores_plain(sorted_vectors, sorted_sqnorms,
+                                  sorted_scales, q, offs, cnts, coarse,
+                                  window, metric)
+    q_n, p_n, _ = s.shape
+    s = s.reshape(q_n, p_n * n_sub, subwin)  # (query, sub-window, class)
+    pos = pos.reshape(q_n, p_n * n_sub, subwin)
+    n_win = s.shape[1]
+    if n_win <= r_planes:  # fewer sub-windows than planes: pad with -inf
+        fill = r_planes + 1 - n_win
+        s = torch.cat([s, torch.full((q_n, fill, subwin), topk_ops.NEG_INF,
+                                     device=s.device)], dim=1)
+        pos = torch.cat([pos, torch.full((q_n, fill, subwin), -1,
+                                         dtype=pos.dtype, device=s.device)],
+                        dim=1)
+    vals, arg = torch.topk(s, r_planes + 1, dim=1)
+    planes_i = torch.gather(pos, 1, arg[:, :r_planes])
+    planes_s, planes_i = flat_kernels._mask_invalid(vals[:, :r_planes],
+                                                    planes_i)
+    return flat_kernels.finish_large(planes_s, planes_i, vals[:, r_planes], k)
+
+
+def ivf_scan_large(sorted_vectors, sorted_sqnorms, sorted_scales, queries,
+                   probe_offsets, probe_counts, *, k: int, window: int,
+                   metric: str, coarse_ip=None, n_sub: int = 1,
+                   r_planes: int = 0):
+    """K5: certified large-k probed scan. Returns ((Q, k) scores descending,
+    (Q, k) layout positions, (Q,) certified bool). certified[q] PROVES row
+    q is the exact top-k of the probed lists (every class kept its R best
+    and the best value it ever displaced, and max(rej) < the k-th score);
+    uncertified rows must be recomputed by the caller.
+
+    Replaces cuvs_rag_tpu/ops/pallas_ivf.py ivf_scan_pallas_large
+    (`_kernel_large`; its VMEM budget `large_k_config` becomes this
+    module's shared-memory one). Bound like K4 by the window bytes once
+    the inserts stay on chip: blocks over (query x 128-class chunk) walk
+    all of the query's probes and sub-windows, so each class lives in one
+    block and needs no cross-block merge, and the planes live in the
+    block's shared memory (planes in global memory measured 2.8x slower on
+    K3). At one query this gives only subwin/128 blocks (16 at window
+    2,048): its occupancy is a known limit. The final top-k and the
+    certificate run in PyTorch, as they ran outside the TPU kernel.
+    """
+    subwin, r_planes = _large_args(k, window, n_sub, r_planes)
+    if sorted_vectors.device.type == "cpu":
+        return ivf_scan_large_plain(
+            sorted_vectors, sorted_sqnorms, sorted_scales, queries,
+            probe_offsets, probe_counts, k=k, window=window, metric=metric,
+            coarse_ip=coarse_ip, n_sub=n_sub, r_planes=r_planes)
+    _require_cuda(sorted_vectors)
+    q, offs, cnts, coarse = _prepare(
+        sorted_vectors, sorted_sqnorms, sorted_scales, queries, probe_offsets,
+        probe_counts, coarse_ip, window, metric)
+    from cuvs_rag_tpu_torch.kernels import build
+
+    dev = sorted_vectors.device
+    q_n, p_n = offs.shape
+    planes_s = torch.empty((q_n, r_planes, subwin), dtype=torch.float32,
+                           device=dev)
+    planes_i = torch.empty((q_n, r_planes, subwin), dtype=torch.int32,
+                           device=dev)
+    rej = torch.empty((q_n, subwin), dtype=torch.float32, device=dev)
+    args = [q, sorted_vectors, sorted_sqnorms, sorted_scales, offs, cnts,
+            coarse]
+    args = [t.contiguous() for t in args]
+    with torch.cuda.device(dev):
+        err = build.load(_SOURCE).ivf_scan_topr(
+            _COMBO[sorted_vectors.dtype], *(t.data_ptr() for t in args),
+            q_n, p_n, sorted_vectors.shape[1], window, n_sub,
+            int(metric == Metric.SQEUCLIDEAN),
+            int(sorted_vectors.dtype == torch.int8), r_planes,
+            planes_s.data_ptr(), planes_i.data_ptr(), rej.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    build.check(err, "ivf_scan_topr")
+    ivf_scan_large.launches += 1
+    return flat_kernels.finish_large(planes_s, planes_i, rej, k)
+
+
+ivf_scan_large.launches = 0

@@ -1,8 +1,9 @@
 """RAG retrieval pipeline: encode → search → assemble context.
 
 The counterpart of the JAX package's `rag/pipeline.py` for one device and
-the exact flat family: query texts are encoded on the index's device, the
-embeddings go to `flat.search` without leaving it, and the returned ids
+the flat and IVF-Flat families: query texts are encoded on the index's
+device, the embeddings go to the family's `search` without leaving it
+(through a filtered view when `allow=` is given), and the returned ids
 become passages. Other families and placements arrive with their ROADMAP
 slices and raise NotImplementedError until then.
 """
@@ -19,8 +20,10 @@ import numpy as np
 import torch
 
 from cuvs_rag_tpu_torch.index import base
+from cuvs_rag_tpu_torch.index import filters
 from cuvs_rag_tpu_torch.index import flat
 from cuvs_rag_tpu_torch.index import io as index_io
+from cuvs_rag_tpu_torch.index import ivf_flat
 from cuvs_rag_tpu_torch.rag import corpus as corpus_mod
 from cuvs_rag_tpu_torch.rag.corpus import Corpus
 from cuvs_rag_tpu_torch.utils import config as config_mod
@@ -28,12 +31,13 @@ from cuvs_rag_tpu_torch.utils.metrics import default_registry as metrics
 
 # What each unported family or placement waits for (ROADMAP.md queue 1).
 _PENDING = {
-    "ivf_flat": "slice 2 (IVF-Flat)",
     "ivf_pq": "slice 3 (IVF-PQ)",
     "cagra": "slice 4 (CAGRA)",
     "shard": "slice 6 (multi-GPU)",
     "replicate": "slice 6 (multi-GPU)",
 }
+
+FAMILIES = {"flat": flat, "ivf_flat": ivf_flat}
 
 _PARAM_CLASSES = (
     "FlatParams", "FlatSearchParams",
@@ -67,7 +71,7 @@ def _require_ported(family: str, placement: str = "single") -> None:
                 f"{key!r} is not ported yet: it arrives with ROADMAP "
                 f"{_PENDING[key]}"
             )
-    if family != "flat":
+    if family not in FAMILIES:
         raise ValueError(f"unknown family {family!r}")
     if placement != "single":
         raise ValueError(f"unknown placement {placement!r}")
@@ -149,25 +153,28 @@ class Retriever:
         if isinstance(emb, np.ndarray):
             emb = np.asarray(emb, dtype=np.float32)
         device = _index_device(device, encoder, emb)
-        params = params if params is not None else config_mod.FlatParams()
-        index = flat.build(params, emb, device=device)
+        params = params if params is not None else _default_params(family)
+        index = FAMILIES[family].build(params, emb, device=device)
         return cls(encoder, index, corpus, family=family,
                    search_params=search_params, params=params)
 
     # -- retrieval -------------------------------------------------------
 
-    def retrieve(self, query: str, k: int = 5) -> RetrievalResult:
-        return self.retrieve_batch([query], k)[0]
+    def retrieve(self, query: str, k: int = 5, allow=None) -> RetrievalResult:
+        return self.retrieve_batch([query], k, allow=allow)[0]
 
-    def retrieve_ids(self, queries: Sequence[str], k: int = 5):
+    def retrieve_ids(self, queries: Sequence[str], k: int = 5, allow=None):
         """Raw-array retrieval: (distances, ids) as (Q, k) numpy arrays with
         no passage assembly."""
-        dists, idx, _ = self._search_arrays(queries, k)
+        dists, idx, _ = self._search_arrays(queries, k, allow)
         return dists, idx
 
-    def retrieve_batch(self, queries: Sequence[str],
-                       k: int = 5) -> List[RetrievalResult]:
-        dists, idx, dt = self._search_arrays(queries, k)
+    def retrieve_batch(self, queries: Sequence[str], k: int = 5,
+                       allow=None) -> List[RetrievalResult]:
+        """`allow` (optional): an (n_passages,) bool mask, numpy or tensor —
+        metadata-filtered retrieval through a filtered view of the index
+        (index/filters.py). Results are always ⊆ allow."""
+        dists, idx, dt = self._search_arrays(queries, k, allow)
         results = []
         per_query = dt / max(len(queries), 1)
         for row in range(len(queries)):
@@ -185,11 +192,14 @@ class Retriever:
                                             query_time_s=per_query))
         return results
 
-    def _search_arrays(self, queries, k):
+    def _search_arrays(self, queries, k, allow=None):
         metrics.inc("retriever.queries", len(queries))
         t0 = time.time()
         q = encode_on_device(self.encoder, list(queries), self.index.device)
-        dists, idx = flat.search(self.search_params, self.index, q, k)
+        index = self.index if allow is None \
+            else filters.filtered_view(self.index, allow)
+        dists, idx = FAMILIES[self.family].search(self.search_params, index,
+                                                  q, k)
         dists, idx = dists.cpu().numpy(), idx.cpu().numpy()
         dt = time.time() - t0
         metrics.observe("retriever.batch_seconds", dt)
@@ -295,7 +305,7 @@ class Retriever:
         # Build the new index first: if it rejects the rows, the corpus must
         # not have grown. The index is swapped last, so a reader that sees
         # the new index finds the passages already appended.
-        new_index = flat.extend(self.index, vectors)
+        new_index = FAMILIES[self.family].extend(self.index, vectors)
         start = len(self.corpus.passages)
         if titles is not None and self.corpus.titles is None:
             self.corpus.titles = [""] * start
@@ -319,7 +329,7 @@ class Retriever:
 
     def delete(self, ids) -> None:
         """Remove passages by corpus index (tombstone; id-stable)."""
-        self.index = flat.delete(self.index, ids)
+        self.index = FAMILIES[self.family].delete(self.index, ids)
 
     def assemble_context(self, query: str, k: int = 5,
                          separator: str = "\n\n") -> str:
@@ -327,3 +337,10 @@ class Retriever:
         prompt context block."""
         res = self.retrieve(query, k)
         return separator.join(p.text for p in res.passages)
+
+
+def _default_params(family: str):
+    return {
+        "flat": config_mod.FlatParams(),
+        "ivf_flat": config_mod.IVFFlatParams(),
+    }[family]

@@ -22,9 +22,11 @@ from cuvs_rag_tpu.models import encoder as jenc
 from cuvs_rag_tpu.models import flax_encoder as fe
 from cuvs_rag_tpu.rag.corpus import Corpus as JCorpus
 from cuvs_rag_tpu.rag.pipeline import Retriever as JRetriever
+from cuvs_rag_tpu.utils import config as jconfig
 from cuvs_rag_tpu_torch.models import bert_encoder as be
 from cuvs_rag_tpu_torch.rag.corpus import Corpus
 from cuvs_rag_tpu_torch.rag.pipeline import Retriever
+from cuvs_rag_tpu_torch.utils import config as tconfig
 from torch_parity import compare_topk
 
 torch.set_num_threads(1)
@@ -126,11 +128,67 @@ def test_save_load_round_trip_and_cross_load(pair, encoders, tmp_path):
     _assert_same(tr, jloaded, queries, 8)
 
 
+@pytest.mark.parametrize("k", [5, 40])
+def test_jax_ivf_flat_retriever_loads_in_the_port(encoders, tmp_path, k):
+    """A JAX Retriever(family="ivf_flat") saved to disk and loaded by the
+    port returns the same passages (k = 5 runs K4's path, k = 40 K5's)."""
+    jencoder, tencoder = encoders
+    passages = _passages()
+    jr = JRetriever.build(
+        JCorpus(passages=list(passages)), jencoder, family="ivf_flat",
+        params=jconfig.IVFFlatParams(n_lists=8),
+        search_params=jconfig.IVFFlatSearchParams(n_probes=3))
+    jr.delete([1, 6])
+    jr.save(str(tmp_path / "jax_ivf"))
+    tr = Retriever.load(str(tmp_path / "jax_ivf"), tencoder)
+    assert tr.family == "ivf_flat" and tr.index.n_lists == 8
+    assert tr.search_params == tconfig.IVFFlatSearchParams(n_probes=3)
+    queries = _queries(passages)
+    _assert_same(tr, jr, queries, k)
+    ids = tr.retrieve_ids(queries, k)[1]
+    assert not np.isin(ids, [1, 6]).any()
+    # the port's own ivf_flat Retriever extends and saves for the JAX one
+    assert list(tr.extend(["fresh text t3 t4"])) == [240]
+    tr.save(str(tmp_path / "torch_ivf"))
+    back = JRetriever.load(str(tmp_path / "torch_ivf"), jencoder)
+    _assert_same(tr, back, queries + ["fresh text t3 t4"], k)
+
+
+_PARAMS = {"flat": "FlatParams", "ivf_flat": "IVFFlatParams"}
+
+
+@pytest.mark.parametrize("family", ["flat", "ivf_flat"])
+def test_allow_filtered_retrieval_matches_jax(encoders, family):
+    """retrieve/retrieve_ids/retrieve_batch with allow= keep to the mask and
+    return the JAX Retriever's passages."""
+    jencoder, tencoder = encoders
+    passages = _passages()
+    kw = {} if family == "flat" else dict(n_lists=8)
+    jr = JRetriever.build(JCorpus(passages=list(passages)), jencoder,
+                          family=family,
+                          params=getattr(jconfig, _PARAMS[family])(**kw))
+    tr = Retriever.build(Corpus(passages=list(passages)), tencoder,
+                         family=family,
+                         params=getattr(tconfig, _PARAMS[family])(**kw))
+    allow = np.arange(len(passages)) % 2 == 1
+    queries = _queries(passages)
+    d, i = tr.retrieve_ids(queries, 8, allow=allow)
+    rd, ri = jr.retrieve_ids(queries, 8, allow=allow)
+    compare_topk(-d, i, -rd, ri, **TOL)
+    assert allow[i[i >= 0]].all()
+    res = tr.retrieve(passages[3], 4, allow=allow)
+    assert res.passages[0].index == 3
+    assert all(p.index % 2 == 1 for p in res.passages)
+    batch = tr.retrieve_batch(passages[:2], 4, allow=torch.from_numpy(allow))
+    assert 0 not in [p.index for p in batch[0].passages]
+    assert batch[1].passages[0].index == 1
+
+
 def test_unported_families_and_placements_raise(encoders):
     _, tencoder = encoders
     corpus = Corpus(passages=["a", "b"])
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        Retriever.build(corpus, tencoder, family="ivf_flat")
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        Retriever.build(corpus, tencoder, family="ivf_pq")
     with pytest.raises(NotImplementedError, match="slice 6"):
         Retriever.build(corpus, tencoder, placement="shard")
 
@@ -161,7 +219,8 @@ def test_import_leaves_jax_out():
         "from cuvs_rag_tpu_torch.rag import pipeline\n"
         "from cuvs_rag_tpu_torch.models import bert_encoder, encoder\n"
         "from cuvs_rag_tpu_torch.kernels import build\n"
-        "from cuvs_rag_tpu_torch.index import io\n"
+        "from cuvs_rag_tpu_torch.index import io, filters, ivf_flat\n"
+        "from cuvs_rag_tpu_torch.eval import recall\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'cuvs_rag_tpu')]\n"
         "assert not bad, bad\n"
