@@ -27,8 +27,25 @@ is non-zero):
                delete, extend and allow-filtered retrieve.
      The kernels' launch counters are set to 0 just before each main path
      and read just after it.
-  7. timing  — each kernel against its plain version at the main paths'
-               shapes (CUDA events), then the kernels JSON line.
+  7. pq_parity — the ADC window-scan kernel (K6) against its plain version
+               on 1,048,576-row IVF-PQ indexes at default params in both
+               packed code forms (two-level 8-bit with the cross-term
+               correction, 4-bit without), 1% of rows deleted, and on a
+               ragged index with empty lists and a list of one row; 16
+               queries and one query.
+  8. pq_main — the IVF-PQ retrieval path on the same 6.29M corpus:
+               Retriever.build(family="ivf_pq") at default params, 64
+               retrieve_batch at refine_ratio 2 and 64 with recall@10
+               against the flat results, delete, extend in place and past a
+               list's region (the re-layout), allow-filtered retrieve; then
+               out of core: build_from_chunks(store_raw=False) fed from a
+               MemmapStore in a temporary directory, retrieve_batch
+               re-ranking on the host from that store, save and load.
+  9. timing  — each kernel against its plain version at the main paths'
+               shapes (CUDA events) beside its bound (the larger of this
+               run's bytes over H100_BYTES_PER_S and its operations over the
+               peak rate of their type) and, for K1, one library call; then
+               the kernels JSON line.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -52,6 +69,7 @@ SOURCES = {
     "flat_topk_large": "cuvs_rag_tpu_torch/csrc/flat_topk.cu",
     "ivf_scan": "cuvs_rag_tpu_torch/csrc/ivf_scan.cu",
     "ivf_scan_large": "cuvs_rag_tpu_torch/csrc/ivf_scan.cu",
+    "pq_adc_scores": "cuvs_rag_tpu_torch/csrc/pq_adc.cu",
 }
 REPLACES = {
     "flat_topk_exact": "cuvs_rag_tpu/ops/pallas_flat.py:166",
@@ -59,9 +77,15 @@ REPLACES = {
     "flat_topk_large": "cuvs_rag_tpu/ops/pallas_flat.py:275",
     "ivf_scan": "cuvs_rag_tpu/ops/pallas_ivf.py:92",
     "ivf_scan_large": "cuvs_rag_tpu/ops/pallas_ivf.py:314",
+    "pq_adc_scores": "cuvs_rag_tpu/ops/pallas_pq.py:62",
 }
 FLAT_KERNELS = ("flat_topk_exact", "flat_topk_sketch", "flat_topk_large")
 IVF_KERNELS = ("ivf_scan", "ivf_scan_large")
+PQ_KERNELS = ("pq_adc_scores",)
+# The H100 SXM's published peaks (NVIDIA's data sheet, dense, at the full
+# 700 W limit): the yardsticks of every kernel's bound.
+H100_BYTES_PER_S = 3.35e12
+H100_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 D = 384
 # The workload: the reference's FAISS Wikipedia corpus, 4,096 planted
 # passages checked in 64 batches of 16, and the parity corpora.
@@ -82,6 +106,17 @@ K_LARGE = 2000
 # order, so they agree to rounding; ids agree as sets up to swaps among
 # scores tied (within this tolerance) with the k-th.
 TOL = dict(rtol=1e-5, atol=1e-3)
+# K6 vs plain: the same fp32 table entries summed in another order (the
+# reference's own tolerance); ids and the -inf pattern must be equal.
+PQ_TOL = dict(rtol=1e-5, atol=1e-4)
+REFINE_TUNED = 64  # the reference's tuned refine_ratio for IVF-PQ
+# IVF-PQ gates (see pq_main_path): recall@10 against flat at REFINE_TUNED on
+# queries drawn like the corpus, and the loose floors of the planted clump
+PQ_RECALL_FLOOR = 0.9
+PQ_MIN_REACHABLE = 0.75
+PQ_MIN_TOP1 = 0.25
+OOC_CHUNKS = 10  # chunks of the out-of-core build (divides ROWS)
+OOC_BATCHES = 16  # planted batches re-ranked on the host
 
 
 def emit(phase: str, **fields) -> None:
@@ -100,8 +135,10 @@ def kernel_fns():
     """Each wrapper by name, with its plain version."""
     from cuvs_rag_tpu_torch.ops import flat_kernels as fk
     from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
+    from cuvs_rag_tpu_torch.ops import pq_kernels as pk
 
-    mods = {**{n: fk for n in FLAT_KERNELS}, **{n: ik for n in IVF_KERNELS}}
+    mods = {**{n: fk for n in FLAT_KERNELS}, **{n: ik for n in IVF_KERNELS},
+            **{n: pk for n in PQ_KERNELS}}
     return {n: (getattr(m, n), getattr(m, n + "_plain"))
             for n, m in mods.items()}
 
@@ -318,6 +355,108 @@ def ivf_parity_phase(n_rows: int, seed: int, device="cuda",
     return out
 
 
+def pq_scan_args(ix, q):
+    """K6's arguments for queries `q` at N_PROBES probes, formed as
+    ivf_pq.search_scores forms them: (codes, row ids, correction or None,
+    tables, window offsets, list counts, coarse scores)."""
+    from cuvs_rag_tpu_torch.index import ivf_pq
+    from cuvs_rag_tpu_torch.ops import ivf as ivf_ops
+    from cuvs_rag_tpu_torch.ops import pq as pq_ops
+
+    qp = ivf_pq._prep_queries(ix, q)
+    coarse, probes = ivf_ops.probe_lists(
+        qp, ix.centroids, ix.centroid_sqnorms, min(N_PROBES, ix.n_lists),
+        ix.metric)
+    luts = pq_ops.probe_luts(qp, probes, ix.centroids, ix.codebooks,
+                             ix.metric, levels=ix.levels)
+    p = probes.long()
+    return (ix.codes, ix.row_ids, ix.norm_corr if ix.levels == 2 else None,
+            luts.contiguous(), ix.list_offsets[p], ix.list_counts[p], coarse)
+
+
+def ragged_pq_index(x, gen, device):
+    """`ragged_ivf_index`'s layout (250 empty lists, six of 1 to 1,500 rows)
+    as a two-level IVF-PQ index: codebooks trained on a sample's residuals,
+    every slot of the layout encoded against its list's centroid."""
+    import torch
+
+    from cuvs_rag_tpu_torch.index import ivf_pq
+    from cuvs_rag_tpu_torch.ops import ivf as ivf_ops
+    from cuvs_rag_tpu_torch.utils.config import IVFPQParams
+
+    flat_ix, q = ragged_ivf_index(x, gen, device)
+    params = IVFPQParams()
+    m = ivf_pq.default_pq_dim(D)
+    rotation, codebooks, levels = ivf_pq._train_pq_quantizers(
+        params, x[:20_000].float(), flat_ix.centroids, gen, m=m,
+        n_codes=2 ** params.pq_bits)
+    _, label_of_slot = ivf_ops.invert_layout(
+        flat_ix.row_ids, flat_ix.list_offsets, flat_ix.n_valid)
+    codes, corr = ivf_pq._encode_rows(flat_ix.vectors, label_of_slot,
+                                      flat_ix.centroids, codebooks, None,
+                                      levels)
+    return ivf_pq.IVFPQIndex(
+        codes=codes.T.contiguous(), row_ids=flat_ix.row_ids,
+        centroids=flat_ix.centroids,
+        centroid_sqnorms=flat_ix.centroid_sqnorms, codebooks=codebooks,
+        list_offsets=flat_ix.list_offsets, list_counts=flat_ix.list_counts,
+        raw_vectors=flat_ix.vectors, raw_sqnorms=flat_ix.sqnorms,
+        norm_corr=corr, rotation=rotation, n_valid=flat_ix.n_valid,
+        metric=flat_ix.metric, max_list_size=flat_ix.max_list_size, dim=D,
+        levels=levels), q
+
+
+def pq_parity_phase(n_rows: int, seed: int, device="cuda") -> dict:
+    """K6 vs its plain version at N_PROBES probes, for 16 queries and for
+    one: on IVF-PQ indexes (default params, no raw store) of a clustered
+    `n_rows`-row corpus in both packed code forms, two-level 8-bit (with
+    the cross-term correction) and 4-bit (without), 1% of rows deleted, and
+    on `ragged_pq_index`. Row ids and the -inf pattern must be equal; scores
+    within PQ_TOL."""
+    import torch
+
+    from cuvs_rag_tpu_torch.index import ivf_pq
+    from cuvs_rag_tpu_torch.ops import pq_kernels as pk
+    from cuvs_rag_tpu_torch.utils.config import IVFPQParams
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    centres = make_centres(gen, device)
+    x = clustered_rows(n_rows, centres, gen, device)
+    q = torch.cat([x[:8] + 0.02 * make_rows(8, D, gen, device),
+                   clustered_rows(8, centres, gen, device)])
+    cases = []
+    for name, kw in (("two_level", {}), ("four_bit", dict(pq_bits=4))):
+        ix = ivf_pq.build(IVFPQParams(store_raw=False, **kw), x, seed=seed)
+        cases.append((name, ivf_pq.delete(
+            ix, torch.arange(3, n_rows, 100, device=device)), q))
+    cases.append(("ragged",) + ragged_pq_index(x, gen, device))
+    del x
+    out = {"k6": 0.0, "cases": 0, "windows": {}, "streams": {},
+           "live_slots": {}}
+    for name, ix, qs in cases:
+        window = ix.max_list_size
+        out["windows"][name] = window
+        out["streams"][name] = ix.codes.shape[0]
+        for sub in (qs, qs[:1]):
+            args = pq_scan_args(ix, sub)
+            s, i = pk.pq_adc_scores(*args, window=window)
+            torch.cuda.synchronize()
+            ps, pi = pk.pq_adc_scores_plain(*args, window=window)
+            if not torch.equal(i, pi):
+                raise AssertionError(f"K6 row ids differ from plain ({name})")
+            live = torch.isfinite(ps)
+            if not torch.equal(torch.isfinite(s), live) \
+                    or not torch.equal(live, pi >= 0):
+                raise AssertionError(f"K6 -inf pattern differs ({name})")
+            if not live.any() or live.all():
+                raise AssertionError(f"{name}: no live or no dead slot")
+            torch.testing.assert_close(s[live], ps[live], **PQ_TOL)
+            out["k6"] = max(out["k6"], float((s[live] - ps[live]).abs().max()))
+            out["live_slots"][f"{name}_{sub.shape[0]}q"] = int(live.sum())
+            out["cases"] += 1
+    return out
+
+
 # ------------------------------------------------------------ main paths ---
 
 
@@ -434,6 +573,87 @@ def main_path(enc, emb, passages, planted, texts, rng):
     return out, retriever, np.asarray(flat_ids)
 
 
+def reachability(enc, ix, planted, texts, probe_fn, min_top1: float = 1.0):
+    """(probed, check_reachable) for an IVF-family index `ix`: whether each
+    planted query's row lies in one of the lists `probe_fn(queries)` probes,
+    and the top-1 check of the results whose row does. check_reachable
+    returns (rows reachable, rows at top-1 within 0.05); it raises at the
+    first miss when `min_top1` is 1 (an exact scan of the probed lists
+    cannot miss), and the caller holds the share otherwise."""
+    import torch
+
+    from cuvs_rag_tpu_torch.ops import ivf as ivf_ops
+
+    dev = ix.device
+    slot_of, label_of_slot = ivf_ops.invert_layout(ix.row_ids,
+                                                   ix.list_offsets, ROWS)
+    planted_t = torch.as_tensor(planted, device=dev)
+    list_of = label_of_slot[slot_of[planted_t.long()].long()]
+
+    def probed(numbers):
+        q = enc.encode_device([texts[i] for i in numbers])
+        sel = torch.as_tensor(list(numbers), device=dev)
+        return (probe_fn(q) == list_of[sel][:, None]).any(dim=1).tolist()
+
+    def check_reachable(results, numbers):
+        reachable = hits = 0
+        for res, i, ok in zip(results, numbers, probed(numbers)):
+            if not ok:
+                continue
+            reachable += 1
+            if min_top1 >= 1.0:
+                check_top1([res], [int(planted[i])])
+            top = res.passages[0] if res.passages else None
+            hits += bool(top and top.index == int(planted[i])
+                         and top.distance < 0.05)
+        return reachable, hits
+
+    return probed, check_reachable
+
+
+def planted_sweep(retriever, planted, texts, check_reachable,
+                  min_top1: float = 1.0, batches: int = 0,
+                  min_reachable: float = 0.99):
+    """The first `batches` planted batches at k = 10: (rows reachable, rows
+    at top-1, (Q, 10) ids); all BATCHES when `batches` is 0. At least
+    `min_reachable` must be reachable, and `min_top1` of those at top-1."""
+    batches = batches or BATCHES
+    reachable, hits, ids = 0, 0, []
+    for sel in planted_batches()[:batches]:
+        results = retriever.retrieve_batch([texts[i] for i in sel], k=10)
+        r, h = check_reachable(results, sel)
+        reachable, hits = reachable + r, hits + h
+        ids += [[p.index for p in r.passages]
+                + [-1] * (10 - len(r.passages)) for r in results]
+    if reachable < min_reachable * batches * BATCH \
+            or hits < min_top1 * reachable:
+        raise AssertionError(
+            f"of {batches * BATCH} planted rows {reachable} lie in a probed "
+            f"list and {hits} are at top-1")
+    return reachable, hits, np.asarray(ids)
+
+
+def filtered_checks(retriever, planted, texts, first):
+    """Two allow= retrievals: every id not divisible by 3 is allowed, one
+    planted row excluded and another allowed. Results must stay inside the
+    mask, the excluded row must not return, the allowed one keeps top-1."""
+    allow = np.arange(len(retriever.corpus.passages)) % 3 != 0
+    excluded, kept = int(planted[first[0]]), int(planted[first[1]])
+    allow[excluded], allow[kept] = False, True
+
+    def filtered_ids(i):
+        ids = [p.index for p in retriever.retrieve(texts[i], k=10,
+                                                   allow=allow).passages]
+        if not ids or not allow[ids].all():
+            raise AssertionError(f"filtered results {ids} leave the mask")
+        return ids
+
+    if excluded in filtered_ids(first[0]):
+        raise AssertionError("a row the mask excludes came back")
+    if filtered_ids(first[1])[0] != kept:
+        raise AssertionError("an allowed planted row lost its top-1")
+
+
 def ivf_main_path(enc, emb, passages, planted, texts, flat_ids, rng):
     """The IVF-Flat path at N_PROBES probes. A planted query's top-1 must be
     its row whenever that row's list is among the query's probed lists, and
@@ -443,12 +663,10 @@ def ivf_main_path(enc, emb, passages, planted, texts, flat_ids, rng):
 
     from cuvs_rag_tpu_torch.eval.recall import recall_at_k
     from cuvs_rag_tpu_torch.index import ivf_flat
-    from cuvs_rag_tpu_torch.ops import ivf as ivf_ops
     from cuvs_rag_tpu_torch.rag.corpus import Corpus
     from cuvs_rag_tpu_torch.rag.pipeline import Retriever
     from cuvs_rag_tpu_torch.utils.config import IVFFlatParams
 
-    dev = emb.device
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     retriever = Retriever.build(
@@ -457,39 +675,16 @@ def ivf_main_path(enc, emb, passages, planted, texts, flat_ids, rng):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     ix = retriever.index
-    slot_of, label_of_slot = ivf_ops.invert_layout(ix.row_ids,
-                                                   ix.list_offsets, ROWS)
-    planted_t = torch.as_tensor(planted, device=dev)
-    list_of = label_of_slot[slot_of[planted_t.long()].long()]
-
-    def probed(numbers):
-        """Whether each planted query's row is in one of its probed lists."""
-        q = enc.encode_device([texts[i] for i in numbers])
-        probes, _ = ivf_flat.probe(ix, q, N_PROBES)
-        sel = torch.as_tensor(list(numbers), device=dev)
-        return (probes == list_of[sel][:, None]).any(dim=1).tolist()
-
-    def check_reachable(results, numbers):
-        hits = 0
-        for res, i, ok in zip(results, numbers, probed(numbers)):
-            if ok:
-                check_top1([res], [int(planted[i])])
-                hits += 1
-        return hits
+    probed, check_reachable = reachability(
+        enc, ix, planted, texts,
+        lambda q: ivf_flat.probe(ix, q, N_PROBES)[0])
 
     reset_launches()
     reruns0 = counter("ivf_flat.certificate_reruns")
-    reachable, ivf_ids = 0, []
-    for sel in planted_batches():
-        results = retriever.retrieve_batch([texts[i] for i in sel], k=10)
-        reachable += check_reachable(results, sel)
-        ivf_ids += [[p.index for p in r.passages]
-                    + [-1] * (10 - len(r.passages)) for r in results]
+    reachable, _, ivf_ids = planted_sweep(retriever, planted, texts,
+                                          check_reachable)
     n_checked = BATCHES * BATCH
-    if reachable < 0.99 * n_checked:
-        raise AssertionError(f"only {reachable}/{n_checked} planted rows lie "
-                             "in a probed list")
-    recall = recall_at_k(np.asarray(ivf_ids), flat_ids, 10)
+    recall = recall_at_k(ivf_ids, flat_ids, 10)
     # the checks below use planted queries whose rows are reachable
     first = [i for i, ok in enumerate(probed(range(64))) if ok][:4]
     res = retriever.retrieve(texts[first[0]], k=K_LARGE)
@@ -504,23 +699,7 @@ def ivf_main_path(enc, emb, passages, planted, texts, flat_ids, rng):
     new_text = "an extended passage " + " ".join(rng.choice([f"y{i}" for i in range(999)], 50))
     new_ids = retriever.extend([new_text])
     check_top1([retriever.retrieve(new_text, k=10)], [new_ids[0]])
-    # allow every id not divisible by 3, then exclude one planted row and
-    # allow another
-    allow = np.arange(len(retriever.corpus.passages)) % 3 != 0
-    excluded, kept = int(planted[first[2]]), int(planted[first[3]])
-    allow[excluded], allow[kept] = False, True
-
-    def filtered_ids(i):
-        ids = [p.index for p in retriever.retrieve(texts[i], k=10,
-                                                   allow=allow).passages]
-        if not ids or not allow[ids].all():
-            raise AssertionError(f"filtered results {ids} leave the mask")
-        return ids
-
-    if excluded in filtered_ids(first[2]):
-        raise AssertionError("a row the mask excludes came back")
-    if filtered_ids(first[3])[0] != kept:
-        raise AssertionError("an allowed planted row lost its top-1")
+    filtered_checks(retriever, planted, texts, first[2:4])
     launches = read_launches(IVF_KERNELS)
     out = {
         "rows": ROWS, "n_lists": ix.n_lists,
@@ -532,6 +711,216 @@ def ivf_main_path(enc, emb, passages, planted, texts, flat_ids, rng):
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     return out, retriever
+
+
+def pq_main_path(enc, emb, passages, planted, texts, flat_ids, flat_index,
+                 rng):
+    """The IVF-PQ path at default params and N_PROBES probes, in core and
+    out of core.
+
+    What is held exactly: with refine every returned distance is the exact
+    distance of the returned row, ascending; deleted rows never return;
+    filtered results stay inside the mask; a row added by extend is found;
+    a saved and loaded retriever answers the same. What is held by share:
+    on 1,024 queries drawn like the corpus (noisy copies of its rows) the
+    source row is top-1 for >= 99% and recall@10 against flat is >=
+    PQ_RECALL_FLOOR at REFINE_TUNED. The planted rows are held loosely
+    (PQ_MIN_REACHABLE, PQ_MIN_TOP1) and their shares reported: they are one
+    clump of 4,096 rows far tighter than the residuals the codebooks are
+    trained on, larger than the eight lists a row may spill to can hold at
+    the balance cap, and builds differ from run to run (the k-means
+    products are not bit-reproducible), so between runs all 1,024 came
+    first, or 934 of 975 reachable ones, or only 595 of 990. Returns (fields, in-core
+    retriever, out-of-core retriever); the out-of-core retriever's store
+    lives in a temporary directory that `fields["tmp"]` keeps alive."""
+    import tempfile
+
+    import torch
+
+    from cuvs_rag_tpu_torch.eval.recall import recall_at_k
+    from cuvs_rag_tpu_torch.index import flat, ivf_pq
+    from cuvs_rag_tpu_torch.ops import ivf as ivf_ops
+    from cuvs_rag_tpu_torch.rag import host_store
+    from cuvs_rag_tpu_torch.rag.corpus import Corpus
+    from cuvs_rag_tpu_torch.rag.pipeline import Retriever
+    from cuvs_rag_tpu_torch.utils.config import IVFPQParams, IVFPQSearchParams
+
+    def probe_fn(ix):
+        return lambda q: ivf_ops.probe_lists(
+            ivf_pq._prep_queries(ix, q), ix.centroids, ix.centroid_sqnorms,
+            N_PROBES, ix.metric)[1]
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    retriever = Retriever.build(
+        Corpus(passages=list(passages), embeddings=emb), enc,
+        family="ivf_pq", params=IVFPQParams())
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ix = retriever.index
+    if not (ix.levels == 2 and ix.codes_packed and ix.has_raw):
+        raise AssertionError("default params must give packed two-level "
+                             "codes with a raw store")
+    out = {"rows": ROWS, "n_lists": ix.n_lists, "pq_dim": ix.pq_dim,
+           "code_bytes_per_row": ix.codes.shape[0],
+           "max_list": int(ix.list_counts.max()), "window": ix.max_list_size,
+           "build_s": build_s, "n_probes": N_PROBES}
+    probed, check_reachable = reachability(enc, ix, planted, texts,
+                                           probe_fn(ix), PQ_MIN_TOP1)
+    loose = dict(min_top1=PQ_MIN_TOP1, min_reachable=PQ_MIN_REACHABLE)
+
+    reset_launches()
+    # default search params (refine_ratio 2): top-1 counted, not gated
+    default_ids, top1 = [], 0
+    for sel in planted_batches():
+        results = retriever.retrieve_batch([texts[i] for i in sel], k=10)
+        top1 += sum(bool(r.passages) and r.passages[0].index == int(planted[i])
+                    for r, i in zip(results, sel))
+        default_ids += [[p.index for p in r.passages]
+                        + [-1] * (10 - len(r.passages)) for r in results]
+    out["top1_at_default_refine"] = top1
+    out["recall_at_10_vs_flat_default_refine"] = recall_at_k(
+        np.asarray(default_ids), flat_ids, 10)
+    retriever.search_params = IVFPQSearchParams(n_probes=N_PROBES,
+                                                refine_ratio=REFINE_TUNED)
+    out["reachable"], out["top1_at_refine_64"], tuned_ids = planted_sweep(
+        retriever, planted, texts, check_reachable, **loose)
+    # refined distances are exact: ||q - row||² of the returned rows
+    sel = planted_batches()[0]
+    q = enc.encode_device([texts[i] for i in sel])
+    dist, ids = retriever.retrieve_ids([texts[i] for i in sel], 10)
+    exact = ((q[:, None, :] - emb[torch.as_tensor(ids, device=emb.device)
+                                  .clamp(min=0).long()].float()) ** 2).sum(-1)
+    if (ids < 0).any() or not np.allclose(dist, exact.cpu().numpy(),
+                                          rtol=1e-4, atol=1e-4) \
+            or (np.diff(dist, axis=1) < -1e-6).any():
+        raise AssertionError("refined distances are not the exact ones")
+    out["queries_checked"] = 2 * BATCHES * BATCH
+    out["recall_at_10_vs_flat_refine_64"] = recall_at_k(tuned_ids, flat_ids, 10)
+    # the planted queries' neighbours are the other planted rows, whose
+    # codes nearly tie: no floor, but the wider pool must not lose
+    if out["recall_at_10_vs_flat_refine_64"] \
+            < out["recall_at_10_vs_flat_default_refine"]:
+        raise AssertionError(f"recall@10 against flat: {out}")
+    # the same two pools on queries drawn like the corpus: noisy copies of
+    # 1,024 of its rows, searched through the index modules directly
+    gen_q = torch.Generator(device=emb.device).manual_seed(11)
+    src = torch.randint(0, ROWS, (1024,), generator=gen_q, device=emb.device)
+    qs = torch.nn.functional.normalize(
+        emb[src].float() + 0.02 * make_rows(1024, D, gen_q, emb.device), dim=1)
+    _, want = flat.search(None, flat_index, qs, 10)
+    for name, ratio in (("default_refine", 2), ("refine_64", REFINE_TUNED)):
+        sp = IVFPQSearchParams(n_probes=N_PROBES, refine_ratio=ratio)
+        got = torch.cat([ivf_pq.search(sp, ix, qs[i:i + BATCH], 10)[1]
+                         for i in range(0, 1024, BATCH)])
+        out[f"corpus_like_recall_at_10_{name}"] = recall_at_k(
+            got.cpu().numpy(), want.cpu().numpy(), 10)
+        out[f"corpus_like_top1_{name}"] = int((got[:, 0] == src).sum())
+    if out["corpus_like_recall_at_10_refine_64"] < PQ_RECALL_FLOOR \
+            or out["corpus_like_top1_refine_64"] < 0.99 * 1024:
+        raise AssertionError(f"recall on corpus-like queries: {out}")
+
+    # the checks below use planted queries that this index answers from
+    # a pool of 20 already: far from the edge of the pool of 640
+    default_ids = np.asarray(default_ids)
+    first = [i for i, ok in enumerate(probed(range(min(256, len(tuned_ids)))))
+             if ok and default_ids[i, 0] == int(planted[i])
+             and tuned_ids[i, 0] == int(planted[i])][:4]
+    gone_row = int(planted[first[0]])
+    retriever.delete([gone_row])
+
+    def gone_stays_gone():
+        got = [p.index for p in
+               retriever.retrieve(texts[first[0]], k=10).passages]
+        if gone_row in got:
+            raise AssertionError("deleted row came back")
+
+    gone_stays_gone()
+    new_text = "an extended passage " + " ".join(rng.choice([f"z{i}" for i in range(999)], 50))
+    codes_before = retriever.index.codes
+    new_ids = retriever.extend([new_text])
+    # in place unless the row's list had no slack left in its region
+    out["one_row_extend_in_place"] = \
+        retriever.index.codes.data_ptr() == codes_before.data_ptr()
+
+    def new_row_is_found():
+        """With every other row masked out the new passage is found: the
+        mask keeps the planted clump out of its ADC pool."""
+        allow = np.zeros(len(retriever.corpus.passages), bool)
+        allow[new_ids[0]] = True
+        check_top1([retriever.retrieve(new_text, k=10, allow=allow)],
+                   [new_ids[0]])
+
+    new_row_is_found()
+    filtered_checks(retriever, planted, texts, first[2:4])
+    # 1,500 near-copies of one row outgrow its list's region: the layout is
+    # rebuilt with headroom and the tombstone is applied again
+    burst = emb[int(planted[first[1]])].float() \
+        + 1e-3 * make_rows(1500, D, torch.Generator(device=emb.device)
+                           .manual_seed(7), emb.device)
+    window_before = retriever.index.max_list_size
+    burst_ids = retriever.extend(vectors=burst)
+    if retriever.index.max_list_size <= window_before:
+        raise AssertionError("the burst did not force a re-layout")
+    out["window_after_relayout"] = retriever.index.max_list_size
+    gone_stays_gone()
+    new_row_is_found()
+    got = retriever.retrieve(texts[first[1]], k=10).passages
+    if not set(p.index for p in got) & (set(burst_ids)
+                                        | {int(planted[first[1]])}):
+        raise AssertionError("rows of the burst are not found after the "
+                             "re-layout")
+    out["launches"] = read_launches(PQ_KERNELS)
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # out of core: codes on the card, raw rows in a disk-backed store
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_store_")
+    rows = ROWS // OOC_CHUNKS
+    t0 = time.perf_counter()
+    store = host_store.materialize_from_chunks(
+        os.path.join(tmp.name, "emb.bin"), lambda i: emb[i * rows:(i + 1) * rows],
+        ROWS, D, OOC_CHUNKS)
+    out["store_write_s"] = time.perf_counter() - t0
+    store = host_store.MemmapStore.open(store.path)
+    params = IVFPQParams(store_raw=False)
+    t0 = time.perf_counter()
+    ooc_ix = ivf_pq.build_from_chunks(
+        params, lambda i: store.chunk(i, rows), ROWS, D, n_chunks=OOC_CHUNKS)
+    torch.cuda.synchronize()
+    out["ooc_build_s"] = time.perf_counter() - t0
+    if ooc_ix.has_raw or ooc_ix.device != emb.device:
+        raise AssertionError("the out-of-core index must hold codes only, "
+                             "on the card")
+    out["ooc_index_gb"] = sum(
+        getattr(ooc_ix, f).numel() * getattr(ooc_ix, f).element_size()
+        for f in ivf_pq.IVFPQIndex._tensor_fields) / 1e9
+    ooc = Retriever(enc, ooc_ix, Corpus(passages=list(passages),
+                                        embeddings=store),
+                    family="ivf_pq", params=params,
+                    search_params=IVFPQSearchParams(
+                        n_probes=N_PROBES, refine_ratio=REFINE_TUNED))
+    _, ooc_check = reachability(enc, ooc_ix, planted, texts, probe_fn(ooc_ix),
+                                PQ_MIN_TOP1)
+    launches0 = read_launches(PQ_KERNELS)["pq_adc_scores"]
+    out["ooc_reachable"], out["ooc_top1"], _ = planted_sweep(
+        ooc, planted, texts, ooc_check, batches=OOC_BATCHES, **loose)
+    out["ooc_launches"] = read_launches(PQ_KERNELS)["pq_adc_scores"] - launches0
+    queries = [texts[i] for i in planted_batches()[0]]
+    want = ooc.retrieve_ids(queries, 10)
+    ooc.save(os.path.join(tmp.name, "saved"))
+    loaded = Retriever.load(os.path.join(tmp.name, "saved"), enc)
+    if not isinstance(loaded.corpus.embeddings, host_store.MemmapStore) \
+            or loaded.index.device != emb.device:
+        raise AssertionError("the loaded retriever must reopen the store and "
+                             "put the index on the card")
+    got = loaded.retrieve_ids(queries, 10)
+    if not np.array_equal(got[1], want[1]) \
+            or not np.allclose(got[0], want[0], rtol=1e-5, atol=1e-5):
+        raise AssertionError("the loaded retriever answers differently")
+    out["ooc_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["tmp"] = tmp
+    return out, retriever, ooc
 
 
 # ---------------------------------------------------------------- timing ---
@@ -554,40 +943,164 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def timing_phase(flat_r, ivf_r, enc, texts, launches: dict):
+# The port's own kernels, as the profiler names them.
+OWN_KERNELS = ("exact_scan_kernel", "ivf_scan_kernel", "merge_partials_kernel",
+               "pq_adc_kernel")
+
+
+def profile_calls(fn, calls: int = 20, top: int = 6) -> dict:
+    """torch.profiler over `calls` back-to-back fn(): host ms per call (wall
+    clock, synchronized at the end), device-busy ms per call (the sum of the
+    kernels' device times), kernels launched per call, the `top` kernels by
+    device time, and the port's own kernels among them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / calls * 1e3
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3 / calls, e.count / calls)
+                      for e in prof.key_averages()
+                      # the kernels themselves, not the ops that launch them
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0),
+                     key=lambda r: -r[1])
+    return {"host_ms_per_call": host_ms,
+            "device_ms_per_call": sum(r[1] for r in kernels),
+            "device_kernels_per_call": sum(r[2] for r in kernels),
+            "top_kernels_ms": {name[:60]: ms for name, ms, _ in kernels[:top]},
+            "own_kernels_ms": {own: ms for name, ms, _ in kernels
+                               for own in OWN_KERNELS if own in name}}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(n_bytes: float, n_ops: float, kind: str) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type."""
+    t_bytes = n_bytes / H100_BYTES_PER_S
+    t_ops = n_ops / H100_OPS_PER_S[kind]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(n_bytes), "operations": int(n_ops)}
+
+
+def flat_bound(vectors, sqnorms, q, n_valid, scales, *, k, **_):
+    """A flat scan reads every stored row, its sqnorm and scale once and
+    the queries, and writes (Q, k) scores and ids; 2·Q·N·D operations in
+    the storage type."""
+    kind = {2: "bf16", 1: "int8", 4: "fp32"}[vectors.element_size()]
+    return bound(nbytes(vectors, sqnorms, scales, q) + q.shape[0] * k * 8,
+                 2.0 * q.shape[0] * n_valid * vectors.shape[1], kind)
+
+
+def ivf_bound(vectors, sqnorms, scales, q, offs, cnts, *, k, window, **_):
+    """A probed scan reads this run's live window rows (each with its
+    sqnorm and scale), the queries and the (Q, P) offsets and counts, and
+    writes (Q, k) scores and positions; 2·D operations per live row."""
+    live = int(cnts.clamp(max=window).sum())
+    d = vectors.shape[1]
+    kind = {2: "bf16", 1: "int8", 4: "fp32"}[vectors.element_size()]
+    return bound(live * (d * vectors.element_size() + 8)
+                 + nbytes(q, offs, cnts) + q.shape[0] * k * 8,
+                 2.0 * live * d, kind)
+
+
+def pq_bound(codes, row_ids, corr, luts, offs, cnts, coarse, *, window):
+    """K6 reads this run's live slots (mb code bytes, an id and, when there
+    is one, a correction each), the tables and the (Q, P) offsets, counts
+    and coarse scores, and writes (Q, P, window) scores and ids; one fp32
+    add per live slot and nibble stream."""
+    live = int(cnts.clamp(max=window).sum())
+    mb = codes.shape[0]
+    return bound(live * (mb + 4 + (4 if corr is not None else 0))
+                 + nbytes(luts, offs, cnts, coarse) + offs.numel() * window * 8,
+                 2.0 * mb * live, "fp32")
+
+
+def timing_phase(flat_r, ivf_r, pq_r, ooc_r, enc, texts, launches: dict):
     """Encode and search ms per batch of BATCH planted passages, then each
-    kernel vs its plain version at the main paths' call shapes: K1 a batch
-    of BATCH queries at k = 10, K2 one query at k = 10 (approx retrieve),
-    K3 one query at k = 2000; K4 BATCH queries at k = 10 and K5 one query
-    at k = 2000, each over its queries' N_PROBES probed windows."""
+    kernel vs its plain version at the main paths' call shapes, beside its
+    bound: K1 a batch of BATCH queries at k = 10 (and the library call
+    that computes the same: one matmul + top-k over the corpus), K2 one
+    query at k = 10 (approx retrieve), K3 one query at k = 2000; K4 BATCH
+    queries at k = 10 and K5 one query at k = 2000, each over its queries'
+    N_PROBES probed windows; K6 BATCH queries (and one) over theirs."""
     import torch
 
-    from cuvs_rag_tpu_torch.index import flat, ivf_flat
+    from cuvs_rag_tpu_torch.index import flat, ivf_flat, ivf_pq, refine
+    from cuvs_rag_tpu_torch.ops import ivf as ivf_ops
     from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
+    from cuvs_rag_tpu_torch.ops import pq as pq_ops
+    from cuvs_rag_tpu_torch.ops import pq_kernels as pk
+    from cuvs_rag_tpu_torch.ops import topk as topk_ops
     from cuvs_rag_tpu_torch.utils.compare import compare_topk
+    from cuvs_rag_tpu_torch.utils.config import IVFPQSearchParams
 
     qtexts = texts[:BATCH]
     q = enc.encode_device(qtexts)
     q1 = enc.encode_device(texts[:1])
+    pq_ix, ooc_ix = pq_r.index, ooc_r.index
+    sp2 = IVFPQSearchParams(n_probes=N_PROBES, refine_ratio=2)
+    sp64 = IVFPQSearchParams(n_probes=N_PROBES, refine_ratio=REFINE_TUNED)
+    _, cand = ivf_pq.search(
+        IVFPQSearchParams(n_probes=N_PROBES, refine_ratio=0), ooc_ix, q,
+        ivf_pq._refine_pool(10, REFINE_TUNED))
+    qp = ivf_pq._prep_queries(pq_ix, q)
+    _, probes = ivf_ops.probe_lists(qp, pq_ix.centroids,
+                                    pq_ix.centroid_sqnorms, N_PROBES,
+                                    pq_ix.metric)
+    store = ooc_r.corpus.embeddings
+    t0 = time.perf_counter()
+    for _ in range(5):
+        refine.rerank_host(q, cand, 10, store.fetch_rows, metric=ooc_ix.metric)
+    host_rerank_ms = (time.perf_counter() - t0) / 5 * 1e3
     e2e = {
         "encode_ms_per_batch": cuda_ms(lambda: enc.encode_device(qtexts), 20),
         "search_ms_per_batch": cuda_ms(
             lambda: flat.search(None, flat_r.index, q, 10), 20),
         "ivf_search_ms_per_batch": cuda_ms(
             lambda: ivf_flat.search(None, ivf_r.index, q, 10), 20),
+        "pq_search_ms_per_batch_refine_2": cuda_ms(
+            lambda: ivf_pq.search(sp2, pq_ix, q, 10), 20),
+        "pq_search_ms_per_batch_refine_64": cuda_ms(
+            lambda: ivf_pq.search(sp64, pq_ix, q, 10), 20),
+        "pq_adc_lut_ms": cuda_ms(lambda: pq_ops.probe_luts(
+            qp, probes, pq_ix.centroids, pq_ix.codebooks, pq_ix.metric,
+            levels=pq_ix.levels), 20),
+        "pq_host_rerank_ms_per_batch": host_rerank_ms,
+        "pq_host_rerank_candidates": int(cand.shape[1]),
         "batch": BATCH,
+    }
+
+    e2e["profile"] = {
+        "ivf_flat_search": profile_calls(
+            lambda: ivf_flat.search(None, ivf_r.index, q, 10)),
+        "ivf_pq_search_refine_2": profile_calls(
+            lambda: ivf_pq.search(sp2, pq_ix, q, 10)),
+        "ivf_pq_search_refine_64": profile_calls(
+            lambda: ivf_pq.search(sp64, pq_ix, q, 10)),
     }
 
     ix = flat_r.index
     sq = "sqeuclidean"
     tile_c = min(ix.tile_n, 2048)
+    k1_args = (ix.vectors, ix.sqnorms, q, ix.n_valid, ix.scales)
     cases = [
-        ("flat_topk_exact", (ix.vectors, ix.sqnorms, q, ix.n_valid, ix.scales),
-         dict(k=10, metric=sq)),
+        ("flat_topk_exact", k1_args, dict(k=10, metric=sq), flat_bound),
         ("flat_topk_sketch", (ix.vectors, ix.sqnorms, q1, ix.n_valid, ix.scales),
-         dict(k=10, metric=sq, tile_c=tile_c)),
+         dict(k=10, metric=sq, tile_c=tile_c), flat_bound),
         ("flat_topk_large", (ix.vectors, ix.sqnorms, q1, ix.n_valid, ix.scales),
-         dict(k=2000, metric=sq)),
+         dict(k=2000, metric=sq), flat_bound),
     ]
     iv = ivf_r.index
     n_sub, r_planes = ik.large_k_config(iv.max_list_size, D, K_LARGE)
@@ -599,22 +1112,60 @@ def timing_phase(flat_r, ivf_r, enc, texts, launches: dict):
         p = probes.long()
         cases.append((name, (iv.vectors, iv.sqnorms, iv.scales, qs,
                              iv.list_offsets[p], iv.list_counts[p]),
-                      dict(window=iv.max_list_size, metric=sq, **kw)))
+                      dict(window=iv.max_list_size, metric=sq, **kw),
+                      ivf_bound))
     fns = kernel_fns()
     rows = []
-    for name, args, kw in cases:
+    for name, args, kw, bound_fn in cases:
         kern, plain = fns[name]
         got, want = kern(*args, **kw), plain(*args, **kw)
         if len(got) == 3 and not torch.equal(got[2], want[2]):
             raise AssertionError(f"{name} certificate differs from plain")
         err = compare_topk(got[0], got[1], want[0], want[1], **TOL)
+        library_ms = None
+        if name == "flat_topk_exact":
+            # the one library route to K1's function: a (Q, N) matmul and a
+            # top-k over it; timed here as a yardstick only
+            lib = topk_ops.flat_topk_search_dense(*args, **kw)
+            compare_topk(lib[0], lib[1], want[0], want[1], **TOL)
+            library_ms = cuda_ms(
+                lambda: topk_ops.flat_topk_search_dense(*args, **kw), 5, 1)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err,
             "ms": cuda_ms(lambda: kern(*args, **kw), 10),
             "plain_ms": cuda_ms(lambda: plain(*args, **kw), 10),
+            **bound_fn(*args, **kw), "library_ms": library_ms,
         })
+
+    # K6 at the main path's probes: BATCH queries (its row of the kernels
+    # line) and one query
+    for qs in (q, q1):
+        args = pq_scan_args(pq_ix, qs)
+        kw = dict(window=pq_ix.max_list_size)
+        s, i = pk.pq_adc_scores(*args, **kw)
+        ps, pi = pk.pq_adc_scores_plain(*args, **kw)
+        live = torch.isfinite(ps)
+        if not torch.equal(i, pi) or not torch.equal(torch.isfinite(s), live):
+            raise AssertionError("K6 ids or -inf pattern differ from plain")
+        torch.testing.assert_close(s[live], ps[live], **PQ_TOL)
+        row = {
+            "name": "pq_adc_scores", "route": "cuda",
+            "source": SOURCES["pq_adc_scores"],
+            "replaces": REPLACES["pq_adc_scores"],
+            "launches": launches["pq_adc_scores"],
+            "max_abs_err": float((s[live] - ps[live]).abs().max()),
+            "ms": cuda_ms(lambda: pk.pq_adc_scores(*args, **kw), 20),
+            "plain_ms": cuda_ms(lambda: pk.pq_adc_scores_plain(*args, **kw), 10),
+            **pq_bound(*args, **kw), "library_ms": None,
+        }
+        if qs is q:
+            rows.append(row)
+            e2e["pq_live_slots_per_batch"] = int(live.sum())
+        else:
+            e2e["pq_adc_one_query"] = {k: row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bytes", "max_abs_err")}
     return e2e, rows
 
 
@@ -641,7 +1192,7 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    sources = sorted({os.path.basename(s) for s in SOURCES.values()})
+    sources = sorted({os.path.basename(src) for src in SOURCES.values()})
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.load, sources))
     emit("build", sources=sources, seconds=time.perf_counter() - t0)
@@ -672,9 +1223,23 @@ def main() -> int:
                                    flat_ids, rng)
     emit("ivf_main", gpu=gpu, seconds=time.perf_counter() - t0, **ivf_out)
 
-    e2e, kernels = timing_phase(
-        flat_r, ivf_r, enc, texts,
-        {**main_out["launches"], **ivf_out["launches"]})
+    t0 = time.perf_counter()
+    pq_parity = pq_parity_phase(PARITY_ROWS, args.seed)
+    emit("pq_parity", gpu=gpu, dim=D, rows=PARITY_ROWS, n_probes=N_PROBES,
+         **PQ_TOL, max_abs_err=pq_parity, seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    pq_out, pq_r, ooc_r = pq_main_path(enc, emb, passages, planted, texts,
+                                       flat_ids, flat_r.index, rng)
+    tmp = pq_out.pop("tmp")
+    try:
+        emit("pq_main", gpu=gpu, seconds=time.perf_counter() - t0, **pq_out)
+        e2e, kernels = timing_phase(
+            flat_r, ivf_r, pq_r, ooc_r, enc, texts,
+            {**main_out["launches"], **ivf_out["launches"],
+             **pq_out["launches"]})
+    finally:
+        tmp.cleanup()
     emit("timing", gpu=gpu, **e2e)
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

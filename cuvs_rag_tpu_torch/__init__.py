@@ -10,7 +10,7 @@ Layering mirrors the JAX package:
   index/    — index families as dataclasses of tensors, filtered views
   eval/     — recall against the exact oracle
   models/   — text encoders (BERT family as an nn.Module)
-  rag/      — retrieval pipeline + corpus store
+  rag/      — retrieval pipeline, corpus store, disk-backed embedding store
   utils/    — typed configs, metrics
 """
 

@@ -13,6 +13,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from cuvs_rag_tpu_torch.index import base
 from cuvs_rag_tpu_torch.index import flat as flat_family
 from cuvs_rag_tpu_torch.ops import distance as dist_ops
 from cuvs_rag_tpu_torch.ops import topk as topk_ops
@@ -98,7 +99,7 @@ def exact_ground_truth_chunks(chunk_fn, n_chunks: int, chunk_rows: int,
     """(Q, k) exact ids from a corpus that is never resident whole: chunk i
     arrives as chunk_fn(i) -> (chunk_rows, D) (numpy or tensor), as in
     build_from_chunks."""
-    qn = _prep_queries(queries, metric, device or "cpu")
+    qn = _prep_queries(queries, metric, base.resolve_device(device))
     best_s, best_i = _running(qn, k)
     for i in range(n_chunks):
         rows = torch.as_tensor(chunk_fn(i), device=qn.device)

@@ -25,11 +25,24 @@ def register_index(cls):
     return cls
 
 
+def resolve_device(device=None, like=None) -> torch.device:
+    """Where an entry point puts its state: an explicit `device` wins; a
+    tensor input (`like`) keeps its own device; anything else (numpy, a
+    file) goes to the card. There is no fallback to the CPU: without a card
+    the first allocation fails with CUDA's own error, and a caller that
+    wants the CPU says device="cpu"."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(like, torch.Tensor):
+        return like.device
+    return torch.device("cuda")
+
+
 def as_tensor(x, device=None) -> torch.Tensor:
-    """numpy array or tensor -> tensor on `device` (the tensor's own device
-    when None; numpy lands on the CPU unless a device is given)."""
+    """numpy array or tensor -> tensor on `resolve_device(device, x)`."""
     if isinstance(x, np.ndarray):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device or "cpu")
+        return torch.from_numpy(np.ascontiguousarray(x)).to(
+            resolve_device(device))
     return x if device is None else x.to(device)
 
 

@@ -2,15 +2,16 @@
 
 The counterpart of the JAX package's `index/filters.py`. A filtered view
 (`filtered_view(index, allow)`) is a same-type index that shares the
-vector storage and replaces one (rows,)-shaped bookkeeping tensor: the
-sqnorm slots of excluded rows are raised past the deletion threshold, the
-same convention as tombstone deletion, so every search path and kernel
-already honours it and a view searches at the cost of a normal search.
+vector storage and replaces one (rows,)-shaped bookkeeping tensor, in each
+family the one its tombstone deletion uses: for FlatIndex and IVFFlatIndex
+the sqnorm slots of excluded rows are raised past the deletion threshold,
+for IVFPQIndex their row_ids become -1. Every search path and kernel
+already honours these, so a view searches at the cost of a normal search.
 Views compose with deletion (deleted rows stay dead) and are positionally
 exact: search(view) equals search restricted to the allowed rows.
 
-Ported: FlatIndex and IVFFlatIndex. IVF-PQ views arrive with ROADMAP slice
-3, and CAGRA's post-filter with slice 4.
+Ported: FlatIndex, IVFFlatIndex and IVFPQIndex. CAGRA's post-filter
+arrives with ROADMAP slice 4.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ from cuvs_rag_tpu_torch.ops import distance as dist_ops
 
 # What each unported family's filtering waits for (ROADMAP.md queue 1).
 _PENDING = {
-    "IVFPQIndex": "slice 3 (IVF-PQ)",
     "CagraIndex": "slice 4 (CAGRA, post-filter)",
 }
 
@@ -75,9 +75,10 @@ def _gather_by_row_ids(allow: torch.Tensor, row_ids: torch.Tensor) -> torch.Tens
 def view_traced(index, allow: torch.Tensor):
     """Core of `filtered_view`, without validation. `allow` is a bool mask
     over original ids: for FlatIndex as wide as the padded row count, for
-    IVFFlatIndex any width (ids past it read False)."""
+    the IVF families any width (ids past it read False)."""
     from cuvs_rag_tpu_torch.index import flat as flat_mod
     from cuvs_rag_tpu_torch.index import ivf_flat as ivf_mod
+    from cuvs_rag_tpu_torch.index import ivf_pq as pq_mod
 
     if isinstance(index, flat_mod.FlatIndex):
         return dataclasses.replace(
@@ -86,6 +87,15 @@ def view_traced(index, allow: torch.Tensor):
         a = _gather_by_row_ids(allow, index.row_ids)
         return dataclasses.replace(
             index, sqnorms=_penalize_slots(index.sqnorms, a))
+    if isinstance(index, pq_mod.IVFPQIndex):
+        # the ADC scan drops id < 0 slots before selection and the refine
+        # pool inherits its ids: one masked tensor filters both passes.
+        # deleted_ids() on the VIEW reports excluded rows as deleted: call
+        # it on the base index.
+        a = _gather_by_row_ids(allow, index.row_ids)
+        return dataclasses.replace(
+            index, row_ids=torch.where(a, index.row_ids,
+                                       torch.full_like(index.row_ids, -1)))
     raise _unsupported(index)
 
 
@@ -98,15 +108,23 @@ def _unsupported(index) -> Exception:
     return TypeError(f"filtered views do not support {name}")
 
 
+def _families():
+    from cuvs_rag_tpu_torch.index import flat as flat_mod
+    from cuvs_rag_tpu_torch.index import ivf_flat as ivf_mod
+    from cuvs_rag_tpu_torch.index import ivf_pq as pq_mod
+
+    return {flat_mod.FlatIndex: flat_mod, ivf_mod.IVFFlatIndex: ivf_mod,
+            pq_mod.IVFPQIndex: pq_mod}
+
+
 def filtered_view(index, allow):
     """Same-type index restricted to `allow`, a (n_valid,) bool mask over
     ORIGINAL corpus ids (numpy or tensor). Shares the vector storage.
     Deleted rows stay deleted whatever the mask. Reusable across searches:
     build once per filter."""
     from cuvs_rag_tpu_torch.index import flat as flat_mod
-    from cuvs_rag_tpu_torch.index import ivf_flat as ivf_mod
 
-    if not isinstance(index, (flat_mod.FlatIndex, ivf_mod.IVFFlatIndex)):
+    if type(index) not in _families():
         raise _unsupported(index)
     mask = _as_mask(allow, int(index.n_valid), index.device)
     if isinstance(index, flat_mod.FlatIndex) and index.size > mask.shape[0]:
@@ -115,14 +133,7 @@ def filtered_view(index, allow):
 
 
 def _family_module(index):
-    from cuvs_rag_tpu_torch.index import flat as flat_mod
-    from cuvs_rag_tpu_torch.index import ivf_flat as ivf_mod
-
-    if isinstance(index, flat_mod.FlatIndex):
-        return flat_mod
-    if isinstance(index, ivf_mod.IVFFlatIndex):
-        return ivf_mod
-    raise TypeError(type(index).__name__)
+    return _families()[type(index)]
 
 
 def search(search_params, index, queries, k: int, allow):

@@ -50,8 +50,8 @@ class FlatIndex:
 
 
 def build(params: FlatParams, dataset, *, device=None) -> FlatIndex:
-    """Build an exact index from a numpy array or tensor, on `device` (the
-    tensor's own device when None; the CPU for numpy)."""
+    """Build an exact index from a numpy array or tensor, on `device` (None:
+    a tensor's own device, the card for numpy: base.resolve_device)."""
     base.validate_dataset(dataset)
     vectors = base.as_tensor(dataset, device)
     dtype = base.storage_dtype(params.dtype, vectors.dtype)

@@ -3,9 +3,10 @@
 One .npz file per index: each tensor field as an array (bf16 stored as its
 uint16 bit pattern, listed under "bf16"), `n_valid` as a 0-d int32 array,
 and a `__meta__` JSON record {"__class__", "static", "bf16", "format"}. A
-file saved by either package loads in the other. FlatIndex and
-IVFFlatIndex are ported so far; the other families arrive with their slices
-(see ROADMAP.md).
+file saved by either package loads in the other. FlatIndex, IVFFlatIndex
+and IVFPQIndex are ported so far; CAGRA arrives with its slice (see
+ROADMAP.md). An IVFPQIndex file older than format 2 holds row-major
+(cap, mb) codes and is transposed to the stream-major layout on load.
 """
 
 from __future__ import annotations
@@ -17,14 +18,18 @@ from typing import Any
 import numpy as np
 import torch
 
+from cuvs_rag_tpu_torch.index import base
+
 _BF16 = "bf16"
 
 
 def _registry():
     from cuvs_rag_tpu_torch.index.flat import FlatIndex
     from cuvs_rag_tpu_torch.index.ivf_flat import IVFFlatIndex
+    from cuvs_rag_tpu_torch.index.ivf_pq import IVFPQIndex
 
-    return {"FlatIndex": FlatIndex, "IVFFlatIndex": IVFFlatIndex}
+    return {"FlatIndex": FlatIndex, "IVFFlatIndex": IVFFlatIndex,
+            "IVFPQIndex": IVFPQIndex}
 
 
 def save_index(path: str, index: Any) -> None:
@@ -53,7 +58,8 @@ def save_index(path: str, index: Any) -> None:
 
 def load_index(path: str, device=None) -> Any:
     """Restore an index saved by either package's save_index, onto `device`
-    (the CPU when None)."""
+    (the card when None: base.resolve_device)."""
+    device = base.resolve_device(device)
     with np.load(path) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
         name = meta["__class__"]
@@ -70,5 +76,52 @@ def load_index(path: str, device=None) -> Any:
                 t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(a.copy())
-            kwargs[field] = t.to(device or "cpu")
+            kwargs[field] = t.to(device)
+        if name == "IVFPQIndex" and meta.get("format", 1) < 2:
+            kwargs["codes"] = kwargs["codes"].T.contiguous()
     return cls(**kwargs)
+
+
+def recover_rows(index: Any) -> torch.Tensor:
+    """(n_valid, dim) corpus rows in ORIGINAL order, reconstructed from any
+    ported family's storage (dequantized or decoded where compressed)."""
+    cls = type(index).__name__
+    nv = int(index.n_valid)
+    if cls == "FlatIndex":
+        v = index.vectors[:nv]
+        if v.dtype == torch.int8:
+            v = v.float() * index.scales[:nv, None]
+        return v
+    if cls == "IVFFlatIndex":
+        from cuvs_rag_tpu_torch.index.ivf_flat import _recover_rows
+
+        return _recover_rows(index, nv)[0]
+    if cls == "IVFPQIndex":
+        return _recover_rows_pq(index, nv)
+    raise ValueError(f"cannot recover rows from {cls}")
+
+
+def _recover_rows_pq(index: Any, nv: int) -> torch.Tensor:
+    """Original-order rows of an IVF-PQ layout: the raw refine store when
+    present, else the PQ reconstruction (centroid + decoded residual)."""
+    from cuvs_rag_tpu_torch.ops import ivf as ivf_ops
+    from cuvs_rag_tpu_torch.ops import pq as pq_ops
+
+    slot_of, label_of_slot = ivf_ops.invert_layout(
+        index.row_ids, index.list_offsets, nv)
+    slot_of = slot_of.long()
+    if index.has_raw:
+        return index.raw_vectors[slot_of][:, :index.dim]
+    codes = index.codes.T[slot_of]  # stream-major -> (nv, code bytes)
+    if index.codes_packed:
+        codes = pq_ops.unpack_nibbles(codes, index.codebooks.shape[0])
+    if index.levels == 2:
+        m = index.pq_dim
+        res = pq_ops.reconstruct(codes[:, :m], index.codebooks[:m]) \
+            + pq_ops.reconstruct(codes[:, m:], index.codebooks[m:])
+    else:
+        res = pq_ops.reconstruct(codes, index.codebooks)
+    if index.has_opq:
+        res = res @ index.rotation  # inverse of r @ R.T
+    cents = index.centroids[label_of_slot[slot_of].long()]
+    return (cents + res)[:, :index.dim]

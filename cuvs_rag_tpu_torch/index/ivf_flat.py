@@ -184,8 +184,8 @@ def _kmeans_sample(sample, n_lists, params, seed):
 
 def build(params: IVFFlatParams, dataset, seed: int = 0, *,
           device=None) -> IVFFlatIndex:
-    """Build on `device` (the tensor's own device when None; the CPU for
-    numpy). k-means trains on the first `kmeans_sample` rows with a
+    """Build on `device` (None: a tensor's own device, the card for numpy:
+    base.resolve_device). k-means trains on the first `kmeans_sample` rows with a
     generator seeded by `seed`."""
     base.validate_dataset(dataset)
     n = dataset.shape[0]

@@ -57,6 +57,11 @@ SIGNATURES = {
             _P, _P, _P, _P,
         ],
     },
+    "pq_adc.cu": {
+        "pq_adc_scores": [
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _P, _P, _P,
+        ],
+    },
 }
 
 

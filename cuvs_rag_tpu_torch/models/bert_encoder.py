@@ -26,6 +26,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from cuvs_rag_tpu_torch.index.base import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class BertConfig:
@@ -281,9 +283,12 @@ class TorchSentenceEncoder:
         if pooling not in ("mean", "cls"):
             raise ValueError(f"unknown pooling {pooling!r}")
         self.cfg = cfg
-        self.device = torch.device(
-            device if device is not None else next(model.parameters()).device
-        )
+        # the card unless the caller names a device; a model the caller
+        # already moved to an accelerator stays there
+        param = next(model.parameters())
+        self.device = resolve_device(device,
+                                     param if param.device.type != "cpu"
+                                     else None)
         self.model = model.to(self.device).eval()
         self.tokenizer = tokenizer
         self.pooling = pooling

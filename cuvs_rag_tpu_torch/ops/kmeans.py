@@ -1,4 +1,4 @@
-"""K-means for the IVF coarse quantizer.
+"""K-means for the IVF coarse quantizer and the PQ codebooks.
 
 The counterpart of the JAX package's `ops/kmeans.py`: assignment is a
 chunked (rows x centroids) score product + argmax or top-t, the centroid
@@ -65,15 +65,7 @@ def assign_clusters(data: torch.Tensor, centroids: torch.Tensor,
                     chunk: int = _CHUNK) -> torch.Tensor:
     """(N, D), (C, D) -> (N,) int32 nearest-centroid labels (sq-L2), the
     first maximum on ties."""
-    n = data.shape[0]
-    sdt = _score_dtype(data)
-    c_sq = dist_ops.sqnorms(centroids)
-    cents = centroids.to(sdt)
-    labels = torch.empty(n, dtype=torch.int32, device=data.device)
-    for i in range(0, n, chunk):
-        scores = _chunk_scores(data[i:i + chunk], cents, c_sq, sdt)
-        labels[i:i + chunk] = torch.argmax(scores, dim=1).to(torch.int32)
-    return labels
+    return assign_clusters_batched(data[None], centroids[None], chunk)[0]
 
 
 def exclusive_starts(counts: torch.Tensor) -> torch.Tensor:
@@ -187,78 +179,137 @@ def _balance_dump_pass(labels, *, n_lists, cap, valid, neg_m, rows_iota):
                        labels)
 
 
-def _gumbel(n: int, gen: torch.Generator, device) -> torch.Tensor:
-    u = torch.rand(n, generator=gen, device=device)
+def _gumbel(shape, gen: torch.Generator, device) -> torch.Tensor:
+    u = torch.rand(shape, generator=gen, device=device)
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
 
 
-def kmeans(data: torch.Tensor, row_weights, gen: torch.Generator, *,
-           n_clusters: int, iters: int = 10, chunk: int = _CHUNK,
-           split_small_frac: float = 0.5):
-    """Lloyd's k-means. Returns (centroids (C, D) fp32, labels (N,) int32).
+def assign_clusters_batched(data: torch.Tensor, centroids: torch.Tensor,
+                            chunk: int = _CHUNK) -> torch.Tensor:
+    """(m, N, D), (m, C, D) -> (m, N) int32: `assign_clusters` for m
+    independent problems at once (the PQ subspaces), one batched product
+    per row chunk."""
+    m, n, _ = data.shape
+    dist_ops._check_fp32_matmul(data)
+    sdt = _score_dtype(data)
+    c_sq = (centroids.float() ** 2).sum(dim=2)
+    cents_t = centroids.to(sdt).float().transpose(1, 2)
+    chunk = _batched_chunk(m, centroids.shape[1], chunk)
+    labels = torch.empty((m, n), dtype=torch.int32, device=data.device)
+    for i in range(0, n, chunk):
+        x = data[:, i:i + chunk].to(sdt).float()
+        scores = 2.0 * torch.bmm(x, cents_t) - c_sq[:, None, :]
+        labels[:, i:i + chunk] = torch.argmax(scores, dim=2).to(torch.int32)
+    return labels
+
+
+def _batched_chunk(m: int, n_clusters: int, chunk: int) -> int:
+    """Rows per chunk so that the (m, chunk, C) score and one-hot tiles stay
+    near 2^27 elements however many problems run side by side."""
+    return max(256, min(chunk, (1 << 27) // max(1, m * n_clusters)))
+
+
+def kmeans_batched(data: torch.Tensor, row_weights, gen: torch.Generator, *,
+                   n_clusters: int, iters: int = 10, chunk: int = _CHUNK,
+                   split_small_frac: float = 0.5):
+    """Lloyd's k-means on m independent problems at once: data (m, N, D) ->
+    (centroids (m, C, D) fp32, labels (m, N) int32). The counterpart of the
+    JAX package's `vmap` over `kmeans_nojit`: PQ trains one small k-means
+    per subspace, and m Python-level loops of tiny launches would cost more
+    than the arithmetic. `row_weights` (N,) is shared by the problems.
 
     Init: blocked k-means++ (Gumbel top-B D^2 sampling, B <= 32, drawn from
-    `gen`; zero-weight rows never picked). `row_weights` None means all
-    rows weigh 1. Each iteration reassigns, re-centres by the one-hot
-    segment sum, and then pairs the rank-j smallest cluster with the rank-j
-    largest: while the large one holds > 1.5x the mean mass and the small
-    one <= split_small_frac x the mean, the small centroid is reseeded as a
-    perturbed copy of the large one (never on the last iteration).
+    `gen`; zero-weight rows never picked). Each iteration reassigns,
+    re-centres by the one-hot segment sum, and then pairs the rank-j
+    smallest cluster with the rank-j largest: while the large one holds
+    > 1.5x the mean mass and the small one <= split_small_frac x the mean,
+    the small centroid is reseeded as a perturbed copy of the large one
+    (never on the last iteration). split_small_frac = 0 only recycles empty
+    clusters (PQ codebooks, where unequal sizes are legitimate).
     """
-    n, d = data.shape
+    m, n, d = data.shape
     dev = data.device
+    dist_ops._check_fp32_matmul(data)
     sdt = _score_dtype(data)
     data = data.to(sdt)
     w = torch.ones(n, dtype=torch.float32, device=dev) if row_weights is None \
         else row_weights.float()
 
+    def rows_at(idx):  # (m, b) row numbers -> (m, b, D) fp32 rows
+        return torch.gather(data, 1, idx[..., None].expand(-1, -1, d)).float()
+
     # --- init: blocked k-means++ ------------------------------------------
     b = int(max(1, min(32, -(-n_clusters // 32), n)))
     nb = -(-n_clusters // b)
-    x_sq = dist_ops.sqnorms(data)
-    centroids = torch.zeros((nb * b, d), dtype=torch.float32, device=dev)
+    x_sq = torch.stack([dist_ops.sqnorms(x) for x in data])
+    centroids = torch.zeros((m, nb * b, d), dtype=torch.float32, device=dev)
     neg = torch.full((n,), -math.inf, device=dev)
-    idx = torch.topk(torch.where(w > 0, 0.0, neg) + _gumbel(n, gen, dev),
-                     b).indices
-    centroids[:b] = data[idx].float()
-    min_d = torch.full((n,), math.inf, device=dev)
+    idx = torch.topk(torch.where(w > 0, 0.0, neg) + _gumbel((m, n), gen, dev),
+                     b, dim=1).indices
+    centroids[:, :b] = rows_at(idx)
+    min_d = torch.full((m, n), math.inf, device=dev)
     for j in range(1, nb):
-        prev = centroids[(j - 1) * b:j * b]
-        d2 = (x_sq[:, None]
-              - 2.0 * dist_ops.pairwise_inner_product(data, prev.to(sdt))
-              + (prev * prev).sum(dim=1)[None, :])
-        min_d = torch.minimum(min_d, d2.min(dim=1).values)
+        prev = centroids[:, (j - 1) * b:j * b]
+        d2 = (x_sq[:, :, None]
+              - 2.0 * _bmm_rows(data, prev.to(sdt).float().transpose(1, 2))
+              + (prev * prev).sum(dim=2)[:, None, :])
+        min_d = torch.minimum(min_d, d2.min(dim=2).values)
         logits = torch.where((w > 0) & (min_d > 0), torch.log(min_d + 1e-30),
                              neg)
-        idx = torch.topk(logits + _gumbel(n, gen, dev), b).indices
-        centroids[j * b:(j + 1) * b] = data[idx].float()
-    centroids = centroids[:n_clusters].contiguous()
+        idx = torch.topk(logits + _gumbel((m, n), gen, dev), b, dim=1).indices
+        centroids[:, j * b:(j + 1) * b] = rows_at(idx)
+    centroids = centroids[:, :n_clusters].contiguous()
 
-    total_w = w.sum()
-    mean_w = total_w / n_clusters
+    mean_w = w.sum() / n_clusters
+    step = _batched_chunk(m, n_clusters, chunk)
+    code_iota = torch.arange(n_clusters, device=dev)
     for it in range(iters):
-        c_sq = dist_ops.sqnorms(centroids)
-        cents = centroids.to(sdt)
-        sums = torch.zeros((n_clusters, d), dtype=torch.float32, device=dev)
-        counts = torch.zeros(n_clusters, dtype=torch.float32, device=dev)
-        for i in range(0, n, chunk):
-            x = data[i:i + chunk]
-            labels = torch.argmax(_chunk_scores(x, cents, c_sq, sdt), dim=1)
+        c_sq = (centroids * centroids).sum(dim=2)
+        cents_t = centroids.to(sdt).float().transpose(1, 2)
+        sums = torch.zeros((m, n_clusters, d), dtype=torch.float32, device=dev)
+        counts = torch.zeros((m, n_clusters), dtype=torch.float32, device=dev)
+        for i in range(0, n, step):
+            x = data[:, i:i + step].float()
+            labels = torch.argmax(2.0 * torch.bmm(x, cents_t)
+                                  - c_sq[:, None, :], dim=2)
             # one-hot in the scoring dtype (0/1 weights are exact in bf16)
-            onehot = torch.nn.functional.one_hot(labels, n_clusters).to(sdt) \
-                * w[i:i + chunk].to(sdt)[:, None]
-            sums += dist_ops.pairwise_inner_product(onehot.T, x.T)
-            counts += onehot.float().sum(dim=0)
-        new = sums / torch.clamp(counts, min=1.0)[:, None]
-        new = torch.where((counts <= 0)[:, None], centroids, new)
-        big = torch.argsort(-counts, stable=True)
-        small = torch.argsort(counts, stable=True)
-        split_ok = ((counts[big] > 1.5 * mean_w)
-                    & (counts[small] <= split_small_frac * mean_w)
+            onehot = ((labels[..., None] == code_iota).to(sdt)
+                      * w[i:i + step].to(sdt)[None, :, None]).float()
+            sums += torch.bmm(onehot.transpose(1, 2), x)
+            counts += onehot.sum(dim=1)
+        new = sums / torch.clamp(counts, min=1.0)[..., None]
+        new = torch.where((counts <= 0)[..., None], centroids, new)
+        big = torch.argsort(-counts, dim=1, stable=True)
+        small = torch.argsort(counts, dim=1, stable=True)
+        split_ok = ((counts.gather(1, big) > 1.5 * mean_w)
+                    & (counts.gather(1, small) <= split_small_frac * mean_w)
                     & (it + 1 < iters))
-        s = torch.sign(torch.randn((n_clusters, d), generator=gen, device=dev))
-        cand = new[big] * (1.0 + 1e-3 * s)
-        new[small] = torch.where(split_ok[:, None], cand, new[small])
+        s = torch.sign(torch.randn((m, n_clusters, d), generator=gen,
+                                   device=dev))
+        big_rows = new.gather(1, big[..., None].expand(-1, -1, d))
+        small_ix = small[..., None].expand(-1, -1, d)
+        new.scatter_(1, small_ix, torch.where(
+            split_ok[..., None], big_rows * (1.0 + 1e-3 * s),
+            new.gather(1, small_ix)))
         centroids = new
-    return centroids, assign_clusters(data, centroids, chunk=chunk)
+    return centroids, assign_clusters_batched(data, centroids, chunk=chunk)
+
+
+def _bmm_rows(data: torch.Tensor, rhs_t: torch.Tensor,
+              rows: int = 1 << 18) -> torch.Tensor:
+    """(m, N, D) storage rows x (m, D, B) fp32 -> (m, N, B), upcasting the
+    rows a chunk at a time (no whole fp32 copy of a bf16 sample)."""
+    return torch.cat([torch.bmm(data[:, i:i + rows].float(), rhs_t)
+                      for i in range(0, data.shape[1], rows)], dim=1)
+
+
+def kmeans(data: torch.Tensor, row_weights, gen: torch.Generator, *,
+           n_clusters: int, iters: int = 10, chunk: int = _CHUNK,
+           split_small_frac: float = 0.5):
+    """Lloyd's k-means on one problem: `kmeans_batched` with m = 1. Returns
+    (centroids (C, D) fp32, labels (N,) int32)."""
+    centroids, labels = kmeans_batched(
+        data[None], row_weights, gen, n_clusters=n_clusters, iters=iters,
+        chunk=chunk, split_small_frac=split_small_frac)
+    return centroids[0], labels[0]

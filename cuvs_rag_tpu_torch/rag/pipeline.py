@@ -1,11 +1,13 @@
 """RAG retrieval pipeline: encode → search → assemble context.
 
 The counterpart of the JAX package's `rag/pipeline.py` for one device and
-the flat and IVF-Flat families: query texts are encoded on the index's
-device, the embeddings go to the family's `search` without leaving it
-(through a filtered view when `allow=` is given), and the returned ids
-become passages. Other families and placements arrive with their ROADMAP
-slices and raise NotImplementedError until then.
+the flat, IVF-Flat and IVF-PQ families: query texts are encoded on the
+index's device, the embeddings go to the family's `search` without leaving
+it (through a filtered view when `allow=` is given), and the returned ids
+become passages. An IVF-PQ index without a raw store refines out of core,
+from the corpus' embedding store on the host. Other families and
+placements arrive with their ROADMAP slices and raise NotImplementedError
+until then.
 """
 
 from __future__ import annotations
@@ -24,20 +26,21 @@ from cuvs_rag_tpu_torch.index import filters
 from cuvs_rag_tpu_torch.index import flat
 from cuvs_rag_tpu_torch.index import io as index_io
 from cuvs_rag_tpu_torch.index import ivf_flat
+from cuvs_rag_tpu_torch.index import ivf_pq
 from cuvs_rag_tpu_torch.rag import corpus as corpus_mod
 from cuvs_rag_tpu_torch.rag.corpus import Corpus
+from cuvs_rag_tpu_torch.rag.host_store import MemmapStore
 from cuvs_rag_tpu_torch.utils import config as config_mod
 from cuvs_rag_tpu_torch.utils.metrics import default_registry as metrics
 
 # What each unported family or placement waits for (ROADMAP.md queue 1).
 _PENDING = {
-    "ivf_pq": "slice 3 (IVF-PQ)",
     "cagra": "slice 4 (CAGRA)",
     "shard": "slice 6 (multi-GPU)",
     "replicate": "slice 6 (multi-GPU)",
 }
 
-FAMILIES = {"flat": flat, "ivf_flat": ivf_flat}
+FAMILIES = {"flat": flat, "ivf_flat": ivf_flat, "ivf_pq": ivf_pq}
 
 _PARAM_CLASSES = (
     "FlatParams", "FlatSearchParams",
@@ -198,19 +201,44 @@ class Retriever:
         q = encode_on_device(self.encoder, list(queries), self.index.device)
         index = self.index if allow is None \
             else filters.filtered_view(self.index, allow)
-        dists, idx = FAMILIES[self.family].search(self.search_params, index,
-                                                  q, k)
-        dists, idx = dists.cpu().numpy(), idx.cpu().numpy()
+        mod = FAMILIES[self.family]
+        dists, idx = mod.search(self.search_params, index, q, k,
+                                **self._out_of_core_refine(mod))
+        if isinstance(dists, torch.Tensor):  # a host re-rank returns numpy
+            dists, idx = dists.cpu().numpy(), idx.cpu().numpy()
         dt = time.time() - t0
         metrics.observe("retriever.batch_seconds", dt)
         metrics.observe("retriever.latency_per_query", dt / max(len(queries), 1))
         return dists, idx, dt
 
+    def _out_of_core_refine(self, mod) -> dict:
+        """Search kwargs of the out-of-core refine: an IVF-PQ index that
+        holds only codes (store_raw=False) re-ranks against the corpus'
+        embedding store. A store with `fetch_rows` (MemmapStore) re-ranks
+        on the host, so only candidate ids leave the device; a host array
+        is sliced and re-ranked on the device. The family's default search
+        params are resolved first, so the gate sees the refine_ratio the
+        search will use."""
+        sp = self.search_params or mod.default_search_params()
+        emb = self.corpus.embeddings
+        if (self.family != "ivf_pq" or self.index.has_raw or emb is None
+                or getattr(sp, "refine_ratio", 0) <= 0):
+            return {}
+        if hasattr(emb, "fetch_rows"):
+            return {"fetch_rows": emb.fetch_rows, "host_rerank": True}
+        if isinstance(emb, torch.Tensor):
+            return {"fetch_rows": lambda ids: emb[
+                torch.from_numpy(ids).to(emb.device)].float().cpu().numpy()}
+        emb = np.asarray(emb)
+        return {"fetch_rows": lambda ids: emb[ids]}
+
     # -- persistence (warm restart) --------------------------------------
 
     def save(self, directory: str) -> None:
         """Index + corpus text/titles + embeddings + build/search params, in
-        the JAX package's layout (either package loads the other's)."""
+        the JAX package's layout (either package loads the other's). A
+        disk-backed embedding store (MemmapStore) is recorded by path, not
+        copied."""
         os.makedirs(directory, exist_ok=True)
         with open(os.path.join(directory, "corpus.jsonl"), "w") as f:
             for i, p in enumerate(self.corpus.passages):
@@ -219,7 +247,10 @@ class Retriever:
                     rec["title"] = self.corpus.titles[i]
                 f.write(json.dumps(rec) + "\n")
         emb, emb_meta = self.corpus.embeddings, None
-        if emb is not None:
+        if emb is not None and hasattr(emb, "fetch_rows") \
+                and hasattr(emb, "path"):
+            emb_meta = {"kind": "memmap", "path": os.path.abspath(emb.path)}
+        elif emb is not None:
             if isinstance(emb, torch.Tensor):
                 emb = emb.float().cpu().numpy()
             corpus_mod.save_embeddings(
@@ -255,11 +286,9 @@ class Retriever:
             titles = None
         emb = None
         emb_meta = meta.get("embeddings")
-        if emb_meta is not None:
-            if emb_meta["kind"] != "npy":
-                raise NotImplementedError(
-                    "disk-backed embedding stores arrive with ROADMAP slice 3"
-                )
+        if emb_meta is not None and emb_meta["kind"] == "memmap":
+            emb = MemmapStore.open(emb_meta["path"])
+        elif emb_meta is not None:
             emb = corpus_mod.load_embeddings(os.path.join(directory, "embeddings"))
         index = index_io.load_index(
             os.path.join(directory, "index.npz"), device=device
@@ -301,6 +330,12 @@ class Retriever:
             )
         if titles is not None and len(titles) != len(texts):
             raise ValueError("titles must align with texts")
+        if hasattr(self.corpus.embeddings, "fetch_rows"):
+            raise ValueError(
+                "corpus embeddings live in a read-only host store "
+                f"({type(self.corpus.embeddings).__name__}): rebuild the "
+                "store with the new rows (MemmapStore.create/append_chunk), "
+                "then rebuild the retriever")
 
         # Build the new index first: if it rejects the rows, the corpus must
         # not have grown. The index is swapped last, so a reader that sees
@@ -343,4 +378,5 @@ def _default_params(family: str):
     return {
         "flat": config_mod.FlatParams(),
         "ivf_flat": config_mod.IVFFlatParams(),
+        "ivf_pq": config_mod.IVFPQParams(),
     }[family]

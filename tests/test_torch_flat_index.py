@@ -96,7 +96,7 @@ def test_build_and_search_match(data, dtype, metric):
     x, q = data
     params = FlatParams(dtype=dtype, metric=metric, tile_n=1024)
     jix = jflat.build(params, jnp.asarray(x))
-    tix = flat.build(params, x)
+    tix = flat.build(params, x, device="cpu")
     assert (tix.size, tix.n_valid, tix.tile_n, tix.metric) == \
         (jix.size, int(jix.n_valid), jix.tile_n, jix.metric)
     assert tix.vectors.dtype == {"float32": torch.float32, "bfloat16":
@@ -122,7 +122,7 @@ def test_delete_extend_fixpoint_matches(data):
     x, q = data
     params = FlatParams(dtype="bfloat16", tile_n=256)
     jix = jflat.build(params, jnp.asarray(x[:1000]))
-    tix = flat.build(params, x[:1000])
+    tix = flat.build(params, x[:1000], device="cpu")
     gone = np.array([0, 1, 2, 500, 999, 5000, -1])  # unknown ids ignored
     jix, tix = jflat.delete(jix, gone), flat.delete(tix, gone)
     for start in (1000, 1150, 1300):
@@ -146,10 +146,10 @@ def test_npz_cross_load_both_directions(data, dtype, tmp_path):
     x, q = data
     params = FlatParams(dtype=dtype, tile_n=512)
     jix = jflat.delete(jflat.build(params, jnp.asarray(x)), [3, 4])
-    tix = flat.delete(flat.build(params, x), [3, 4])
+    tix = flat.delete(flat.build(params, x, device="cpu"), [3, 4])
     jio.save_index(str(tmp_path / "jax.npz"), jix)
     tio.save_index(str(tmp_path / "torch.npz"), tix)
-    from_jax = tio.load_index(str(tmp_path / "jax.npz"))
+    from_jax = tio.load_index(str(tmp_path / "jax.npz"), device="cpu")
     from_torch = jio.load_index(str(tmp_path / "torch.npz"))
     assert from_jax.vectors.dtype == tix.vectors.dtype
     assert from_torch.vectors.dtype == jix.vectors.dtype
@@ -171,7 +171,7 @@ def test_search_above_dense_threshold_matches(k):
     x = rng.standard_normal((flat._DENSE_THRESHOLD + 100, 8)).astype(np.float32)
     q = rng.standard_normal((3, 8)).astype(np.float32)
     params = FlatParams(dtype="float32")
-    tix = flat.build(params, x)
+    tix = flat.build(params, x, device="cpu")
     assert tix.size > flat._DENSE_THRESHOLD
     rd, ri = jflat.search(None, jflat.build(params, jnp.asarray(x)),
                           jnp.asarray(q), k)
@@ -181,7 +181,7 @@ def test_search_above_dense_threshold_matches(k):
 
 def test_approx_search_below_threshold_is_exact(data):
     x, q = data
-    tix = flat.build(FlatParams(), x)
+    tix = flat.build(FlatParams(), x, device="cpu")
     d, i = flat.search(FlatSearchParams(approx=True), tix, torch.from_numpy(q), 5)
     de, ie = flat.search(None, tix, torch.from_numpy(q), 5)
     np.testing.assert_array_equal(i.numpy(), ie.numpy())
@@ -189,7 +189,7 @@ def test_approx_search_below_threshold_is_exact(data):
 
 def test_search_validates_queries(data):
     x, _ = data
-    tix = flat.build(FlatParams(), x)
+    tix = flat.build(FlatParams(), x, device="cpu")
     d, i = flat.search(None, tix, torch.from_numpy(x[7]), 1)  # 1-D promoted
     assert i.tolist() == [[7]]
     with pytest.raises(ValueError):

@@ -85,10 +85,10 @@ def test_cross_load_search_matches_jax(data, jax_files, tmp_path, dtype,
                           np.arange(0, N, 41))
         path = str(tmp_path / "j.npz")
         jio.save_index(path, jix)
-        tix = tio.load_index(path)
+        tix = tio.load_index(path, device="cpu")
     else:
         tix = tivf.build(IVFFlatParams(n_lists=LISTS, dtype=dtype,
-                                       metric=metric), x)
+                                       metric=metric), x, device="cpu")
         tix = tivf.delete(tix, np.arange(0, N, 41))
         path = str(tmp_path / "t.npz")
         tio.save_index(path, tix)
@@ -109,13 +109,14 @@ def test_own_build_recall_close_to_jax(data, dtype):
     rng = np.random.default_rng(32)
     q = (x[rng.integers(0, N, 64)]
          + 0.3 * rng.standard_normal((64, DIM))).astype(np.float32)
-    gt = trecall.exact_ground_truth(x, q, 10, "sqeuclidean")
+    gt = trecall.exact_ground_truth(x, q, 10, "sqeuclidean",
+                                    device="cpu")
     np.testing.assert_array_equal(
         gt, jrecall.exact_ground_truth(x, q, 10, "sqeuclidean"))
     params = dict(n_lists=LISTS, dtype=dtype)
     tr, jr = [], []
     for seed in range(3):
-        tix = tivf.build(IVFFlatParams(**params), x, seed=seed)
+        tix = tivf.build(IVFFlatParams(**params), x, seed=seed, device="cpu")
         jix = jivf.build(JParams(**params), jnp.asarray(x), seed=seed)
         _, ti = tivf.search(IVFFlatSearchParams(n_probes=2), tix, q, 10)
         _, ji = jivf.search(JSearch(n_probes=2), jix, jnp.asarray(q), 10)
@@ -134,7 +135,8 @@ def test_recall_helpers_match_jax(data):
     streamed = trecall.exact_ground_truth_streamed(
         torch.from_numpy(x), q, 20, "inner_product", chunk_rows=700)
     chunked = trecall.exact_ground_truth_chunks(
-        lambda i: x[i * 1000:(i + 1) * 1000], 3, 1000, q, 20, "inner_product")
+        lambda i: x[i * 1000:(i + 1) * 1000], 3, 1000, q, 20, "inner_product",
+        device="cpu")
     np.testing.assert_array_equal(streamed, gt)
     np.testing.assert_array_equal(chunked, gt)
     got = np.roll(gt, 1, axis=0)
@@ -160,7 +162,7 @@ def test_extend_keeps_deleted_rows_deleted(data, jax_files, dtype, path):
     x, q = data
     rng = np.random.default_rng(33)
     jix = jio.load_index(jax_files[dtype, "sqeuclidean"])
-    tix = tio.load_index(jax_files[dtype, "sqeuclidean"])
+    tix = tio.load_index(jax_files[dtype, "sqeuclidean"], device="cpu")
     size0 = tix.size
     gone = np.array([1, 2, 7, 500, 2999])
     jix, tix = jivf.delete(jix, gone), tivf.delete(tix, gone)
@@ -192,15 +194,16 @@ def test_build_from_chunks_equals_build(data, dtype):
     x, _ = data
     params = IVFFlatParams(n_lists=LISTS, dtype=dtype, balance_factor=1.2,
                            kmeans_sample=1500)
-    whole = tivf.build(params, x, seed=3)
+    whole = tivf.build(params, x, seed=3, device="cpu")
     chunked = tivf.build_from_chunks(params, lambda i: x[i * 500:(i + 1) * 500],
-                                     N, DIM, n_chunks=6, seed=3)
+                                     N, DIM, n_chunks=6, seed=3, device="cpu")
     for name in tivf.IVFFlatIndex._tensor_fields:
         assert torch.equal(getattr(chunked, name), getattr(whole, name)), name
     assert (chunked.n_valid, chunked.max_list_size) \
         == (whole.n_valid, whole.max_list_size)
     with pytest.raises(ValueError, match="divide"):
-        tivf.build_from_chunks(params, lambda i: x, N, DIM, n_chunks=7)
+        tivf.build_from_chunks(params, lambda i: x, N, DIM, n_chunks=7,
+                               device="cpu")
 
 
 def test_train_then_extend_matches_jax(data, tmp_path):
@@ -211,7 +214,7 @@ def test_train_then_extend_matches_jax(data, tmp_path):
     jix = jivf.train(JParams(n_lists=LISTS), jnp.asarray(x[:800]))
     path = str(tmp_path / "trained.npz")
     jio.save_index(path, jix)
-    tix = tio.load_index(path)
+    tix = tio.load_index(path, device="cpu")
     assert tix.n_valid == 0 and int(tix.list_counts.sum()) == 0
     for part in (x[:1200], x[1200:]):
         jix = jivf.extend(jix, jnp.asarray(part))
@@ -219,7 +222,8 @@ def test_train_then_extend_matches_jax(data, tmp_path):
     assert tix.n_valid == N
     _same(tix, jix, q, 10)
 
-    own = tivf.train(IVFFlatParams(n_lists=LISTS, dtype="bfloat16"), x[:800])
+    own = tivf.train(IVFFlatParams(n_lists=LISTS, dtype="bfloat16"), x[:800],
+                     device="cpu")
     assert own.vectors.dtype == torch.bfloat16 and own.n_lists == LISTS
     own = tivf.extend(own, torch.from_numpy(x))
     _, ids = tivf.search(IVFFlatSearchParams(n_probes=PROBES), own,
@@ -228,7 +232,7 @@ def test_train_then_extend_matches_jax(data, tmp_path):
 
 
 def test_delete_is_idempotent_and_ignores_unknown_ids(jax_files):
-    tix = tio.load_index(jax_files["float32", "sqeuclidean"])
+    tix = tio.load_index(jax_files["float32", "sqeuclidean"], device="cpu")
     once = tivf.delete(tix, [3, 3, -5, N, 10 ** 9, 8])
     twice = tivf.delete(once, [3, 8])
     np.testing.assert_array_equal(tivf.deleted_ids(twice), [3, 8])
@@ -243,7 +247,7 @@ def test_failed_certificate_reruns_the_exact_scan_and_counts_it(jax_files):
     from cuvs_rag_tpu_torch.utils.metrics import default_registry
 
     _, q = _corpus()
-    tix = tio.load_index(jax_files["bfloat16", "sqeuclidean"])
+    tix = tio.load_index(jax_files["bfloat16", "sqeuclidean"], device="cpu")
     jix = jio.load_index(jax_files["bfloat16", "sqeuclidean"])
     before = default_registry.snapshot()["counters"].get(
         "ivf_flat.certificate_reruns", 0)

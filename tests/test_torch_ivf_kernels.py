@@ -49,7 +49,7 @@ def indexes(tmp_path_factory):
         ix = jivf_flat.delete(ix, np.arange(0, 3000, 37))
         path = str(tmp_path_factory.mktemp("ivf") / f"{dtype}.npz")
         jio.save_index(path, ix)
-        out[dtype] = (ix, tio.load_index(path))
+        out[dtype] = (ix, tio.load_index(path, device="cpu"))
     return out, queries
 
 

@@ -187,10 +187,12 @@ def test_allow_filtered_retrieval_matches_jax(encoders, family):
 def test_unported_families_and_placements_raise(encoders):
     _, tencoder = encoders
     corpus = Corpus(passages=["a", "b"])
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        Retriever.build(corpus, tencoder, family="ivf_pq")
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        Retriever.build(corpus, tencoder, family="cagra")
     with pytest.raises(NotImplementedError, match="slice 6"):
         Retriever.build(corpus, tencoder, placement="shard")
+    with pytest.raises(ValueError, match="unknown family"):
+        Retriever.build(corpus, tencoder, family="hnsw")
 
 
 def test_index_device_is_never_chosen_silently(tmp_path):
@@ -220,6 +222,9 @@ def test_import_leaves_jax_out():
         "from cuvs_rag_tpu_torch.models import bert_encoder, encoder\n"
         "from cuvs_rag_tpu_torch.kernels import build\n"
         "from cuvs_rag_tpu_torch.index import io, filters, ivf_flat\n"
+        "from cuvs_rag_tpu_torch.index import ivf_pq, refine\n"
+        "from cuvs_rag_tpu_torch.ops import pq, pq_kernels\n"
+        "from cuvs_rag_tpu_torch.rag import host_store\n"
         "from cuvs_rag_tpu_torch.eval import recall\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'cuvs_rag_tpu')]\n"
@@ -228,3 +233,105 @@ def test_import_leaves_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def _pq_pair(encoders, tmp_path, **params):
+    """A JAX Retriever(family="ivf_pq") and the port's load of its save
+    (builds differ by RNG, so the index is shared through the file)."""
+    jencoder, tencoder = encoders
+    passages = _passages()
+    jr = JRetriever.build(
+        JCorpus(passages=list(passages)), jencoder, family="ivf_pq",
+        params=jconfig.IVFPQParams(n_lists=8, pq_dim=8, **params))
+    jr.delete([1, 6])
+    jr.save(str(tmp_path / "jax_pq"))
+    tr = Retriever.load(str(tmp_path / "jax_pq"), tencoder)
+    assert tr.family == "ivf_pq" and tr.search_params is None
+    return jr, tr, passages
+
+
+@pytest.mark.parametrize("store_raw", [True, False])
+def test_jax_ivf_pq_retriever_loads_in_the_port(encoders, tmp_path,
+                                                store_raw):
+    """In core (the index's raw store) and out of core (store_raw=False:
+    the refine fetches rows from the corpus' host embeddings), with the
+    default search params resolved before the refine gate on both sides."""
+    jr, tr, passages = _pq_pair(encoders, tmp_path, store_raw=store_raw)
+    assert tr.index.has_raw == store_raw
+    queries = _queries(passages)
+    _assert_same(tr, jr, queries, 5)
+    allow = np.arange(len(passages)) % 2 == 1
+    d, i = tr.retrieve_ids(queries, 8, allow=allow)
+    rd, ri = jr.retrieve_ids(queries, 8, allow=allow)
+    compare_topk(-d, i, -rd, ri, **TOL)
+    assert allow[i[i >= 0]].all() and not np.isin(i, [1, 6]).any()
+    res = tr.retrieve(passages[3], 4, allow=allow)
+    assert res.passages[0].index == 3 and res.passages[0].distance < 1e-3
+    # both extend; the port's save loads in the JAX package
+    new = ["fresh text t3 t4"]
+    assert list(tr.extend(new)) == list(jr.extend(new)) == [240]
+    _assert_same(tr, jr, queries + new, 5)
+    tr.save(str(tmp_path / "torch_pq"))
+    back = JRetriever.load(str(tmp_path / "torch_pq"), encoders[0])
+    _assert_same(tr, back, queries + new, 5)
+
+
+def test_own_ivf_pq_retriever_finds_its_passages(encoders):
+    _, tencoder = encoders
+    passages = _passages()
+    tr = Retriever.build(
+        Corpus(passages=list(passages)), tencoder, family="ivf_pq",
+        params=tconfig.IVFPQParams(n_lists=8, pq_dim=8),
+        search_params=tconfig.IVFPQSearchParams(n_probes=8, refine_ratio=8))
+    assert tr.index.device == torch.device("cpu") and tr.index.levels == 2
+    ids = tr.retrieve_ids(passages[:20], 3)[1]
+    assert ids[:, 0].tolist() == list(range(20))
+    tr.delete([2])
+    assert 2 not in tr.retrieve_ids(passages[2:3], 5)[1]
+
+
+def test_memmap_backed_retriever_saves_and_loads(encoders, tmp_path):
+    """The out-of-core deployment: codes on the device, embeddings in a
+    MemmapStore. Retrieval re-ranks on the host from the store, save
+    records the store by path, load reopens it (in either package), and
+    extend refuses the read-only store."""
+    from cuvs_rag_tpu_torch.index import ivf_pq
+    from cuvs_rag_tpu_torch.rag.host_store import MemmapStore
+
+    jencoder, tencoder = encoders
+    passages = _passages()
+    emb = tencoder.encode(passages)
+    store = MemmapStore.create(str(tmp_path / "emb.bin"), *emb.shape,
+                               dtype="float32")
+    store.append_chunk(emb)
+    store.finalize()
+    store = MemmapStore.open(store.path)
+    params = tconfig.IVFPQParams(n_lists=8, pq_dim=8, store_raw=False)
+    index = ivf_pq.build_from_chunks(
+        params, lambda i: store.chunk(i, 60), len(passages), emb.shape[1],
+        n_chunks=4, device="cpu")
+    sp = tconfig.IVFPQSearchParams(n_probes=8, refine_ratio=8)
+    tr = Retriever(tencoder, index, Corpus(passages=list(passages),
+                                           embeddings=store),
+                   family="ivf_pq", search_params=sp, params=params)
+    queries = _queries(passages)
+    d, i = tr.retrieve_ids(queries, 5)
+    assert i[:6, 0].tolist() == list(range(6)) and (d[:6, 0] < 1e-3).all()
+    # the same index with the rows in host RAM re-ranks on the device
+    ram = Retriever(tencoder, index, Corpus(passages=list(passages),
+                                            embeddings=emb),
+                    family="ivf_pq", search_params=sp, params=params)
+    rd, ri = ram.retrieve_ids(queries, 5)
+    compare_topk(-d, i, -rd, ri, **TOL)
+    with pytest.raises(ValueError, match="read-only host store"):
+        tr.extend(["one more"])
+    assert len(tr.corpus.passages) == len(passages)
+    tr.save(str(tmp_path / "saved"))
+    assert not os.path.exists(str(tmp_path / "saved" / "embeddings.npy"))
+    loaded = Retriever.load(str(tmp_path / "saved"), tencoder)
+    assert isinstance(loaded.corpus.embeddings, MemmapStore)
+    ld, li = loaded.retrieve_ids(queries, 5)
+    np.testing.assert_array_equal(li, i)
+    np.testing.assert_allclose(ld, d, **TOL)
+    jloaded = JRetriever.load(str(tmp_path / "saved"), jencoder)
+    _assert_same(tr, jloaded, queries, 5)

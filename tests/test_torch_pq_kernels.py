@@ -1,0 +1,132 @@
+"""The plain version of the port's ADC window-scan kernel (K6,
+ops/pq_kernels.py) against the JAX package's Pallas kernel run in interpret
+mode and against the numpy oracle of the JAX package's own test. On a CPU
+tensor the wrapper runs its plain version, so these calls are the wrapper's
+CPU path.
+
+Tolerance: each side sums the same fp32 table entries in another order, so
+scores agree to rtol 1e-5 / atol 1e-4 (the reference's own tolerance); row
+ids and the -inf pattern are equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from cuvs_rag_tpu.ops import pallas_pq
+from cuvs_rag_tpu_torch.ops import pq as tpq
+from cuvs_rag_tpu_torch.ops import pq_kernels as pk
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-5, atol=1e-4)
+CAP, WINDOW, MB = 1024, 256, 12  # 24 nibble streams
+QN, PN = 5, 3
+
+
+@pytest.fixture(scope="module")
+def fixture():
+    rng = np.random.default_rng(5)
+    nibbles = rng.integers(0, 16, (CAP, 2 * MB), dtype=np.uint8)
+    packed = tpq.pack_nibbles(torch.from_numpy(nibbles)).T.contiguous().numpy()
+    row_ids = np.arange(CAP, dtype=np.int32)
+    row_ids[::7] = -1  # tombstones and pads sprinkled in
+    corr = rng.standard_normal(CAP).astype(np.float32)
+    luts = rng.standard_normal((QN, PN, 2 * MB, 16)).astype(np.float32)
+    offs = rng.choice(np.arange(0, CAP - WINDOW + 1, 128), (QN, PN))
+    offs = offs.astype(np.int32)
+    cnts = rng.integers(0, WINDOW + 1, (QN, PN)).astype(np.int32)
+    cnts[0, 0] = 0        # empty list
+    cnts[0, 1] = WINDOW   # full window
+    cnts[1, 0] = 130      # straddles a 128-slot boundary
+    coarse = rng.standard_normal((QN, PN)).astype(np.float32)
+    return nibbles, packed, row_ids, corr, luts, offs, cnts, coarse
+
+
+def _oracle(nibbles, row_ids, corr, luts, offs, cnts, coarse, use_corr,
+            window=WINDOW):
+    out_s = np.full((QN, PN, window), -np.inf, np.float32)
+    out_i = np.full((QN, PN, window), -1, np.int32)
+    mv = nibbles.shape[1]
+    for q in range(QN):
+        for p in range(PN):
+            for j in range(min(window, cnts[q, p])):
+                r = offs[q, p] + j
+                if r >= row_ids.shape[0] or row_ids[r] < 0:
+                    continue
+                s = coarse[q, p] + float(
+                    luts[q, p, np.arange(mv), nibbles[r]].sum())
+                if use_corr:
+                    s -= corr[r]
+                out_s[q, p, j] = s
+                out_i[q, p, j] = row_ids[r]
+    return out_s, out_i
+
+
+def _plain(packed, row_ids, corr, luts, offs, cnts, coarse, window=WINDOW):
+    t = torch.from_numpy
+    before = pk.pq_adc_scores.launches
+    s, i = pk.pq_adc_scores(
+        t(packed), t(row_ids), None if corr is None else t(corr), t(luts),
+        t(offs), t(cnts), t(coarse), window=window)
+    assert pk.pq_adc_scores.launches == before  # no kernel on a CPU tensor
+    assert s.dtype == torch.float32 and i.dtype == torch.int32
+    return s.numpy(), i.numpy()
+
+
+@pytest.mark.parametrize("use_corr", [True, False])
+def test_plain_matches_pallas_and_oracle(fixture, use_corr):
+    nibbles, packed, row_ids, corr, luts, offs, cnts, coarse = fixture
+    c = corr if use_corr else None
+    s, i = _plain(packed, row_ids, c, luts, offs, cnts, coarse)
+    ref_s, ref_i = pallas_pq.pq_adc_scores_pallas(
+        jnp.asarray(packed), jnp.asarray(row_ids),
+        None if c is None else jnp.asarray(c), jnp.asarray(luts),
+        jnp.asarray(offs), jnp.asarray(cnts), jnp.asarray(coarse),
+        window=WINDOW, interpret=True)
+    want_s, want_i = _oracle(nibbles, row_ids, corr, luts, offs, cnts, coarse,
+                             use_corr)
+    for rs, ri in ((np.asarray(ref_s), np.asarray(ref_i)), (want_s, want_i)):
+        np.testing.assert_array_equal(i, ri)
+        np.testing.assert_array_equal(np.isinf(s), np.isinf(rs))
+        np.testing.assert_allclose(s, rs, **TOL)
+    # the cases the fixture plants
+    assert np.isinf(s[0, 0]).all() and (i[0, 0] == -1).all()
+    assert np.isfinite(s[0, 1]).sum() == (row_ids[offs[0, 1]:offs[0, 1]
+                                                  + WINDOW] >= 0).sum()
+    assert np.isinf(s[1, 0, 130:]).all() and np.isfinite(s[1, 0, :130]).any()
+
+
+def test_any_window_and_offsets_past_the_layout(fixture):
+    """No alignment is asked of window, cap or offsets, and a window that
+    runs past the layout's end is cut there."""
+    nibbles, packed, row_ids, corr, luts, offs, cnts, coarse = fixture
+    window = 77
+    offs = offs.copy() + 3
+    offs[2, 0] = CAP - 10
+    cnts = np.minimum(cnts, window)
+    cnts[2, 0] = window
+    s, i = _plain(packed, row_ids, corr, luts, offs, cnts, coarse, window)
+    want_s, want_i = _oracle(nibbles, row_ids, corr, luts, offs, cnts, coarse,
+                             True, window)
+    np.testing.assert_array_equal(i, want_i)
+    np.testing.assert_allclose(s, want_s, **TOL)
+    assert np.isinf(s[2, 0, 10:]).all()
+
+
+def test_wrapper_validates(fixture):
+    _, packed, row_ids, corr, luts, offs, cnts, coarse = fixture
+    t = torch.from_numpy
+    args = [t(packed), t(row_ids), t(corr), t(luts), t(offs), t(cnts),
+            t(coarse)]
+    for pos, bad in ((0, t(packed).to(torch.int32)), (1, t(row_ids)[:-1]),
+                     (2, t(corr)[:-1]), (3, t(luts)[:, :, :-1]),
+                     (5, t(cnts)[:, :-1])):
+        broken = list(args)
+        broken[pos] = bad
+        with pytest.raises(ValueError):
+            pk.pq_adc_scores(*broken, window=WINDOW)
+    with pytest.raises(ValueError, match="window"):
+        pk.pq_adc_scores(*args, window=0)
