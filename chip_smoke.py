@@ -41,11 +41,29 @@ is non-zero):
                out of core: build_from_chunks(store_raw=False) fed from a
                MemmapStore in a temporary directory, retrieve_batch
                re-ranking on the host from that store, save and load.
-  9. timing  — each kernel against its plain version at the main paths'
+  9. attn_parity — the flash-attention kernel (K7) against its plain
+               version on the whole output: one 8,192-token sequence at the
+               Qwen3 widths (16 heads over 8 kv heads, head_dim 128, bf16),
+               16 x 512 with ragged right and left padding down to one
+               token, S = 1000, fp32 inputs at S = 777, 4 heads of 64.
+ 10. stream_parity — the measurement kernels M1-M4 against their plain
+               versions on the flat corpus: read_all in both modes (and on a
+               ragged row count), gather_rows on bf16 and int8 rows at span
+               1 and 32 with duplicate ids, gather_reduce.
+ 11. qwen_main — the Qwen3 retrieval path at the published
+               Qwen3-Embedding-0.6B widths (28 layers, seeded random bf16
+               weights): 256 planted passages encoded 16 at a time at 512
+               tokens and 4 of about 8,000 words one at a time at 8,192
+               tokens, written into a clustered 1,000,000 x 1024 bf16
+               corpus; Retriever.build(family="flat"), retrieve_batch at
+               k = 10; then the same encodes with the plain attention.
+ 12. timing  — each kernel against its plain version at the main paths'
                shapes (CUDA events) beside its bound (the larger of this
                run's bytes over H100_BYTES_PER_S and its operations over the
-               peak rate of their type) and, for K1, one library call; then
-               the kernels JSON line.
+               peak rate of their type), a second bound from the read rate
+               M1 measured, and one library call where there is one; the
+               streaming and gather rates of eval/roofline.py; encode times
+               with a torch.profiler table; then the kernels JSON line.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -54,7 +72,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -70,6 +87,10 @@ SOURCES = {
     "ivf_scan": "cuvs_rag_tpu_torch/csrc/ivf_scan.cu",
     "ivf_scan_large": "cuvs_rag_tpu_torch/csrc/ivf_scan.cu",
     "pq_adc_scores": "cuvs_rag_tpu_torch/csrc/pq_adc.cu",
+    "flash_attention": "cuvs_rag_tpu_torch/csrc/flash_attn.cu",
+    "read_all": "cuvs_rag_tpu_torch/csrc/stream.cu",
+    "gather_rows": "cuvs_rag_tpu_torch/csrc/stream.cu",
+    "gather_reduce": "cuvs_rag_tpu_torch/csrc/stream.cu",
 }
 REPLACES = {
     "flat_topk_exact": "cuvs_rag_tpu/ops/pallas_flat.py:166",
@@ -78,10 +99,18 @@ REPLACES = {
     "ivf_scan": "cuvs_rag_tpu/ops/pallas_ivf.py:92",
     "ivf_scan_large": "cuvs_rag_tpu/ops/pallas_ivf.py:314",
     "pq_adc_scores": "cuvs_rag_tpu/ops/pallas_pq.py:62",
+    "flash_attention": "cuvs_rag_tpu/models/flax_qwen.py:157",
+    "read_all": "scripts/bench_roofline.py:46",
+    "gather_rows": "scripts/bench_gather_modes.py:42",
+    "gather_reduce": "scripts/bench_gather_modes.py:171",
 }
+# gather_rows also stands for the span = 1 kernel of this script
+REPLACES_M4 = "scripts/bench_pallas_gather.py:38"
 FLAT_KERNELS = ("flat_topk_exact", "flat_topk_sketch", "flat_topk_large")
 IVF_KERNELS = ("ivf_scan", "ivf_scan_large")
 PQ_KERNELS = ("pq_adc_scores",)
+ATTN_KERNELS = ("flash_attention",)
+STREAM_KERNELS = ("read_all", "gather_rows", "gather_reduce")
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, at the full
 # 700 W limit): the yardsticks of every kernel's bound.
 H100_BYTES_PER_S = 3.35e12
@@ -117,28 +146,46 @@ PQ_MIN_REACHABLE = 0.75
 PQ_MIN_TOP1 = 0.25
 OOC_CHUNKS = 10  # chunks of the out-of-core build (divides ROWS)
 OOC_BATCHES = 16  # planted batches re-ranked on the host
+# K7 vs plain on the whole output, the plain version given the same values
+# as fp32 (it would else round its probabilities to bf16 before P.V, which
+# alone moves an output by 4e-3). fp32 inputs: the same masked softmax with
+# sums in another order and a fast exp. bf16 inputs: the kernel computes in
+# fp32 and rounds its output once, so it is held to that one rounding, half a
+# bf16 step (2^-8 of the value), and next to no absolute slack: most outputs
+# deep in a long sequence are below 0.05.
+ATTN_TOL = {"float32": dict(rtol=1e-4, atol=1e-5),
+            "bfloat16": dict(rtol=2.0 ** -8, atol=2e-5)}
+# the library's attention vs the same reference: it rounds P to bf16 too
+ATTN_LIBRARY_TOL = dict(rtol=1.6e-2, atol=1.6e-2)
+# The Qwen3 path: the published Qwen3-Embedding-0.6B widths (QwenConfig()),
+# 256 planted passages at 512 tokens and 4 of ~8,000 words at 8,192 tokens
+# in a clustered 1,000,000 x 1024 bf16 corpus.
+QWEN_ROWS = 1_000_000
+QWEN_PLANTED = 256
+QWEN_LONG = 4
+QWEN_LONG_WORDS = 8000
+QWEN_TASK = "Given a web search query, retrieve relevant passages that answer the query"
+# The scripts' gather shapes: m ids into 2M rows of 768 values
+GATHER_ROWS = 2_000_000
+GATHER_M2 = 131_072
+GATHER_M4 = 409_600
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def gpu_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
 def kernel_fns():
     """Each wrapper by name, with its plain version."""
     from cuvs_rag_tpu_torch.ops import flat_kernels as fk
     from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
+    from cuvs_rag_tpu_torch.ops import attention_kernels as ak
     from cuvs_rag_tpu_torch.ops import pq_kernels as pk
+    from cuvs_rag_tpu_torch.ops import stream_kernels as sk
 
     mods = {**{n: fk for n in FLAT_KERNELS}, **{n: ik for n in IVF_KERNELS},
-            **{n: pk for n in PQ_KERNELS}}
+            **{n: pk for n in PQ_KERNELS}, **{n: ak for n in ATTN_KERNELS},
+            **{n: sk for n in STREAM_KERNELS}}
     return {n: (getattr(m, n), getattr(m, n + "_plain"))
             for n, m in mods.items()}
 
@@ -172,10 +219,10 @@ def make_rows(n, d, gen, device):
     return torch.randn((n, d), generator=gen, device=device)
 
 
-def make_centres(gen, device):
+def make_centres(gen, device, dim=D):
     import torch
 
-    return torch.nn.functional.normalize(make_rows(CENTRES, D, gen, device),
+    return torch.nn.functional.normalize(make_rows(CENTRES, dim, gen, device),
                                          dim=1)
 
 
@@ -454,6 +501,130 @@ def pq_parity_phase(n_rows: int, seed: int, device="cuda") -> dict:
             out["k6"] = max(out["k6"], float((s[live] - ps[live]).abs().max()))
             out["live_slots"][f"{name}_{sub.shape[0]}q"] = int(live.sum())
             out["cases"] += 1
+    return out
+
+
+def pad_mask(kind: str, b: int, s: int, device):
+    """(b, s) int32 attention masks whose text lengths spread from 1 token
+    to s: padded on the right, on the left, or on both sides ("mixed");
+    "none" is all text."""
+    import torch
+
+    lens = torch.linspace(1, s, b, device=device).round().long()[:, None]
+    pos = torch.arange(s, device=device)[None, :]
+    if kind == "none":
+        keep = torch.ones((b, s), dtype=torch.bool, device=device)
+    elif kind == "right":
+        keep = pos < lens
+    elif kind == "left":
+        keep = pos >= s - lens
+    else:
+        lo = (s - lens) // 2
+        keep = (pos >= lo) & (pos < lo + lens)
+    return keep.to(torch.int32)
+
+
+def attn_inputs(b, s, nh, nkv, hd, dtype, gen, device):
+    import torch
+
+    return tuple(torch.randn((b, s, h, hd), generator=gen, device=device)
+                 .to(dtype) for h in (nh, nkv, nkv))
+
+
+def attn_hold(got, q, k, v, mask, scale):
+    """Hold K7's output to the plain version of the same values in fp32,
+    within ATTN_TOL of the input type. Returns (largest absolute error, that
+    fp32 reference)."""
+    import torch
+
+    from cuvs_rag_tpu_torch.ops import attention_kernels as ak
+
+    want = ak.flash_attention_plain(q.float(), k.float(), v.float(), mask,
+                                    scale)
+    if torch.isnan(got).any() or torch.isnan(want).any():
+        raise AssertionError("NaN in the attention output")
+    torch.testing.assert_close(got.float(), want,
+                               **ATTN_TOL[str(q.dtype).split(".")[1]])
+    return float((got.float() - want).abs().max()), want
+
+
+def attn_parity_phase(seed: int, device="cuda", s_long: int = 8192,
+                      s_batch: int = 512) -> dict:
+    """K7 vs its plain version (on the same values as fp32, attn_hold) on
+    the whole output, pad rows included, within ATTN_TOL of the input type,
+    no NaN anywhere: one `s_long`-token
+    sequence at the Qwen3 widths (16 heads over 8 kv heads, head_dim 128,
+    bf16); 16 x `s_batch` with ragged right padding down to a one-token
+    row, and the same left-padded (real rows see pad-only tiles first);
+    S = 1000 (no multiple of any tile) padded on both sides; fp32 inputs at
+    S = 777; and 4 heads over 4 kv heads of 64, bf16 and fp32."""
+    import torch
+
+    from cuvs_rag_tpu_torch.ops import attention_kernels as ak
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = [
+        ("full", 1, s_long, 16, 8, 128, bf16, "none"),
+        ("right", 16, s_batch, 16, 8, 128, bf16, "right"),
+        ("left", 16, s_batch, 16, 8, 128, bf16, "left"),
+        ("s1000", 2, 1000, 16, 8, 128, bf16, "mixed"),
+        ("fp32_s777", 2, 777, 16, 8, 128, fp32, "left"),
+        ("mha_hd64", 2, 600, 4, 4, 64, bf16, "right"),
+        ("mha_hd64_fp32", 1, 333, 4, 4, 64, fp32, "none"),
+    ]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {"cases": 0, "max_abs_err": {}}
+    for name, b, s, nh, nkv, hd, dtype, padding in cases:
+        q, k, v = attn_inputs(b, s, nh, nkv, hd, dtype, gen, device)
+        mask = pad_mask(padding, b, s, device)
+        scale = hd ** -0.5
+        got = ak.flash_attention(q, k, v, mask, scale)
+        torch.cuda.synchronize()
+        if got.shape != q.shape or got.dtype != dtype:
+            raise AssertionError(f"{name}: output {got.shape} {got.dtype}")
+        out["max_abs_err"][name], _ = attn_hold(got, q, k, v, mask, scale)
+        out["cases"] += 1
+    return out
+
+
+def gather_views(corpus, rows: int = 0):
+    """The (n, d) bf16 corpus as gather sources without a copy: rows of 2 d
+    bf16 values (the scripts' 768 at d = 384) and rows of 2 d int8 values
+    (its bytes), cut to `rows` rows when given."""
+    import torch
+
+    wide = corpus[: corpus.shape[0] // 2 * 2].view(-1, 2 * corpus.shape[1])
+    as_int8 = corpus.view(torch.int8)
+    return (wide[:rows], as_int8[:rows]) if rows else (wide, as_int8)
+
+
+def stream_parity_phase(corpus, ragged_rows: int, seed: int,
+                        m: int = GATHER_M2) -> dict:
+    """M1-M4 vs their plain versions through eval/roofline.py's checks, which
+    own the comparisons and gather_reduce's tolerance: read_all in both
+    modes on all of the flat corpus (n, d) bf16 and on its first
+    `ragged_rows` rows, equal bit for bit; gather_rows (uniform ids, 50% and
+    90% of them row 0, 32-row spans) equal bit for bit and gather_reduce
+    within REDUCE_TOL, on bf16 and int8 rows of 2 d values of that corpus
+    and on fp32 rows of a ragged count."""
+    import torch
+
+    from cuvs_rag_tpu_torch.eval import roofline
+
+    device = corpus.device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {"cases": roofline.check_read(corpus)
+           + roofline.check_read(corpus[:ragged_rows]),
+           "reduce_max_abs_err": {"rows": 0.0, "dup50": 0.0}}
+    fp32_rows = torch.randn((100_003, 256), generator=gen, device=device)
+    for vectors in (*gather_views(corpus), fp32_rows):
+        held = roofline.check_gathers(
+            vectors, roofline.gather_ids(vectors.shape[0], m, gen))
+        out["cases"] += held["cases"]
+        for name, err in held["reduce_max_abs_err"].items():
+            out["reduce_max_abs_err"][name] = max(
+                out["reduce_max_abs_err"][name], err)
+    torch.cuda.synchronize()
     return out
 
 
@@ -923,29 +1094,172 @@ def pq_main_path(enc, emb, passages, planted, texts, flat_ids, flat_index,
     return out, retriever, ooc
 
 
-# ---------------------------------------------------------------- timing ---
-
-
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of fn() over `iters` back-to-back calls, CUDA events."""
+def make_qwen_encoders(seed: int, dev):
+    """(512-token encoder, 8,192-token encoder, model): two encoders over
+    one QwenModel at the published Qwen3-Embedding-0.6B widths with seeded
+    random bf16 weights (the HashTokenizer pads every batch to its
+    encoder's max_length)."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
+    from cuvs_rag_tpu_torch.models.encoder import HashTokenizer
+    from cuvs_rag_tpu_torch.models.qwen_encoder import (
+        QwenConfig, QwenEmbeddingEncoder, QwenModel)
+
+    cfg = QwenConfig()
+    with torch.device(dev):
+        model = QwenModel(cfg)
+    model.init_random_(torch.Generator(device=dev).manual_seed(seed))
+    # ids = hash(word) % vocab_mod + 1 must stay below vocab_size
+    tok = HashTokenizer(cfg.vocab_size - 1)
+    return (QwenEmbeddingEncoder(cfg, model, tok, max_length=512, device=dev),
+            QwenEmbeddingEncoder(cfg, model, tok, max_length=8192, device=dev),
+            model)
+
+
+def qwen_main_path(seed: int, dev):
+    """The Qwen3 path at full width: QWEN_PLANTED instruct-formatted
+    passages encoded 16 at a time at 512 tokens and QWEN_LONG passages of
+    QWEN_LONG_WORDS words one at a time at 8,192 tokens, planted into a
+    clustered QWEN_ROWS x 1024 bf16 corpus, a flat Retriever over it, every
+    planted passage retrieved again from its text. Gates: each at top-1
+    with distance < 0.05; a passage encoded alone and in its batch of 16
+    agree within 2e-2 in every coordinate (the pad mask reaches K7); the
+    encoder with the plain attention swapped in agrees at cosine >= 0.999
+    at 16 x 512 and at 1 x 8,192; K7 launched once per layer and forward
+    call, and K1 launched, and K1 within TOL of its plain version on this
+    corpus at both query counts (launches that the counts leave out). Returns (fields, (encoder, long encoder, texts,
+    long texts, launches of K7 by shape))."""
+    import torch
+
+    from cuvs_rag_tpu_torch.index import flat
+    from cuvs_rag_tpu_torch.models import qwen_encoder
+    from cuvs_rag_tpu_torch.models.encoder import get_detailed_instruct
+    from cuvs_rag_tpu_torch.ops import attention_kernels as ak
+    from cuvs_rag_tpu_torch.ops import flat_kernels as fk
+    from cuvs_rag_tpu_torch.rag.corpus import Corpus
+    from cuvs_rag_tpu_torch.rag.pipeline import Retriever
+    from cuvs_rag_tpu_torch.utils.compare import compare_topk
+    from cuvs_rag_tpu_torch.utils.config import FlatParams
+
+    rng = np.random.default_rng(seed + 3)
+    t0 = time.perf_counter()
+    enc, enc_long, model = make_qwen_encoders(seed, dev)
     torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
+    model_s = time.perf_counter() - t0
+    cfg = enc.cfg
+    # the same instruct-formatted text is planted and asked for
+    texts = [get_detailed_instruct(QWEN_TASK, t)
+             for t in synthetic_passages(QWEN_PLANTED, rng)]
+    words = [f"w{i}" for i in range(5000)]
+    long_texts = [get_detailed_instruct(
+        QWEN_TASK, f"long passage {i} "
+        + " ".join(rng.choice(words, size=QWEN_LONG_WORDS)))
+        for i in range(QWEN_LONG)]
+    shapes = []  # (B, S) of every forward call of the model
+    hook = model.register_forward_hook(
+        lambda mod, args, out: shapes.append(tuple(args[0].shape)))
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    planted_emb = torch.cat([enc.encode_device(texts),
+                             enc_long.encode_device(long_texts, batch_size=1)])
+    planted = np.sort(rng.choice(QWEN_ROWS, size=len(planted_emb),
+                                 replace=False))
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    centres = make_centres(gen, dev, cfg.hidden_size)
+    emb = torch.empty((QWEN_ROWS, cfg.hidden_size), dtype=torch.bfloat16,
+                      device=dev)
+    for i in range(0, QWEN_ROWS, 1 << 18):
+        n = min(1 << 18, QWEN_ROWS - i)
+        emb[i:i + n] = clustered_rows(n, centres, gen, dev).to(torch.bfloat16)
+    emb[torch.as_tensor(planted, device=dev)] = planted_emb.to(torch.bfloat16)
+    passages = [""] * QWEN_ROWS
+    for row, t in zip(planted.tolist(), texts + long_texts):
+        passages[row] = t
+    t0 = time.perf_counter()
+    retriever = Retriever.build(Corpus(passages=passages, embeddings=emb), enc,
+                                family="flat",
+                                params=FlatParams(dtype="bfloat16"))
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    build_s = time.perf_counter() - t0
+    if retriever.index.size <= flat._DENSE_THRESHOLD:
+        raise AssertionError("corpus too small to reach the kernels")
+    for b in range(0, QWEN_PLANTED, BATCH):
+        check_top1(retriever.retrieve_batch(texts[b:b + BATCH], k=10),
+                   planted[b:b + BATCH].tolist())
+    long_r = Retriever(enc_long, retriever.index, retriever.corpus,
+                       family="flat", params=retriever.params)
+    for i, t in enumerate(long_texts):
+        check_top1([long_r.retrieve(t, k=10)], [int(planted[QWEN_PLANTED + i])])
+    launches = read_launches(ATTN_KERNELS + ("flat_topk_exact",))
+    hook.remove()
+    by_shape = {}
+    for b, s in shapes:
+        key = f"{b}x{s}"
+        by_shape[key] = by_shape.get(key, 0) + cfg.num_layers
+    if sum(by_shape.values()) != launches["flash_attention"]:
+        raise AssertionError(f"K7 launched {launches['flash_attention']} "
+                             f"times in {len(shapes)} forward calls of "
+                             f"{cfg.num_layers} layers")
+
+    # K1 vs its plain version at the shapes this path gave it (the flat
+    # phases hold it at D = 384 only): the index's own arrays, a batch of
+    # 16 planted embeddings and the one long query, k = 10
+    ix = retriever.index
+    k1_err = 0.0
+    for queries in (planted_emb[:BATCH], planted_emb[QWEN_PLANTED:][:1]):
+        args = (ix.vectors, ix.sqnorms, queries, ix.n_valid, ix.scales)
+        kw = dict(k=10, metric=flat._kernel_metric(ix.metric))
+        k1_err = max(k1_err, compare_topk(
+            *fk.flat_topk_exact(*args, **kw),
+            *fk.flat_topk_exact_plain(*args, **kw), **TOL))
+
+    # a passage alone against the same passage inside its batch of 16
+    alone = enc.encode_device(texts[3:4])[0]
+    alone_diff = float((alone - planted_emb[3]).abs().max())
+    # the same encodes with the plain attention in K7's place
+    qwen_encoder.flash_attention = ak.flash_attention_plain
+    try:
+        plain_short = enc.encode_device(texts[:BATCH])
+        plain_long = enc_long.encode_device(long_texts[:1])
+    finally:
+        qwen_encoder.flash_attention = ak.flash_attention
+    cos_short = float((plain_short * planted_emb[:BATCH]).sum(1).min())
+    cos_long = float((plain_long[0] * planted_emb[QWEN_PLANTED]).sum())
+    if alone_diff >= 2e-2 or cos_short < 0.999 or cos_long < 0.999:
+        raise AssertionError(
+            f"alone vs batch {alone_diff}, kernel vs plain attention cosine "
+            f"{cos_short} (16 x 512), {cos_long} (1 x 8192)")
+    if not torch.isfinite(planted_emb).all():
+        raise AssertionError("non-finite embeddings")
+    pair = torch.cdist(planted_emb, planted_emb) ** 2
+    off = ~torch.eye(len(planted_emb), dtype=torch.bool, device=dev)
+    out = {
+        "rows": QWEN_ROWS, "dim": cfg.hidden_size, "layers": cfg.num_layers,
+        "planted": QWEN_PLANTED, "planted_long": QWEN_LONG,
+        "long_tokens": int(np.asarray(enc_long.tokenizer(
+            long_texts, max_length=8192)["attention_mask"]).sum(1).min()),
+        "model_s": model_s, "build_s": build_s,
+        "queries_checked": QWEN_PLANTED + QWEN_LONG,
+        "forward_calls": len(shapes), "launches": launches,
+        "launches_by_shape": by_shape,
+        "flat_topk_exact_max_abs_err_dim1024": k1_err,
+        "alone_vs_batch_max_abs_diff": alone_diff,
+        "cosine_vs_plain_attention_16x512": cos_short,
+        "cosine_vs_plain_attention_1x8192": cos_long,
+        "planted_mean_pairwise_sqdist": float(pair[off].mean()),
+        "planted_min_pairwise_sqdist": float(pair[off].min()),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    return out, (enc, enc_long, texts, long_texts, by_shape)
+
+
+# ---------------------------------------------------------------- timing ---
 
 
 # The port's own kernels, as the profiler names them.
 OWN_KERNELS = ("exact_scan_kernel", "ivf_scan_kernel", "merge_partials_kernel",
-               "pq_adc_kernel")
+               "pq_adc_kernel", "flash_attn_kernel")
 
 
 def profile_calls(fn, calls: int = 20, top: int = 6) -> dict:
@@ -1037,6 +1351,7 @@ def timing_phase(flat_r, ivf_r, pq_r, ooc_r, enc, texts, launches: dict):
     N_PROBES probed windows; K6 BATCH queries (and one) over theirs."""
     import torch
 
+    from cuvs_rag_tpu_torch.eval.roofline import cuda_ms
     from cuvs_rag_tpu_torch.index import flat, ivf_flat, ivf_pq, refine
     from cuvs_rag_tpu_torch.ops import ivf as ivf_ops
     from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
@@ -1169,6 +1484,173 @@ def timing_phase(flat_r, ivf_r, pq_r, ooc_r, enc, texts, launches: dict):
     return e2e, rows
 
 
+def attn_bound(q, k, v, mask) -> dict:
+    """K7 reads q, k, v and the mask once and writes the output; its
+    operations are 4 hd per head and allowed (query, key) pair of this run's
+    mask (two products): a segment of n tokens allows n (n + 1) / 2 pairs."""
+    import torch
+
+    _, _, nh, hd = q.shape
+    real = mask.to(torch.int64).sum(1)
+    pad = mask.shape[1] - real
+    pairs = int((real * (real + 1) // 2 + pad * (pad + 1) // 2).sum())
+    kind = "bf16" if q.dtype == torch.bfloat16 else "fp32"
+    return bound(nbytes(q, k, v, mask) + nbytes(q), 4.0 * hd * nh * pairs, kind)
+
+
+def qwen_timing(enc, enc_long, texts, long_texts, by_shape, seed: int):
+    """Encode ms per batch (16 x 512 and 1 x 8,192 tokens) with a profile of
+    each, and K7 per launch at both shapes (the masks the tokenizer gives
+    those texts) vs its plain version, beside its bound and one library call
+    (scaled_dot_product_attention on the same inputs, GQA heads repeated
+    and the same mask, outside the timed region)."""
+    import torch
+    import torch.nn.functional as F
+
+    from cuvs_rag_tpu_torch.eval.roofline import cuda_ms
+    from cuvs_rag_tpu_torch.ops import attention_kernels as ak
+
+    dev = enc.device
+    cfg = enc.cfg
+    batch = texts[:BATCH]
+    e2e = {
+        "qwen_encode_ms_per_batch_16x512": cuda_ms(
+            lambda: enc.encode_device(batch), 5, 1),
+        "qwen_encode_ms_1x8192": cuda_ms(
+            lambda: enc_long.encode_device(long_texts[:1]), 3, 1),
+        "qwen_profile": {
+            "encode_16x512": profile_calls(
+                lambda: enc.encode_device(batch), calls=3),
+            "encode_1x8192": profile_calls(
+                lambda: enc_long.encode_device(long_texts[:1]), calls=2),
+        },
+    }
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    rows = []
+    for encoder, tx in ((enc, batch), (enc_long, long_texts[:1])):
+        mask = torch.as_tensor(np.asarray(encoder.tokenizer(
+            tx, max_length=encoder.max_length)["attention_mask"]),
+            dtype=torch.int32, device=dev)
+        b, s = mask.shape
+        q, k, v = attn_inputs(b, s, cfg.num_heads, cfg.num_kv_heads,
+                              cfg.head_dim, torch.bfloat16, gen, dev)
+        scale = cfg.head_dim ** -0.5
+        err, want = attn_hold(ak.flash_attention(q, k, v, mask, scale),
+                              q, k, v, mask, scale)
+        # the library's attention: (B, H, S, hd), kv heads repeated, the
+        # same mask as a boolean (B, 1, S, S) where there are pads
+        rep = cfg.num_heads // cfg.num_kv_heads
+        lq, lk, lv = (t.transpose(1, 2).contiguous() for t in (
+            q, k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)))
+        if bool(mask.all()):
+            rule = dict(is_causal=True)
+        else:
+            allow = (mask[:, :, None] == mask[:, None, :]) & torch.tril(
+                torch.ones((s, s), dtype=torch.bool, device=dev))
+            rule = dict(attn_mask=allow[:, None])
+
+        def lib():
+            return F.scaled_dot_product_attention(lq, lk, lv, scale=scale,
+                                                  **rule)
+
+        torch.testing.assert_close(lib().transpose(1, 2).float(), want,
+                                   **ATTN_LIBRARY_TOL)
+        del want
+        shape = f"{b}x{s}"
+        rows.append({
+            "name": "flash_attention", "shape": shape, "route": "cuda",
+            "source": SOURCES["flash_attention"],
+            "replaces": REPLACES["flash_attention"],
+            "launches": by_shape[shape],
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: ak.flash_attention(q, k, v, mask, scale),
+                          5, 1),
+            "plain_ms": cuda_ms(
+                lambda: ak.flash_attention_plain(q, k, v, mask, scale), 3, 1),
+            **attn_bound(q, k, v, mask),
+            "library_ms": cuda_ms(lib, 5, 1),
+        })
+        del lq, lk, lv
+    return e2e, rows
+
+
+def stream_timing(emb, seed: int):
+    """The measurement path of eval/roofline.py on the flat corpus: M1's
+    read rates over all of it; gather rates at the scripts' shapes (m =
+    GATHER_M2 and GATHER_M4 ids into GATHER_ROWS rows of 768 bf16 or int8
+    values) and at refine's (16 x 640 rows of the corpus itself). Each
+    case is first held against its plain version (roofline's checks); then
+    the kernels' launch counters are set to 0, the rates taken, and the
+    counters read. Returns
+    (fields, kernel rows, the best measured read rate in bytes/s)."""
+    import torch
+
+    from cuvs_rag_tpu_torch.eval import roofline
+    from cuvs_rag_tpu_torch.eval.roofline import cuda_ms
+    from cuvs_rag_tpu_torch.ops import stream_kernels as sk
+
+    gen = torch.Generator(device=emb.device).manual_seed(seed + 6)
+    wide, as_int8 = gather_views(emb, GATHER_ROWS)
+    cases = {"bf16_m2": (wide, GATHER_M2), "int8_m2": (as_int8, GATHER_M2),
+             "bf16_m4": (wide, GATHER_M4),
+             "refine_16x640": (emb, BATCH * (10 * REFINE_TUNED))}
+    # every case against its plain version first; these launches are not
+    # the path's, the counts are set to 0 after them
+    sets, held = {}, {}
+    for key, (vectors, m) in cases.items():
+        sets[key] = roofline.gather_ids(vectors.shape[0], m, gen)
+        held[key] = roofline.check_gathers(vectors, sets[key])
+    held["read"] = roofline.check_read(emb)
+    reset_launches()
+    read = roofline.read_rates(emb)
+    gathers = {}
+    for key, (vectors, _) in cases.items():
+        before = sk.gather_rows.launches
+        gathers[key] = roofline.gather_rates(vectors, sets[key])
+        gathers[key]["gather_rows_launches"] = sk.gather_rows.launches - before
+    launches = read_launches(STREAM_KERNELS)
+    fields = {"read": read, "gather": gathers, "launches": launches,
+              "held_against_plain": held}
+
+    def row(name, replaces, shape, n_launches, err, ms, plain, n_bytes, n_ops,
+            library_ms):
+        return {"name": name, "shape": shape, "route": "cuda",
+                "source": SOURCES[name], "replaces": replaces,
+                "launches": n_launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": cuda_ms(plain, 5, 1),
+                **bound(n_bytes, n_ops, "fp32"), "library_ms": library_ms}
+
+    rows = [row("read_all", REPLACES["read_all"],
+                f"{emb.shape[0]}x{emb.shape[1]} reduce", launches["read_all"],
+                0.0, read["reduce"]["ms"],
+                lambda: sk.read_all_plain(emb, True),
+                read["bytes"] + 8 * 128 * 4, float(emb.numel()),
+                read["torch_amax"]["ms"])]
+    for key, m, replaces in (("bf16_m2", GATHER_M2, REPLACES["gather_rows"]),
+                             ("bf16_m4", GATHER_M4, REPLACES_M4)):
+        g, ids = gathers[key], sets[key]["rows"]
+        rows.append(row(
+            "gather_rows", replaces, f"{m} of {GATHER_ROWS}x768 bf16",
+            g["gather_rows_launches"], 0.0, g["rows"]["ms"],
+            lambda: sk.gather_rows_plain(wide, ids, check_ids=False),
+            2 * m * g["row_bytes"] + 8 * m, 0.0,
+            g["torch_index_select"]["ms"]))
+    g, ids = gathers["bf16_m2"], sets["bf16_m2"]["rows"]
+    # no one library call returns the fp32 sum of gathered bf16 rows:
+    # embedding_bag, the nearest, rounds its sum to bf16, so it is reported
+    # under its own name and library_ms stays null
+    rows.append(dict(row(
+        "gather_reduce", REPLACES["gather_reduce"],
+        f"{GATHER_M2} of {GATHER_ROWS}x768 bf16", launches["gather_reduce"],
+        held["bf16_m2"]["reduce_max_abs_err"]["rows"], g["reduce"]["ms"],
+        lambda: sk.gather_reduce_plain(wide, ids, check_ids=False),
+        GATHER_M2 * (g["row_bytes"] + 8) + 768 * 4, GATHER_M2 * 768.0, None),
+        nearest_library="torch.nn.functional.embedding_bag(mode='sum'), "
+                        "bf16 result",
+        nearest_library_ms=g["torch_embedding_bag_sum"]["ms"]))
+    return fields, rows, read["best_gb_per_s"] * 1e9
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1180,6 +1662,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    from cuvs_rag_tpu_torch.eval.roofline import REDUCE_TOL, gpu_line
     from cuvs_rag_tpu_torch.kernels import build
 
     t_start = time.perf_counter()
@@ -1210,6 +1693,11 @@ def main() -> int:
          seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
+    attn_parity = attn_parity_phase(args.seed)
+    emit("attn_parity", gpu=gpu, tolerance=ATTN_TOL, **attn_parity,
+         seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
     dev = torch.device("cuda")
     enc = make_encoder(args.seed, dev)
     emb, passages, planted, texts = make_corpus(args.seed, enc, dev)
@@ -1217,6 +1705,12 @@ def main() -> int:
     main_out, flat_r, flat_ids = main_path(enc, emb, passages, planted, texts,
                                            rng)
     emit("main", gpu=gpu, seconds=time.perf_counter() - t0, **main_out)
+
+    t0 = time.perf_counter()
+    stream_parity = stream_parity_phase(emb, PARITY_RAGGED, args.seed)
+    emit("stream_parity", gpu=gpu, rows=ROWS, dim=D,
+         ragged_rows=PARITY_RAGGED, ids=GATHER_M2, reduce_tolerance=REDUCE_TOL,
+         **stream_parity, seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     ivf_out, ivf_r = ivf_main_path(enc, emb, passages, planted, texts,
@@ -1240,7 +1734,24 @@ def main() -> int:
              **pq_out["launches"]})
     finally:
         tmp.cleanup()
-    emit("timing", gpu=gpu, **e2e)
+    # the IVF retrievers and their stores are done: free them for what follows
+    del ivf_r, pq_r, ooc_r, flat_r, passages
+    torch.cuda.empty_cache()
+    stream_out, stream_rows, read_rate = stream_timing(emb, args.seed)
+    del emb
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    qwen_out, qwen_state = qwen_main_path(args.seed, dev)
+    emit("qwen_main", gpu=gpu, seconds=time.perf_counter() - t0, **qwen_out)
+    qwen_e2e, qwen_rows = qwen_timing(*qwen_state, args.seed)
+
+    kernels += qwen_rows + stream_rows
+    for row in kernels:
+        # the same bytes over the streaming-read rate that M1 measured here
+        row["measured_bound_ms"] = 1e3 * row["bytes"] / read_rate
+    emit("timing", gpu=gpu, **e2e, **qwen_e2e, measured_read_bytes_per_s=read_rate,
+         stream=stream_out)
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

@@ -30,6 +30,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 # C signatures of the entry points of each source (see the .cu file).
 SIGNATURES = {
@@ -61,6 +62,16 @@ SIGNATURES = {
         "pq_adc_scores": [
             _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _P, _P, _P,
         ],
+    },
+    "flash_attn.cu": {
+        "flash_attention": [
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
+        ],
+    },
+    "stream.cu": {
+        "read_all": [_P, _L, _I, _I, _I, _I, _P, _P, _P],
+        "gather_rows": [_P, _P, _P, _L, _I, _L, _I, _P],
+        "gather_reduce": [_P, _P, _L, _I, _I, _I, _P, _P, _P],
     },
 }
 

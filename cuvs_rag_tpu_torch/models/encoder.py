@@ -12,6 +12,8 @@ Encoders:
   * models.bert_encoder.TorchSentenceEncoder — the BERT family as this
     package's own nn.Module, with a device-resident encode for the
     retrieval pipeline.
+  * models.qwen_encoder.QwenEmbeddingEncoder — the Qwen3 decoder family
+    (last-token pooling), likewise, with flash attention as a CUDA kernel.
   * The protocol is duck-typed: anything with .encode(texts)->np.ndarray
     and .dim works as an encoder for the RAG pipeline.
 """
@@ -199,24 +201,27 @@ class TransformersEncoder:
 def make_encoder(name: str = "hashing", *, device=None, **kwargs):
     """Factory: 'hashing', 'tfidf' or an HF model name.
 
-    With a `device`, a BERT-family checkpoint (MiniLM/DistilBERT-class)
-    runs as models.bert_encoder.TorchSentenceEncoder on that device, whose
-    encode_device keeps embeddings there for the index. Without one, the
-    checkpoint runs through transformers on the CPU (TransformersEncoder).
+    A checkpoint runs as this package's own nn.Module, picked by its
+    model_type: a BERT-family checkpoint (MiniLM/DistilBERT-class) as
+    models.bert_encoder.TorchSentenceEncoder, a Qwen3-family one (the
+    Qwen3-Embedding pipeline) as models.qwen_encoder.QwenEmbeddingEncoder.
+    It runs on the card unless the caller names a `device` (there is no
+    fallback to the CPU: device="cpu" asks for it). Their encode_device
+    keeps embeddings on the device for the index. The transformers-backed
+    encoder is not picked here: construct TransformersEncoder by name.
     """
     if name == "hashing":
         return HashingEncoder(**kwargs)
     if name == "tfidf":
         return TfidfHashingEncoder(**kwargs)
-    if device is None:
-        return TransformersEncoder(model_name=name, **kwargs)
     from transformers import AutoConfig
 
     model_type = getattr(AutoConfig.from_pretrained(name), "model_type", "")
     if model_type.startswith("qwen"):
-        raise NotImplementedError(
-            "the Qwen3 encoder arrives with ROADMAP slice 5 (encoders)"
-        )
+        from cuvs_rag_tpu_torch.models.qwen_encoder import QwenEmbeddingEncoder
+
+        return QwenEmbeddingEncoder.from_pretrained(name, device=device,
+                                                    **kwargs)
     from cuvs_rag_tpu_torch.models.bert_encoder import TorchSentenceEncoder
 
     return TorchSentenceEncoder.from_pretrained(name, device=device, **kwargs)

@@ -149,3 +149,93 @@ def test_ivf_pq_search_launches_the_kernel(cuda_device):
         torch.cuda.synchronize()
         assert pk.pq_adc_scores.launches == launched
         assert i[:, 0].tolist() == list(range(32))
+
+
+def test_flash_attention_matches_plain(cuda_device):
+    """K7 on the whole output for bf16 and fp32, head_dim 128 and 64, GQA
+    and MHA, S no multiple of the 64-row tiles, right, left and two-sided
+    padding down to a one-token row: within rtol 1e-4 / atol 1e-5 (fp32) or
+    rtol 2^-8 / atol 2e-5 (bf16: the output's one rounding) of the plain
+    version on the same values in fp32, no NaN."""
+    import chip_smoke
+
+    out = chip_smoke.attn_parity_phase(0, device=cuda_device, s_long=1100,
+                                       s_batch=130)
+    assert out["cases"] == 7
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "dtype"])
+def test_flash_attention_raises_on_what_the_kernel_does_not_take(cuda_device,
+                                                                  bad):
+    """No fallback to the plain version on a CUDA tensor."""
+    from cuvs_rag_tpu_torch.ops import attention_kernels as ak
+
+    hd, dtype = (32, torch.bfloat16) if bad == "head_dim" \
+        else (64, torch.float16)
+    q = torch.zeros((1, 8, 2, hd), dtype=dtype, device=cuda_device)
+    mask = torch.ones((1, 8), dtype=torch.int32, device=cuda_device)
+    before = ak.flash_attention.launches
+    with pytest.raises(ValueError, match="the kernel takes"):
+        ak.flash_attention(q, q, q, mask, 1.0)
+    assert ak.flash_attention.launches == before
+
+
+def test_stream_kernels_match_plain(cuda_device):
+    """M1 in both modes (bit-equal, also on a ragged row count), M2 / M4 on
+    bf16, int8 and fp32 rows at span 1 and 32 with duplicate ids (bit-equal), M3
+    on bf16, int8 and fp32 rows within rtol 1e-4 / atol 2e-3."""
+    import chip_smoke
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    corpus = torch.randn((60_004, 384), generator=g,
+                         device=cuda_device).to(torch.bfloat16)
+    out = chip_smoke.stream_parity_phase(corpus, 40_003, seed=0, m=8192)
+    assert out["cases"] == 22
+
+
+def test_stream_kernels_count_launches_and_check_ids(cuda_device):
+    from cuvs_rag_tpu_torch.ops import stream_kernels as sk
+
+    x = torch.zeros((64, 128), dtype=torch.bfloat16, device=cuda_device)
+    ids = torch.tensor([0, 63], device=cuda_device)
+    before = [sk.read_all.launches, sk.gather_rows.launches,
+              sk.gather_reduce.launches]
+    sk.read_all(x, True)
+    sk.gather_rows(x, ids)
+    sk.gather_reduce(x, ids)
+    torch.cuda.synchronize()
+    after = [sk.read_all.launches, sk.gather_rows.launches,
+             sk.gather_reduce.launches]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    with pytest.raises(IndexError):
+        sk.gather_rows(x, ids, span=2)
+    with pytest.raises(ValueError, match="16"):
+        sk.gather_rows(x[:, :4].contiguous(), ids)
+
+
+def test_qwen_encoder_runs_through_the_kernel(cuda_device):
+    """A small Qwen3 stack on the card launches K7 once per layer and
+    forward call, and embeds like the same weights on the CPU (the plain
+    attention) in fp32."""
+    import copy
+
+    from cuvs_rag_tpu_torch.models import qwen_encoder as qe
+    from cuvs_rag_tpu_torch.models.encoder import HashTokenizer
+    from cuvs_rag_tpu_torch.ops import attention_kernels as ak
+
+    cfg = qe.QwenConfig(vocab_size=500, hidden_size=128, num_layers=3,
+                        num_heads=4, num_kv_heads=2, head_dim=64,
+                        intermediate_size=256)
+    model = qe.QwenModel(cfg).init_random_(torch.Generator().manual_seed(0))
+    tok = HashTokenizer(499)
+    texts = ["one two three", "a much longer text " * 20, "x"]
+    cpu = qe.QwenEmbeddingEncoder(cfg, model, tok, max_length=96,
+                                  dtype=torch.float32, device="cpu")
+    want = cpu.encode(texts)
+    gpu = qe.QwenEmbeddingEncoder(cfg, copy.deepcopy(model), tok,
+                                  max_length=96, dtype=torch.float32,
+                                  device=cuda_device)
+    ak.flash_attention.launches = 0
+    got = gpu.encode(texts, batch_size=2)
+    assert ak.flash_attention.launches == 2 * cfg.num_layers
+    assert abs(got - want).max() < 1e-4

@@ -20,10 +20,12 @@ import jax.numpy as jnp
 
 from cuvs_rag_tpu.models import encoder as jenc
 from cuvs_rag_tpu.models import flax_encoder as fe
+from cuvs_rag_tpu.models import flax_qwen as fq
 from cuvs_rag_tpu.rag.corpus import Corpus as JCorpus
 from cuvs_rag_tpu.rag.pipeline import Retriever as JRetriever
 from cuvs_rag_tpu.utils import config as jconfig
 from cuvs_rag_tpu_torch.models import bert_encoder as be
+from cuvs_rag_tpu_torch.models import qwen_encoder as tq
 from cuvs_rag_tpu_torch.rag.corpus import Corpus
 from cuvs_rag_tpu_torch.rag.pipeline import Retriever
 from cuvs_rag_tpu_torch.utils import config as tconfig
@@ -220,6 +222,9 @@ def test_import_leaves_jax_out():
         "import sys, cuvs_rag_tpu_torch\n"
         "from cuvs_rag_tpu_torch.rag import pipeline\n"
         "from cuvs_rag_tpu_torch.models import bert_encoder, encoder\n"
+        "from cuvs_rag_tpu_torch.models import qwen_encoder\n"
+        "from cuvs_rag_tpu_torch.ops import attention_kernels, stream_kernels\n"
+        "from cuvs_rag_tpu_torch.eval import roofline\n"
         "from cuvs_rag_tpu_torch.kernels import build\n"
         "from cuvs_rag_tpu_torch.index import io, filters, ivf_flat\n"
         "from cuvs_rag_tpu_torch.index import ivf_pq, refine\n"
@@ -335,3 +340,84 @@ def test_memmap_backed_retriever_saves_and_loads(encoders, tmp_path):
     np.testing.assert_allclose(ld, d, **TOL)
     jloaded = JRetriever.load(str(tmp_path / "saved"), jencoder)
     _assert_same(tr, jloaded, queries, 5)
+
+
+# --- the Qwen3 slice as a whole: text -> Qwen3 encoder -> flat -> passages ---
+
+
+@pytest.fixture(scope="module")
+def qwen_encoders():
+    """The tiny Qwen3 encoder in both packages from the same weights, fp32,
+    one HashTokenizer (every batch padded to max_length 32)."""
+    tiny = dict(vocab_size=200, hidden_size=64, num_layers=2, num_heads=4,
+                num_kv_heads=2, head_dim=16, intermediate_size=96,
+                rope_theta=10_000.0)
+    fcfg = fq.QwenConfig(**tiny)
+    params = fq.QwenModel(fcfg).init(
+        jax.random.PRNGKey(11), jnp.zeros((1, 8), jnp.int32),
+        jnp.ones((1, 8), jnp.int32))
+    params = jax.tree_util.tree_map(np.asarray, params)
+    tok = jenc.HashTokenizer(fcfg.vocab_size - 1)
+    tcfg = tq.QwenConfig(**tiny)
+    model = tq.QwenModel(tcfg)
+    model.load_state_dict(tq.from_flax_params(params, tcfg))
+    return (fq.QwenEmbeddingEncoder(fcfg, params, tok, max_length=32,
+                                    dtype=jnp.float32, use_flash=False),
+            tq.QwenEmbeddingEncoder(tcfg, model, tok, max_length=32,
+                                    dtype=torch.float32, device="cpu"))
+
+
+@pytest.fixture
+def qwen_pair(qwen_encoders):
+    jencoder, tencoder = qwen_encoders
+    passages = [jenc.get_detailed_instruct("find the passage", p)
+                for p in _passages(120)]
+    return (JRetriever.build(JCorpus(passages=list(passages)), jencoder),
+            Retriever.build(Corpus(passages=list(passages)), tencoder,
+                            device="cpu"),
+            passages)
+
+
+@pytest.mark.parametrize("k", [5, 40])
+def test_qwen_retriever_returns_the_jax_retrievers_passages(qwen_pair, k):
+    """The same instruct-formatted texts through both packages' Qwen3
+    encoders and flat indexes: the same passages (ids as sets up to ties),
+    distances within rtol / atol 1e-4."""
+    jr, tr, passages = qwen_pair
+    assert tr.index.device == torch.device("cpu") and tr.index.dim == 64
+    queries = passages[:6] + [
+        jenc.get_detailed_instruct("find the passage", "t1 t2 t3"),
+        "doc t9 t40 t77"]
+    _assert_same(tr, jr, queries, k)
+    res = tr.retrieve_batch(passages[:3], k)
+    assert [r.passages[0].index for r in res] == [0, 1, 2]
+    assert res[0].passages[0].distance < 1e-5
+
+
+def test_qwen_retriever_delete_extend_and_filter_match_jax(qwen_pair):
+    jr, tr, passages = qwen_pair
+    for r in (jr, tr):
+        r.delete([0, 7])
+    new = [jenc.get_detailed_instruct("find the passage", "brand new t5 t6")]
+    assert list(jr.extend(new)) == list(tr.extend(new)) == [120]
+    queries = passages[:5] + new
+    _assert_same(tr, jr, queries, 5)
+    ids = tr.retrieve_ids(queries, 5)[1]
+    assert not np.isin(ids, [0, 7]).any() and ids[-1, 0] == 120
+    allow = np.arange(121) % 2 == 1
+    d, i = tr.retrieve_ids(queries, 6, allow=allow)
+    rd, ri = jr.retrieve_ids(queries, 6, allow=allow)
+    compare_topk(-d, i, -rd, ri, **TOL)
+    assert allow[i[i >= 0]].all()
+
+
+def test_qwen_retriever_saves_and_loads(qwen_pair, qwen_encoders, tmp_path):
+    _, tr, passages = qwen_pair
+    tr.save(str(tmp_path / "qwen"))
+    want = tr.retrieve_ids(passages[:8], 5)
+    loaded = Retriever.load(str(tmp_path / "qwen"), qwen_encoders[1])
+    got = loaded.retrieve_ids(passages[:8], 5)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[0], want[0], **TOL)
+    jloaded = JRetriever.load(str(tmp_path / "qwen"), qwen_encoders[0])
+    _assert_same(tr, jloaded, passages[:8], 5)
