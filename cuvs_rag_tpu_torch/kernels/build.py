@@ -4,16 +4,19 @@ Each `.cu` file is compiled by nvcc for sm_90a into a shared library with a
 plain C interface, loaded with ctypes. The build runs at first use into
 `build/kernels/` at the repository root and is keyed by a hash of the
 source, the shared `.cuh` headers and the flags, so a changed source
-rebuilds and an unchanged one loads the library already built. Nothing
-here runs at import time.
+rebuilds and an unchanged one loads the library already built; what
+`ptxas -v` said of each kernel is kept beside the library (`resources`).
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -70,7 +73,8 @@ SIGNATURES = {
     },
     "stream.cu": {
         "read_all": [_P, _L, _I, _I, _I, _I, _P, _P, _P],
-        "gather_rows": [_P, _P, _P, _L, _I, _L, _I, _P],
+        "gather_rows": [_P, _P, _P, _L, _I, _L, _I, _I, _P],
+        "gather_rows_bulk": [_P, _P, _P, _L, _I, _L, _I, _P],
         "gather_reduce": [_P, _P, _L, _I, _I, _I, _P, _P, _P],
     },
 }
@@ -111,6 +115,8 @@ def _build(source: str) -> Path:
                 f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
                 f"{proc.stdout}\n{proc.stderr}"
             )
+        # what ptxas said of each kernel (registers, spills): `resources`
+        lib.with_suffix(".log").write_text(proc.stderr)
         os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     finally:
         if os.path.exists(tmp):
@@ -128,6 +134,56 @@ def load(source: str) -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def resources(source: str) -> dict:
+    """Registers, spilled bytes (stores, loads) and static shared memory of
+    each kernel of a built source, as `ptxas -v` printed them at its build:
+    {"flash_attn_mma_kernel<128,2>": {"registers": ..., ...}, ...}."""
+    log = _build(source).with_suffix(".log").read_text()
+    out = {}
+    for entry in log.split("Compiling entry function")[1:]:
+        name = _kernel_name(entry.split("'")[1])
+        regs = re.search(r"Used (\d+) registers", entry)
+        if not name or not regs:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          entry)
+        smem = re.search(r"(\d+) bytes smem", entry)
+        out[name] = {
+            "registers": int(regs.group(1)),
+            "spill_store_bytes": int(spill.group(1)) if spill else 0,
+            "spill_load_bytes": int(spill.group(2)) if spill else 0,
+            "static_smem_bytes": int(smem.group(1)) if smem else 0,
+        }
+    return out
+
+
+def _kernel_name(mangled: str) -> str | None:
+    """`name<ints>` of a mangled `..._kernel` symbol (identifiers are
+    length-prefixed; integer template arguments read `Li<n>E`)."""
+    found = None  # the last match: the kernel's own name, not a scope's
+    for m in re.finditer(r"\d+", mangled):
+        for cut in range(len(m.group())):
+            n = int(m.group()[cut:])
+            name, rest = mangled[m.end():m.end() + n], mangled[m.end() + n:]
+            if len(name) == n and name.endswith("_kernel"):
+                args = re.match(r"I((?:Li\d+E)+)E", rest)
+                ints = re.findall(r"Li(\d+)E", args.group(1)) if args else []
+                found = name + (f"<{','.join(ints)}>" if ints else "")
+    return found
+
+
+def device_guard(device):
+    """A context manager that makes the CUDA `device` current for a launch
+    (kernels launch into the current device's context), and nothing where it
+    already is: the usual caller, whom `torch.cuda.device`'s enter and exit
+    would cost microseconds a call."""
+    import torch
+
+    if device.index in (None, torch.cuda.current_device()):
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check(err: int, what: str) -> None:

@@ -2,10 +2,11 @@
 
 The counterpart of the Pallas TPU `flash_attention` that the JAX package's
 Qwen3 encoder calls (`models/flax_qwen.py:157`). One wrapper,
-`flash_attention`, launches the hand-written CUDA kernel of
-`csrc/flash_attn.cu` on a CUDA tensor and runs `flash_attention_plain` on a
-CPU tensor — never a fallback from one to the other. It counts its kernel
-launches in `flash_attention.launches`.
+`flash_attention`, launches the hand-written CUDA kernels of
+`csrc/flash_attn.cu` on a CUDA tensor (bf16: the tensor-core kernel; fp32:
+the CUDA-core kernel, fp32 math throughout) and runs `flash_attention_plain`
+on a CPU tensor — never a fallback from one to the other. It counts its
+kernel launches in `flash_attention.launches`.
 
 Contract: q (B, S, nh, hd) and k, v (B, S, nkv, hd), the projections' own
 layout (query head h reads kv head h // (nh // nkv): no GQA repeat, no
@@ -14,15 +15,17 @@ Query i attends key j iff j <= i and mask[b, i] == mask[b, j] — the TPU
 kernel's segment rule, at pad rows too, so kernel, plain version and the
 JAX reference agree on the whole tensor. Every row allows j = i, so the
 softmax denominator is never 0 and no output is NaN. Output (B, S, nh, hd)
-in q's dtype. Scores, softmax and the accumulator are fp32; the plain
-version casts the probabilities to v's dtype before P.V (the dense branch
-of `flax_qwen.py:168-176`), the kernel keeps them fp32. fp32 outputs agree
-to rtol 1e-4 / atol 1e-5 (another summation order, a fast exp). On bf16
-inputs that cast alone moves the plain version's output by up to 4e-3, so
-the kernel is held to the plain version of the same values in fp32, where
-only its output's one rounding separates them: rtol 2^-8 (half a bf16
-step) / atol 2e-5, measured on an H100 (700 W) at 1 x 8192 and 16 x 512
-tokens with chip_smoke.py.
+in q's dtype. Scores, softmax and the accumulator are fp32; the
+probabilities are cast to v's dtype before P.V while the denominator sums
+them in fp32: in the plain version (the dense branch of
+`flax_qwen.py:168-176`), in the bf16 kernel and in the TPU kernel alike.
+
+Tolerances. fp32: rtol 1e-4 / atol 1e-5 against the plain version (another
+summation order, a fast exp). bf16: the scores are exact products summed in
+fp32, so what separates the kernel from the plain version of the same
+values in fp32 is one rounding of each probability (2^-9 of it) and one of
+the output; `attention_rounding_bound` gives that reference and the
+elementwise error those two roundings allow, with a factor 2 to spare.
 """
 
 from __future__ import annotations
@@ -90,17 +93,43 @@ def flash_attention_plain(q, k, v, mask, sm_scale: float):
     return out
 
 
+def attention_rounding_bound(q, k, v, mask, sm_scale: float):
+    """(want, bound): the plain attention of the same values in fp32, and
+    the elementwise error that bf16 attention may show against it,
+
+        bound = 2^-8 * A + 2^-8 * |want| + 2e-5,   A = softmax(scores) . |v|
+
+    A is the same attention run on `v.abs()`: rounding each probability to
+    bf16 (2^-9 of it) moves an output by at most 2^-9 * A, rounding the
+    output by 2^-9 of it; the bound allows twice both, and 2e-5 for the
+    order of the fp32 sums. Where a row is nearly one-hot, or every
+    probability is exactly representable, A = |want| or the first term
+    vanishes and the bound is as tight as the output's own rounding.
+    """
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = flash_attention_plain(qf, kf, vf, mask, sm_scale)
+    spread = flash_attention_plain(qf, kf, vf.abs(), mask, sm_scale)
+    return want, 2.0 ** -8 * (spread + want.abs()) + 2e-5
+
+
 def flash_attention(q, k, v, mask, sm_scale: float):
     """K7: causal attention under a segment-id pad mask, (B, S, nh, hd) out.
 
     Replaces the bundled Pallas TPU flash_attention called at
     cuvs_rag_tpu/models/flax_qwen.py:157. It is bound by operations (one
-    layer at S = 8192, 16 heads, hd = 128 is 0.275 TFLOP against 0.10 GB).
-    Blocks over (64-row query tile x head x batch) loop over 64-key tiles up
-    to their own causal limit with Q, K and V tiles in shared memory and m,
-    l and O in registers; the products run on the CUDA cores in fp32. Any S;
-    bf16 or fp32; hd 64 or 128. Anything else on a CUDA tensor raises.
+    layer at S = 8192, 16 heads, hd = 128 is 0.263 TFLOP against 0.10 GB).
+    bf16: both products run on the tensor cores (`mma.sync` m16n8k16, fp32
+    sums) from swizzled bf16 tiles in shared memory; P stays in registers,
+    rounded to bf16 before P.V; a block serves the query heads of one kv
+    group, so each K/V tile is loaded once for them, by `cp.async` into a
+    two-stage ring while the tile before multiplies; blocks loop to their
+    own causal limit, longest first. fp32: the same loop on the CUDA cores
+    in fp32, one head a block. Any S; hd 64 or 128; any nh % nkv == 0.
+    sm_scale must be positive (the kernel takes a row's largest score from
+    its largest product). Anything else on a CUDA tensor raises.
     """
+    if not sm_scale > 0:
+        raise ValueError(f"sm_scale must be positive, got {sm_scale}")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, mask, sm_scale)
     if q.device.type != "cuda":
@@ -114,7 +143,7 @@ def flash_attention(q, k, v, mask, sm_scale: float):
 
     q, k, v = _aligned(q), _aligned(k), _aligned(v)  # held until the return
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    with build.device_guard(q.device):
         err = build.load(_SOURCE).flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
             out.data_ptr(), b, s, nh, k.shape[2], hd,

@@ -37,6 +37,7 @@ that has checked its ids once and times repeated calls passes
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -48,6 +49,8 @@ _MAX_BLOCKS = 132 * 8  # blocks of 256 threads that the card holds at once
 # each other on an H100 (700 W)
 _READ_BLOCKS = 132 * 4
 _THREADS = 256
+_GATHER_THREADS = 256
+_GATHER_MAX_BLOCKS = 1 << 20
 _REDUCE_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
 
 
@@ -75,15 +78,34 @@ def _check_gather(vectors, ids, span, check_ids):
         if int(lo) < 0 or int(hi) + span > vectors.shape[0]:
             raise IndexError(f"ids in [{int(lo)}, {int(hi)}] with span {span} "
                              f"leave the {vectors.shape[0]} rows")
-    return ids.to(torch.int64).contiguous()
+    # the usual caller's ids are int64 and contiguous already: no dispatch
+    if ids.dtype != torch.int64:
+        ids = ids.to(torch.int64)
+    return ids if ids.is_contiguous() else ids.contiguous()
 
 
 def _blocks(items: int, per_block: int) -> int:
     return max(1, min(_MAX_BLOCKS, -(-items // per_block)))
 
 
+@functools.lru_cache(maxsize=1024)
+def gather_plan(m: int, seg_chunks: int) -> tuple[int, int]:
+    """(lanes that own a segment, blocks of the grid) for `gather_rows` on m
+    segments of `seg_chunks` 16-byte chunks. The group is the part of a warp
+    (32, 16, 8 or 4 lanes) that leaves the fewest lanes idle on a segment's
+    last pass, the widest of those: 96 chunks -> 32, 48 -> 16, 1 -> 4. The
+    grid gives every group a segment before any group gets a second one, up
+    to the blocks the card holds at once."""
+    if m < 1 or seg_chunks < 1:
+        raise ValueError(f"m = {m}, seg_chunks = {seg_chunks}")
+    lanes = min((32, 16, 8, 4), key=lambda g: -seg_chunks % g)
+    return lanes, max(1, min(_GATHER_MAX_BLOCKS, -(-m * lanes // _GATHER_THREADS)))
+
+
 def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    # the stream's handle without building a torch.cuda.Stream around it
+    # (10 us a call on an H100's host)
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 # ------------------------------------------------------------------ M1 ---
@@ -139,7 +161,7 @@ def read_all(corpus, full_reduce: bool):
     partial = torch.empty((n_blocks, 8, 128), dtype=torch.float32,
                           device=x.device)
     out = torch.empty((8, 128), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    with build.device_guard(x.device):
         err = build.load(_SOURCE).read_all(
             x.data_ptr(), n, d, int(bool(full_reduce)), TILE_ROWS, n_blocks,
             partial.data_ptr(), out.data_ptr(), _stream(x))
@@ -168,8 +190,12 @@ def gather_rows(vectors, ids, span: int = 1, *, check_ids: bool = True):
 
     Replaces `pallas_gather` of scripts/bench_gather_modes.py (`_kernel` :42)
     and of scripts/bench_pallas_gather.py (`_kernel` :38, span = 1). It is
-    bound by bytes: m * span rows read and written once. One thread per 16
-    bytes, neighbouring threads on neighbouring bytes of one span.
+    bound by bytes: m * span rows read and written once, and at a few
+    thousand rows by the launch. A group of lanes (`gather_plan`) owns a
+    segment: one load of its id, shared by shuffle; the lanes walk its
+    16-byte chunks with no division; several segments are in flight a
+    group; rows leave by streaming stores, so the copy does not evict
+    corpus lines that duplicate ids hit in the L2.
     """
     if vectors.device.type == "cpu":
         return gather_rows_plain(vectors, ids, span, check_ids=check_ids)
@@ -182,20 +208,28 @@ def gather_rows(vectors, ids, span: int = 1, *, check_ids: bool = True):
                          f"bytes a load")
     from cuvs_rag_tpu_torch.kernels import build
 
-    src = vectors.contiguous()  # held until the call returns
+    # held until the call returns
+    src = vectors if vectors.is_contiguous() else vectors.contiguous()
     m = ids.shape[0]
     out = torch.empty((m * span, src.shape[1]), dtype=src.dtype,
                       device=src.device)
-    n_blocks = _blocks(m * span * (row_bytes // 16), _THREADS * 4)
-    with torch.cuda.device(src.device):
-        err = build.load(_SOURCE).gather_rows(
-            src.data_ptr(), ids.data_ptr(), out.data_ptr(), m, span,
-            row_bytes, n_blocks, _stream(src))
+    lanes, n_blocks = gather_plan(m, row_bytes // 16 * span)
+    with build.device_guard(src.device):
+        if _BULK:
+            err = build.load(_SOURCE).gather_rows_bulk(
+                src.data_ptr(), ids.data_ptr(), out.data_ptr(), m, span,
+                row_bytes, _blocks(m * -(-row_bytes * span // 1536), 32),
+                _stream(src))
+        else:
+            err = build.load(_SOURCE).gather_rows(
+                src.data_ptr(), ids.data_ptr(), out.data_ptr(), m, span,
+                row_bytes, lanes, n_blocks, _stream(src))
     build.check(err, "gather_rows")
     gather_rows.launches += 1
     return out
 
 
+_BULK = False
 gather_rows.launches = 0
 
 
@@ -231,13 +265,14 @@ def gather_reduce(vectors, ids, *, check_ids: bool = True):
                          f"bytes, got {vectors.dtype} rows of {row_bytes}")
     from cuvs_rag_tpu_torch.kernels import build
 
-    src = vectors.contiguous()  # held until the call returns
+    # held until the call returns
+    src = vectors if vectors.is_contiguous() else vectors.contiguous()
     m = ids.shape[0]
     n_blocks = _blocks(m, (_THREADS // (row_bytes // 16)) * 4)
     partial = torch.empty((n_blocks, d), dtype=torch.float32,
                           device=src.device)
     out = torch.empty((d,), dtype=torch.float32, device=src.device)
-    with torch.cuda.device(src.device):
+    with build.device_guard(src.device):
         err = build.load(_SOURCE).gather_reduce(
             src.data_ptr(), ids.data_ptr(), m, d, _REDUCE_KINDS[src.dtype],
             n_blocks, partial.data_ptr(), out.data_ptr(), _stream(src))
