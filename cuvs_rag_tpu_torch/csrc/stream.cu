@@ -159,46 +159,33 @@ __global__ void read_all_final_kernel(const float* __restrict__ partial,
 // ------------------------------------------------------------ M2 / M4 ----
 // dst segment s = the `seg_chunks` 16-byte chunks that start at source row
 // ids[s] (span rows, contiguous in the source: one copy of seg_chunks
-// chunks). A group of GS lanes (a warp, or a fixed part of one: the wrapper
+// chunks). What bounds it: bytes, each row read once and written once, and
+// the mix of reads and writes that the memory takes below its read-only
+// rate. A group of GS lanes (a warp, or a fixed part of one: the wrapper
 // picks the width that leaves the fewest lanes idle on the segment's last
 // pass) owns a segment: its first lane loads the id once and the group gets
 // it by shuffle, a lane's chunks are lane, lane + GS, ... (a 32-bit lane
-// loop, the ragged edge masked), and no division is left. Up to UNROLL
-// segments of two chunks a lane are in flight a group. Rows are read through the read-only path
-// (ld.global.nc) and written with streaming stores (st.global.cs), so the
-// copy does not push out of the L2 the corpus lines that duplicate ids hit.
-#ifndef GATHER_THREADS
-#define GATHER_THREADS 256
-#endif
-#ifndef GATHER_CHUNKS
-#define GATHER_CHUNKS 1
-#endif
-#ifndef GATHER_NOALLOC
-#define GATHER_NOALLOC 0
-#endif
-__device__ __forceinline__ uint4 ld16_gather(const void* p) {
-#if GATHER_NOALLOC
-  uint4 r;
-  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
-               : "l"(p));
-  return r;
-#else
-  return ld16(p);
-#endif
-}
-
+// loop, the ragged edge masked), and no division is left. The grid has a
+// group for every segment where it can: blocks that persist and walk
+// several far-apart segments each widen the window of output in flight and
+// were slower. Rows are read through the read-only path (ld.global.nc; L1
+// allocation stays on, duplicate ids hit there) and written with streaming
+// stores (st.global.cs), so the copy does not push out of the L2 the corpus
+// lines that duplicate ids hit. The same copy through the copy engine (1-D
+// cp.async.bulk global -> shared -> global, two 1,536-byte buffers and
+// mbarriers a thread, 32 threads a block) was 3% slower on 1,536-byte rows,
+// 7% on 768-byte rows and 16 to 150% on duplicate ids, 2% faster on 32-row
+// spans (PERF.md has the run).
 template <int GS>
-__global__ void __launch_bounds__(GATHER_THREADS)
+__global__ void __launch_bounds__(THREADS)
 gather_rows_kernel(const uint4* __restrict__ src,
                    const long long* __restrict__ ids, uint4* __restrict__ dst,
                    long long m, int seg_chunks, long long row_chunks) {
   constexpr int GPW = 32 / GS;  // groups a warp
-  constexpr int CHUNKS = GATHER_CHUNKS;  // chunks in flight a lane
   const int lane = threadIdx.x & 31, gl = lane % GS, gi = lane / GS;
-  const long long groups = (long long)gridDim.x * (GATHER_THREADS / 32) * GPW;
+  const long long groups = (long long)gridDim.x * (THREADS / 32) * GPW;
   const long long warp_first =
-      ((long long)blockIdx.x * (GATHER_THREADS / 32) + (threadIdx.x >> 5)) * GPW;
+      ((long long)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5)) * GPW;
   // every lane of the warp takes every trip: the shuffle needs them all
   for (long long s0 = warp_first; s0 < m; s0 += groups) {
     const long long s = s0 + gi;
@@ -209,105 +196,8 @@ gather_rows_kernel(const uint4* __restrict__ src,
     if (!live) continue;
     const uint4* from = src + id * row_chunks;
     uint4* to = dst + s * seg_chunks;
-    for (int c0 = gl; c0 < seg_chunks; c0 += GS * CHUNKS) {
-      uint4 w[CHUNKS];
-#pragma unroll
-      for (int j = 0; j < CHUNKS; ++j)
-        if (c0 + j * GS < seg_chunks) w[j] = ld16_gather(from + c0 + j * GS);
-#pragma unroll
-      for (int j = 0; j < CHUNKS; ++j)
-        if (c0 + j * GS < seg_chunks) __stcs(to + c0 + j * GS, w[j]);
-    }
+    for (int c = gl; c < seg_chunks; c += GS) __stcs(to + c, ld16(from + c));
   }
-}
-
-// The same copy through the Hopper copy engine: every thread owns two
-// PIECE-byte buffers and two mbarriers in shared memory and moves pieces
-// (a segment, or PIECE bytes of a longer one) global -> shared -> global by
-// 1-D bulk asynchronous copies, the next piece's load in flight while this
-// one is stored.
-constexpr int BULK_THREADS = 32;
-constexpr int BULK_PIECE = 1536;
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__global__ void __launch_bounds__(BULK_THREADS)
-gather_rows_bulk_kernel(const unsigned char* __restrict__ src,
-                        const long long* __restrict__ ids,
-                        unsigned char* __restrict__ dst, long long m,
-                        long long seg_bytes, long long row_bytes,
-                        int pieces_per_seg) {
-  extern __shared__ __align__(128) unsigned char bulk_smem[];
-  __shared__ __align__(8) unsigned long long bars[BULK_THREADS][2];
-  const int tid = threadIdx.x;
-  const unsigned buf0 = smem_addr(bulk_smem + 2 * tid * BULK_PIECE);
-  const unsigned bar0 = smem_addr(&bars[tid][0]);
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar0));
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar0 + 8));
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-
-  const long long total = m * pieces_per_seg;
-  const long long stride = (long long)gridDim.x * BULK_THREADS;
-  auto piece = [&](long long p, const unsigned char*& from, unsigned char*& to,
-                   unsigned& bytes) {
-    const long long s = p / pieces_per_seg;
-    const long long off = (p - s * pieces_per_seg) * BULK_PIECE;
-    bytes = (unsigned)min((long long)BULK_PIECE, seg_bytes - off);
-    from = src + ids[s] * row_bytes + off;
-    to = dst + s * seg_bytes + off;
-  };
-  auto load = [&](int slot, const unsigned char* from, unsigned bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                 :: "r"(bar0 + 8 * slot), "r"(bytes) : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];"
-        :: "r"(buf0 + slot * BULK_PIECE), "l"(from), "r"(bytes),
-           "r"(bar0 + 8 * slot) : "memory");
-  };
-  long long p = (long long)blockIdx.x * BULK_THREADS + tid;
-  const unsigned char* from = src;
-  unsigned char* to = dst;
-  unsigned bytes = 0;
-  unsigned phases = 0;  // bit `slot`: the parity its barrier completes next
-  int slot = 0;
-  if (p < total) {
-    piece(p, from, to, bytes);
-    load(0, from, bytes);
-  }
-  for (; p < total; p += stride, slot ^= 1) {
-    const long long next = p + stride;
-    const unsigned char* nfrom = src;
-    unsigned char* nto = dst;
-    unsigned nbytes = 0;
-    if (next < total) {
-      piece(next, nfrom, nto, nbytes);
-      // the other buffer's last store has read it
-      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-      load(slot ^ 1, nfrom, nbytes);
-    }
-    unsigned done = 0;
-    while (!done)
-      asm volatile(
-          "{\n"
-          ".reg .pred p;\n"
-          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-          "selp.u32 %0, 1, 0, p;\n"
-          "}\n"
-          : "=r"(done) : "r"(bar0 + 8 * slot), "r"((phases >> slot) & 1u)
-          : "memory");
-    phases ^= 1u << slot;
-    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-                 :: "l"(to), "r"(buf0 + slot * BULK_PIECE), "r"(bytes)
-                 : "memory");
-    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-    from = nfrom;
-    to = nto;
-    bytes = nbytes;
-  }
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 // ---------------------------------------------------------------- M3 -----
@@ -425,43 +315,24 @@ int gather_rows(const void* src, const long long* ids, void* dst, long long m,
   uint4* d = static_cast<uint4*>(dst);
   switch (group_lanes) {
     case 4:
-      gather_rows_kernel<4><<<n_blocks, GATHER_THREADS, 0, stream>>>(
+      gather_rows_kernel<4><<<n_blocks, THREADS, 0, stream>>>(
           s, ids, d, m, seg_chunks, row_chunks);
       break;
     case 8:
-      gather_rows_kernel<8><<<n_blocks, GATHER_THREADS, 0, stream>>>(
+      gather_rows_kernel<8><<<n_blocks, THREADS, 0, stream>>>(
           s, ids, d, m, seg_chunks, row_chunks);
       break;
     case 16:
-      gather_rows_kernel<16><<<n_blocks, GATHER_THREADS, 0, stream>>>(
+      gather_rows_kernel<16><<<n_blocks, THREADS, 0, stream>>>(
           s, ids, d, m, seg_chunks, row_chunks);
       break;
     case 32:
-      gather_rows_kernel<32><<<n_blocks, GATHER_THREADS, 0, stream>>>(
+      gather_rows_kernel<32><<<n_blocks, THREADS, 0, stream>>>(
           s, ids, d, m, seg_chunks, row_chunks);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
-}
-
-int gather_rows_bulk(const void* src, const long long* ids, void* dst,
-                     long long m, int span, long long row_bytes, int n_blocks,
-                     cudaStream_t stream) {
-  if (m < 1 || span < 1 || row_bytes < 16 || row_bytes % 16 != 0 ||
-      n_blocks < 1)
-    return (int)cudaErrorInvalidValue;
-  const int smem = 2 * BULK_THREADS * BULK_PIECE;
-  cudaError_t err = cudaFuncSetAttribute(
-      gather_rows_bulk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long seg_bytes = row_bytes * span;
-  gather_rows_bulk_kernel<<<n_blocks, BULK_THREADS, smem, stream>>>(
-      static_cast<const unsigned char*>(src), ids,
-      static_cast<unsigned char*>(dst), m, seg_bytes, row_bytes,
-      (int)((seg_bytes + BULK_PIECE - 1) / BULK_PIECE));
   return (int)cudaGetLastError();
 }
 

@@ -198,16 +198,6 @@ def main(argv=None) -> int:
     corpus = make_corpus(args.n, args.dim, gen)
     int8 = (corpus.float() * 40).clamp(-127, 127).to(torch.int8)
     sets = gather_ids(args.n, args.m, gen)
-    # both designs of gather_rows, in turns, on every id set
-    for bulk in (False, True, True, False):
-        sk._BULK = bulk
-        print(json.dumps({
-            "design": "bulk copies" if bulk else "lane groups",
-            "cases_held": sum(check_gathers(x, sets)["cases"]
-                              for x in (corpus, int8)),
-            "gather_bf16": gather_rates(corpus, sets),
-            "gather_int8": gather_rates(int8, sets)}), flush=True)
-    sk._BULK = False
     print(json.dumps({
         "gpu": gpu, "device": torch.cuda.get_device_name(0),
         "cases_held": check_read(corpus) + sum(

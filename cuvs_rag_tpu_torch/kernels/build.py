@@ -74,7 +74,6 @@ SIGNATURES = {
     "stream.cu": {
         "read_all": [_P, _L, _I, _I, _I, _I, _P, _P, _P],
         "gather_rows": [_P, _P, _P, _L, _I, _L, _I, _I, _P],
-        "gather_rows_bulk": [_P, _P, _P, _L, _I, _L, _I, _P],
         "gather_reduce": [_P, _P, _L, _I, _I, _I, _P, _P, _P],
     },
 }
@@ -181,9 +180,20 @@ def device_guard(device):
     would cost microseconds a call."""
     import torch
 
-    if device.index in (None, torch.cuda.current_device()):
+    # a tensor lies on `device`, so CUDA is initialized: no lazy-init check
+    if device.index in (None, torch._C._cuda_getDevice()):
         return contextlib.nullcontext()
     return torch.cuda.device(device)
+
+
+def raw_stream(device) -> int:
+    """The handle of PyTorch's current stream on the CUDA `device`, without
+    building a `torch.cuda.Stream` around it (10 us a call on an H100's
+    host, `python -m cuvs_rag_tpu_torch.eval.roofline`'s `host_us`)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(
+        torch._C._cuda_getDevice() if device.index is None else device.index)
 
 
 def check(err: int, what: str) -> None:

@@ -148,7 +148,7 @@ def flash_attention(q, k, v, mask, sm_scale: float):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
             out.data_ptr(), b, s, nh, k.shape[2], hd,
             int(q.dtype == torch.bfloat16), float(sm_scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            build.raw_stream(q.device),
         )
     build.check(err, "flash_attention")
     flash_attention.launches += 1

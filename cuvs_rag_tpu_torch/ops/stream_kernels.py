@@ -49,8 +49,7 @@ _MAX_BLOCKS = 132 * 8  # blocks of 256 threads that the card holds at once
 # each other on an H100 (700 W)
 _READ_BLOCKS = 132 * 4
 _THREADS = 256
-_GATHER_THREADS = 256
-_GATHER_MAX_BLOCKS = 1 << 20
+_GATHER_MAX_BLOCKS = 1 << 20  # beyond it a group walks several segments
 _REDUCE_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
 
 
@@ -94,18 +93,11 @@ def gather_plan(m: int, seg_chunks: int) -> tuple[int, int]:
     segments of `seg_chunks` 16-byte chunks. The group is the part of a warp
     (32, 16, 8 or 4 lanes) that leaves the fewest lanes idle on a segment's
     last pass, the widest of those: 96 chunks -> 32, 48 -> 16, 1 -> 4. The
-    grid gives every group a segment before any group gets a second one, up
-    to the blocks the card holds at once."""
+    grid has a group for every segment, up to 2^20 blocks."""
     if m < 1 or seg_chunks < 1:
         raise ValueError(f"m = {m}, seg_chunks = {seg_chunks}")
     lanes = min((32, 16, 8, 4), key=lambda g: -seg_chunks % g)
-    return lanes, max(1, min(_GATHER_MAX_BLOCKS, -(-m * lanes // _GATHER_THREADS)))
-
-
-def _stream(t):
-    # the stream's handle without building a torch.cuda.Stream around it
-    # (10 us a call on an H100's host)
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
+    return lanes, max(1, min(_GATHER_MAX_BLOCKS, -(-m * lanes // _THREADS)))
 
 
 # ------------------------------------------------------------------ M1 ---
@@ -164,7 +156,7 @@ def read_all(corpus, full_reduce: bool):
     with build.device_guard(x.device):
         err = build.load(_SOURCE).read_all(
             x.data_ptr(), n, d, int(bool(full_reduce)), TILE_ROWS, n_blocks,
-            partial.data_ptr(), out.data_ptr(), _stream(x))
+            partial.data_ptr(), out.data_ptr(), build.raw_stream(x.device))
     build.check(err, "read_all")
     read_all.launches += 1
     return out
@@ -215,21 +207,14 @@ def gather_rows(vectors, ids, span: int = 1, *, check_ids: bool = True):
                       device=src.device)
     lanes, n_blocks = gather_plan(m, row_bytes // 16 * span)
     with build.device_guard(src.device):
-        if _BULK:
-            err = build.load(_SOURCE).gather_rows_bulk(
-                src.data_ptr(), ids.data_ptr(), out.data_ptr(), m, span,
-                row_bytes, _blocks(m * -(-row_bytes * span // 1536), 32),
-                _stream(src))
-        else:
-            err = build.load(_SOURCE).gather_rows(
-                src.data_ptr(), ids.data_ptr(), out.data_ptr(), m, span,
-                row_bytes, lanes, n_blocks, _stream(src))
+        err = build.load(_SOURCE).gather_rows(
+            src.data_ptr(), ids.data_ptr(), out.data_ptr(), m, span,
+            row_bytes, lanes, n_blocks, build.raw_stream(src.device))
     build.check(err, "gather_rows")
     gather_rows.launches += 1
     return out
 
 
-_BULK = False
 gather_rows.launches = 0
 
 
@@ -275,7 +260,7 @@ def gather_reduce(vectors, ids, *, check_ids: bool = True):
     with build.device_guard(src.device):
         err = build.load(_SOURCE).gather_reduce(
             src.data_ptr(), ids.data_ptr(), m, d, _REDUCE_KINDS[src.dtype],
-            n_blocks, partial.data_ptr(), out.data_ptr(), _stream(src))
+            n_blocks, partial.data_ptr(), out.data_ptr(), build.raw_stream(src.device))
     build.check(err, "gather_reduce")
     gather_reduce.launches += 1
     return out

@@ -124,3 +124,44 @@ def test_shapes_are_validated(bad):
             sk.gather_reduce(t, ids[:0])
         elif bad == "span":
             sk.gather_rows(t, ids, 0)
+
+
+@pytest.mark.parametrize("m,seg_chunks,lanes,blocks", [
+    (131_072, 96, 32, 16_384),   # 1,536-byte rows: a warp a row
+    (10_240, 48, 16, 640),       # 768-byte rows: half a warp, no idle lane
+    (4_096, 3_072, 32, 512),     # 32-row spans
+    (777, 1, 4, 13),             # 16-byte rows: the narrowest group
+    (1, 96, 32, 1), (1, 1, 4, 1),
+    (5, 6, 8, 1),                # 96-byte rows: 8 lanes leave 2 idle, as 4 would
+    (10 ** 9, 96, 32, 1 << 20),  # the grid is capped; groups walk on
+])
+def test_gather_plan(m, seg_chunks, lanes, blocks):
+    assert sk.gather_plan(m, seg_chunks) == (lanes, blocks)
+
+
+@pytest.mark.parametrize("m,seg_chunks", [(0, 4), (4, 0)])
+def test_gather_plan_refuses_empty_work(m, seg_chunks):
+    with pytest.raises(ValueError):
+        sk.gather_plan(m, seg_chunks)
+
+
+@pytest.mark.parametrize("m,seg_chunks,max_blocks", [
+    (1, 96, 1 << 20), (37, 48, 1 << 20), (3, 3_072, 1 << 20), (50, 1, 1 << 20),
+    (100, 5, 2), (1_000, 48, 3),  # fewer groups than segments: the stride loop
+])
+def test_gather_plan_covers_every_chunk_once(m, seg_chunks, max_blocks,
+                                             monkeypatch):
+    """The kernel's walk, written out: group g of the grid takes segments g,
+    g + groups, ...; lane l of it the chunks l, l + lanes, ... Under the
+    plan's (lanes, blocks) every chunk of every segment is copied once."""
+    monkeypatch.setattr(sk, "_GATHER_MAX_BLOCKS", max_blocks)
+    sk.gather_plan.cache_clear()
+    lanes, blocks = sk.gather_plan(m, seg_chunks)
+    sk.gather_plan.cache_clear()
+    groups = blocks * sk._THREADS // lanes
+    seen = np.zeros((m, seg_chunks), np.int64)
+    for g in range(min(groups, m)):
+        for seg in range(g, m, groups):
+            for lane in range(lanes):
+                seen[seg, lane:seg_chunks:lanes] += 1
+    assert (seen == 1).all()
