@@ -71,6 +71,10 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#ifndef FA_WGMMA
+#define FA_WGMMA 0
+#endif
+
 namespace {
 
 constexpr int SEG_NONE_Q = -2147483647;  // a query row past S matches no key
@@ -399,10 +403,341 @@ flash_attn_mma_kernel(const __nv_bfloat16* __restrict__ q,    // (B, S, nh, HD)
 // Registers, spills and shared memory of each instantiation, and the tile
 // shape chosen, are printed by `nvcc -Xptxas -v`; MT is the m16 tiles a warp.
 
+// ----------------------------------------------------- bf16, wgmma -------
+// The same loop with both products as warpgroup multiplies. A block is two
+// warpgroups of 64 block rows each. Tiles sit in shared memory as panels of
+// 64 values (128 bytes) a row, the 16-byte chunks of a row XORed with row %
+// 8: the 128-byte swizzle that wgmma's descriptors name, written here by
+// cp.async. Q and K are read K-major (rows 128 bytes apart, 8-row groups
+// 1,024), V MN-major (the transposed read: 64-column panels 8,192 bytes
+// apart). P goes from the score accumulator to the A registers of P.V.
+
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo_bytes,
+                                            uint32_t sbo_bytes) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) |
+         ((uint64_t)(lbo_bytes >> 4) << 16) |
+         ((uint64_t)(sbo_bytes >> 4) << 32) | (1ull << 62);  // 128-byte swizzle
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {  // no motion across
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+              "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define R32 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
+            "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "  \
+            "%26, %27, %28, %29, %30, %31}"
+#define R64 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
+            "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "  \
+            "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "  \
+            "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "  \
+            "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "  \
+            "%62, %63}"
+
+// d (64 x 64) = or += a (64 x 16, shared, K-major) . b (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_64x64_ss(float (&d)[32], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64) += a (64 x 16, registers) . b (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_64x64_rs(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128) += a (64 x 16, registers) . b (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_64x128_rs(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_64x128_rs(d, a, db);
+}
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_64x64_rs(d, a, db);
+}
+
+// Byte offset of 16-byte chunk `chunk` (0 .. HD / 8) of row `row` in a tile
+// of `rows` rows held as 64-value panels.
+__device__ __forceinline__ uint32_t panel(int rows, int row, int chunk) {
+  return (uint32_t)((chunk >> 3) * rows * 128 + row * 128 +
+                    (((chunk & 7) ^ (row & 7)) << 4));
+}
+
+#ifndef FA_WG_BLOCKS
+#define FA_WG_BLOCKS 1
+#endif
+
+template <int HD>
+__global__ void __launch_bounds__(256, FA_WG_BLOCKS)
+flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const int* __restrict__ seg,
+                        __nv_bfloat16* __restrict__ out, int S, int nh,
+                        int nkv, int G, float scale_log2) {
+  constexpr int THREADS = 256;
+  constexpr int CH = HD / 8;
+  constexpr int KS = HD / 16;
+  constexpr int NT = BN / 8;
+  constexpr int DT = HD / 8;
+  constexpr int TILE = BN * HD * 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  // the panels' swizzle is in the address bits: 1,024-byte aligned bases
+  unsigned char* base = smem + ((1024u - (smem_u32(smem) & 1023u)) & 1023u);
+  unsigned char* sq = base;                      // [HD / 64][128][64]
+  unsigned char* sk = sq + BLOCK_ROWS * HD * 2;  // [STAGES][HD / 64][BN][64]
+  unsigned char* sv = sk + STAGES * TILE;        // [STAGES][HD / 64][BN][64]
+  int* sseg = reinterpret_cast<int*>(sv + STAGES * TILE);  // [STAGES][BN]
+  int* sqseg = sseg + STAGES * BN;                         // [128]
+  const uint32_t sq_a = smem_u32(sq), sk_a = smem_u32(sk), sv_a = smem_u32(sv);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2;
+  const int bmq = BLOCK_ROWS / G;
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h0 = blockIdx.y * G, b = blockIdx.z;
+  const int kvh = h0 / (nh / nkv);
+  const int i0 = qt * bmq;
+  const long long q_stride = (long long)nh * HD, kv_stride = (long long)nkv * HD;
+  const __nv_bfloat16* kb = k + (long long)b * S * kv_stride + (long long)kvh * HD;
+  const __nv_bfloat16* vb = v + (long long)b * S * kv_stride + (long long)kvh * HD;
+  const int* segb = seg + (long long)b * S;
+
+  for (int e = tid; e < BLOCK_ROWS * CH; e += THREADS) {
+    const int r = e / CH, c = e % CH;
+    const int i = i0 + r % bmq;
+    const bool live = i < S;
+    const __nv_bfloat16* src =
+        q + ((long long)b * S + i) * q_stride + (long long)(h0 + r / bmq) * HD + c * 8;
+    cp_async16(sq_a + panel(BLOCK_ROWS, r, c), live ? src : q, live ? 16 : 0);
+  }
+  if (tid < BLOCK_ROWS) {
+    const int i = i0 + tid % bmq;
+    sqseg[tid] = i < S ? segb[i] : SEG_NONE_Q;
+  }
+  auto load_kv = [&](int t) {
+    const int stage = t % STAGES, j0 = t * BN;
+    for (int e = tid; e < BN * CH; e += THREADS) {
+      const int r = e / CH, c = e % CH;
+      const bool live = j0 + r < S;
+      const long long off = (long long)(j0 + r) * kv_stride + c * 8;
+      const uint32_t dst = stage * TILE + panel(BN, r, c);
+      cp_async16(sk_a + dst, live ? kb + off : kb, live ? 16 : 0);
+      cp_async16(sv_a + dst, live ? vb + off : vb, live ? 16 : 0);
+    }
+    if (tid < BN) {
+      if (j0 + tid < S)
+        cp_async4(smem_u32(sseg + stage * BN + tid), segb + j0 + tid);
+      else
+        sseg[stage * BN + tid] = SEG_NONE_K;
+    }
+    cp_async_commit();
+  };
+  const int kv_end = min(S, i0 + bmq);
+  const int n_tiles = (kv_end + BN - 1) / BN;
+  load_kv(0);
+
+  // this warpgroup: block rows [64 wg, 64 wg + 64); this warp 16 of them;
+  // this thread rows lane / 4 and lane / 4 + 8 of those
+  const int rb = wg * 64 + (warp & 3) * 16;
+  const int gq0 = i0 + (wg * 64) % bmq;          // the warpgroup's first query
+  const int gq_last = gq0 + min(64, bmq) - 1;    // and its last
+  int qrow[2], segq[2];
+  float m[2], l[2], o[DT * 4];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    qrow[hf] = i0 + (rb + hf * 8 + (lane >> 2)) % bmq;
+    segq[hf] = qrow[hf] < S ? segb[qrow[hf]] : SEG_NONE_Q;
+    m[hf] = -CUDART_INF_F;
+    l[hf] = 0.f;
+  }
+#pragma unroll
+  for (int e = 0; e < DT * 4; ++e) o[e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait_all();
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    if (t + 1 < n_tiles) load_kv(t + 1);
+    const int stage = t % STAGES, j0 = t * BN;
+    if (j0 > gq_last) continue;  // wholly above this warpgroup's rows
+    // the tile's 64 key segments against the warpgroup's 64 rows: the same
+    // answer in all four warps, which multiply together or not at all
+    const int seg_a = sseg[stage * BN + lane], seg_b = sseg[stage * BN + 32 + lane];
+    const int seg_0 = __shfl_sync(0xffffffffu, seg_a, 0);
+    const bool one_seg = __all_sync(0xffffffffu, seg_a == seg_0 && seg_b == seg_0);
+    const int row_a = sqseg[wg * 64 + lane], row_b = sqseg[wg * 64 + 32 + lane];
+    const bool rows_any = __any_sync(0xffffffffu, row_a == seg_0 || row_b == seg_0);
+    const bool rows_all = __all_sync(0xffffffffu, row_a == seg_0 && row_b == seg_0);
+    if (one_seg && !rows_any) continue;
+    const bool masked = j0 + BN - 1 > gq0 || !(one_seg && rows_all);
+
+    // S = Q . K^T
+    float s[NT * 4];
+    keep(s);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint32_t in_panel = (ks & 3) * 32;
+      const uint64_t da = wg_desc(
+          sq_a + (ks >> 2) * BLOCK_ROWS * 128 + wg * 64 * 128 + in_panel, 16, 1024);
+      const uint64_t db = wg_desc(
+          sk_a + stage * TILE + (ks >> 2) * BN * 128 + in_panel, 16, 1024);
+      wgmma_64x64_ss(s, da, db, ks > 0);
+    }
+    wg_commit();
+    wg_wait();
+    keep(s);
+
+    if (masked) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int2 kseg = *reinterpret_cast<const int2*>(
+            sseg + stage * BN + nt * 8 + (lane & 3) * 2);
+        const int key = j0 + nt * 8 + (lane & 3) * 2;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          if (!(kseg.x == segq[hf] && key <= qrow[hf])) s[nt * 4 + hf * 2] = -CUDART_INF_F;
+          if (!(kseg.y == segq[hf] && key + 1 <= qrow[hf])) s[nt * 4 + hf * 2 + 1] = -CUDART_INF_F;
+        }
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float mxr = -CUDART_INF_F;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        mxr = fmaxf(mxr, fmaxf(s[nt * 4 + hf * 2], s[nt * 4 + hf * 2 + 1]));
+      mxr = fmaxf(mxr, __shfl_xor_sync(0xffffffffu, mxr, 1));
+      mxr = fmaxf(mxr, __shfl_xor_sync(0xffffffffu, mxr, 2));
+      const float m_new = fmaxf(m[hf], mxr * scale_log2);
+      const float m_safe = m_new == -CUDART_INF_F ? 0.f : m_new;
+      const float alpha = ex2(m[hf] - m_safe);
+      float rs = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float p0 = ex2(fmaf(s[nt * 4 + hf * 2], scale_log2, -m_safe));
+        const float p1 = ex2(fmaf(s[nt * 4 + hf * 2 + 1], scale_log2, -m_safe));
+        s[nt * 4 + hf * 2] = p0;
+        s[nt * 4 + hf * 2 + 1] = p1;
+        rs += p0 + p1;
+      }
+      l[hf] = l[hf] * alpha + rs;
+      m[hf] = m_new;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        o[dt * 4 + hf * 2] *= alpha;
+        o[dt * 4 + hf * 2 + 1] *= alpha;
+      }
+    }
+
+    // O += P . V, P rounded to bf16 in registers
+    uint32_t pa[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[(2 * kk) * 4 + 0], s[(2 * kk) * 4 + 1]);
+      pa[kk][1] = pack_bf16(s[(2 * kk) * 4 + 2], s[(2 * kk) * 4 + 3]);
+      pa[kk][2] = pack_bf16(s[(2 * kk + 1) * 4 + 0], s[(2 * kk + 1) * 4 + 1]);
+      pa[kk][3] = pack_bf16(s[(2 * kk + 1) * 4 + 2], s[(2 * kk + 1) * 4 + 3]);
+    }
+    keep(o);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_pv(o, pa[kk],
+               wg_desc(sv_a + stage * TILE + kk * 16 * 128, BN * 128, 1024));
+    wg_commit();
+    wg_wait();
+    keep(o);
+  }
+
+  // the warpgroup is done reading its Q rows: O / l goes back through them
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float sum = l[hf];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = 1.0f / sum;
+    const int r = rb + hf * 8 + (lane >> 2);
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<uint32_t*>(sq + panel(BLOCK_ROWS, r, dt) + (lane & 3) * 4) =
+          pack_bf16(o[dt * 4 + hf * 2] * inv, o[dt * 4 + hf * 2 + 1] * inv);
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * CH; e += 32) {
+    const int r = rb + e / CH, c = e % CH;
+    const int i = i0 + r % bmq;
+    if (i < S)
+      *reinterpret_cast<uint4*>(out + ((long long)b * S + i) * q_stride +
+                                (long long)(h0 + r / bmq) * HD + c * 8) =
+          *reinterpret_cast<const uint4*>(sq + panel(BLOCK_ROWS, r, c));
+  }
+}
+
+#undef D8
+#undef R32
+#undef R64
+
 template <int HD>
 int launch_mma(const void* q, const void* k, const void* v, const int* seg,
                void* out, int B, int S, int nh, int nkv, float scale,
                cudaStream_t stream) {
+  // the heads of a kv group that share a block: a divisor of the group
+  const int rep = nh / nkv;
+  const int G = rep % 4 == 0 ? 4 : rep % 2 == 0 ? 2 : 1;
+  const int bmq = BLOCK_ROWS / G;
+  const dim3 grid((S + bmq - 1) / bmq, nh / G, B);
+#if FA_WGMMA
+  {
+    const int smem = BLOCK_ROWS * HD * 2 + 2 * STAGES * BN * HD * 2 +
+                     (STAGES * BN + BLOCK_ROWS) * (int)sizeof(int) + 1024;
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_attn_wgmma_kernel<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_attn_wgmma_kernel<HD><<<grid, 256, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), seg, static_cast<__nv_bfloat16*>(out),
+        S, nh, nkv, G, scale * 1.4426950408889634f);
+    return (int)cudaGetLastError();
+  }
+#endif
   constexpr int MT = 2;  // 32 rows a warp: a K or V fragment feeds 4 mma
   constexpr int THREADS = BLOCK_ROWS / (16 * MT) * 32;
   const int smem = BLOCK_ROWS * HD * 2 + 2 * STAGES * BN * HD * 2 +
@@ -411,11 +746,6 @@ int launch_mma(const void* q, const void* k, const void* v, const int* seg,
       flash_attn_mma_kernel<HD, MT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  // the heads of a kv group that share a block: a divisor of the group
-  const int rep = nh / nkv;
-  const int G = rep % 4 == 0 ? 4 : rep % 2 == 0 ? 2 : 1;
-  const int bmq = BLOCK_ROWS / G;
-  const dim3 grid((S + bmq - 1) / bmq, nh / G, B);
   flash_attn_mma_kernel<HD, MT><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), seg, static_cast<__nv_bfloat16*>(out),
