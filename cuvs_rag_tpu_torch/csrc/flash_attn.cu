@@ -74,6 +74,9 @@
 #ifndef FA_WGMMA
 #define FA_WGMMA 0
 #endif
+#ifndef FA_PROXY_FENCE
+#define FA_PROXY_FENCE 1
+#endif
 
 namespace {
 
@@ -425,9 +428,6 @@ __device__ __forceinline__ void wg_fence() {
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
 template <int N>
 __device__ __forceinline__ void keep(float (&r)[N]) {  // no motion across
 #pragma unroll
@@ -497,12 +497,15 @@ __device__ __forceinline__ uint32_t panel(int rows, int row, int chunk) {
                     (((chunk & 7) ^ (row & 7)) << 4));
 }
 
-#ifndef FA_WG_BLOCKS
-#define FA_WG_BLOCKS 1
-#endif
+constexpr int WSTAGES = 4;  // K/V tiles in the wgmma kernel's ring
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
 
 template <int HD>
-__global__ void __launch_bounds__(256, FA_WG_BLOCKS)
+__global__ void __launch_bounds__(256, 1)
 flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
@@ -519,13 +522,16 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   // the panels' swizzle is in the address bits: 1,024-byte aligned bases
   unsigned char* base = smem + ((1024u - (smem_u32(smem) & 1023u)) & 1023u);
   unsigned char* sq = base;                      // [HD / 64][128][64]
-  unsigned char* sk = sq + BLOCK_ROWS * HD * 2;  // [STAGES][HD / 64][BN][64]
-  unsigned char* sv = sk + STAGES * TILE;        // [STAGES][HD / 64][BN][64]
-  int* sseg = reinterpret_cast<int*>(sv + STAGES * TILE);  // [STAGES][BN]
-  int* sqseg = sseg + STAGES * BN;                         // [128]
+  unsigned char* sk = sq + BLOCK_ROWS * HD * 2;  // [WSTAGES][HD / 64][BN][64]
+  unsigned char* sv = sk + WSTAGES * TILE;       // [WSTAGES][HD / 64][BN][64]
+  int* sseg = reinterpret_cast<int*>(sv + WSTAGES * TILE);  // [WSTAGES][BN]
+  int* sqseg = sseg + WSTAGES * BN;                         // [128]
   const uint32_t sq_a = smem_u32(sq), sk_a = smem_u32(sk), sv_a = smem_u32(sv);
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the warp's number by a broadcast: the compiler then knows that what is
+  // decided from it is the same in every lane, and lets wgmma run unfenced
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
   const int wg = warp >> 2;
   const int bmq = BLOCK_ROWS / G;
   const int qt = gridDim.x - 1 - blockIdx.x;
@@ -549,33 +555,52 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     const int i = i0 + tid % bmq;
     sqseg[tid] = i < S ? segb[i] : SEG_NONE_Q;
   }
+  const int kv_end = min(S, i0 + bmq);
+  const int n_tiles = (kv_end + BN - 1) / BN;
+  // K/V tile loads: this thread's 16-byte chunk column and first row, its
+  // offsets in global and in shared memory worked out once (rows RPP apart
+  // share row % 8, so the swizzled offset only steps by whole rows)
+  constexpr int RPP = THREADS / CH;  // rows a pass of the block
+  const int lr0 = tid / CH, lc = tid % CH;
+  const long long g_off0 = (long long)lr0 * kv_stride + lc * 8;
+  const long long g_step = (long long)RPP * kv_stride;
+  const uint32_t s_off0 = panel(BN, lr0, lc);
+  // one commit group a call, also where no tile is left: the waits count groups
   auto load_kv = [&](int t) {
-    const int stage = t % STAGES, j0 = t * BN;
-    for (int e = tid; e < BN * CH; e += THREADS) {
-      const int r = e / CH, c = e % CH;
-      const bool live = j0 + r < S;
-      const long long off = (long long)(j0 + r) * kv_stride + c * 8;
-      const uint32_t dst = stage * TILE + panel(BN, r, c);
-      cp_async16(sk_a + dst, live ? kb + off : kb, live ? 16 : 0);
-      cp_async16(sv_a + dst, live ? vb + off : vb, live ? 16 : 0);
-    }
-    if (tid < BN) {
-      if (j0 + tid < S)
-        cp_async4(smem_u32(sseg + stage * BN + tid), segb + j0 + tid);
-      else
-        sseg[stage * BN + tid] = SEG_NONE_K;
+    if (t < n_tiles) {
+      const int stage = t % WSTAGES, j0 = t * BN;
+      const __nv_bfloat16* kp = kb + (long long)j0 * kv_stride + g_off0;
+      const __nv_bfloat16* vp = vb + (long long)j0 * kv_stride + g_off0;
+      uint32_t dst = stage * TILE + s_off0;
+      int left = S - j0 - lr0;  // rows from this thread's first to the end
+#pragma unroll
+      for (int i = 0; i < BN / RPP; ++i) {
+        const bool live = left > 0;
+        cp_async16(sk_a + dst, live ? kp : kb, live ? 16 : 0);
+        cp_async16(sv_a + dst, live ? vp : vb, live ? 16 : 0);
+        kp += g_step;
+        vp += g_step;
+        dst += RPP * 128;
+        left -= RPP;
+      }
+      if (tid < BN) {
+        if (j0 + tid < S)
+          cp_async4(smem_u32(sseg + stage * BN + tid), segb + j0 + tid);
+        else
+          sseg[stage * BN + tid] = SEG_NONE_K;
+      }
     }
     cp_async_commit();
   };
-  const int kv_end = min(S, i0 + bmq);
-  const int n_tiles = (kv_end + BN - 1) / BN;
-  load_kv(0);
+  // tiles 0 .. WSTAGES - 3 ahead; iteration t adds tile t + WSTAGES - 2, into
+  // the stage of tile t - 2, whose P.V ended in iteration t - 1
+#pragma unroll
+  for (int t = 0; t < WSTAGES - 2; ++t) load_kv(t);
 
   // this warpgroup: block rows [64 wg, 64 wg + 64); this warp 16 of them;
   // this thread rows lane / 4 and lane / 4 + 8 of those
   const int rb = wg * 64 + (warp & 3) * 16;
-  const int gq0 = i0 + (wg * 64) % bmq;          // the warpgroup's first query
-  const int gq_last = gq0 + min(64, bmq) - 1;    // and its last
+  const int gq0 = i0 + (wg * 64) % bmq;  // the warpgroup's first query
   int qrow[2], segq[2];
   float m[2], l[2], o[DT * 4];
 #pragma unroll
@@ -588,42 +613,50 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int e = 0; e < DT * 4; ++e) o[e] = 0.f;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait_all();
+  // Iteration t issues Q.K^T of tile t and then P.V of tile t - 1, and takes
+  // the softmax of tile t while that P.V runs on the tensor cores. No wgmma
+  // stands under a condition on data: the compiler fences every wgmma of a
+  // path it cannot prove the same for the whole warp, one after another.
+  uint32_t pa[BN / 16][4];  // P of the tile before, waiting for its P.V
+  float s[NT * 4], alpha[2];
+  auto tile_arrives = [&](int t) {
+    asm volatile("cp.async.wait_group %0;" ::"n"(WSTAGES - 3) : "memory");
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    __syncthreads();
-    if (t + 1 < n_tiles) load_kv(t + 1);
-    const int stage = t % STAGES, j0 = t * BN;
-    if (j0 > gq_last) continue;  // wholly above this warpgroup's rows
-    // the tile's 64 key segments against the warpgroup's 64 rows: the same
-    // answer in all four warps, which multiply together or not at all
-    const int seg_a = sseg[stage * BN + lane], seg_b = sseg[stage * BN + 32 + lane];
-    const int seg_0 = __shfl_sync(0xffffffffu, seg_a, 0);
-    const bool one_seg = __all_sync(0xffffffffu, seg_a == seg_0 && seg_b == seg_0);
-    const int row_a = sqseg[wg * 64 + lane], row_b = sqseg[wg * 64 + 32 + lane];
-    const bool rows_any = __any_sync(0xffffffffu, row_a == seg_0 || row_b == seg_0);
-    const bool rows_all = __all_sync(0xffffffffu, row_a == seg_0 && row_b == seg_0);
-    if (one_seg && !rows_any) continue;
-    const bool masked = j0 + BN - 1 > gq0 || !(one_seg && rows_all);
-
-    // S = Q . K^T
-    float s[NT * 4];
-    keep(s);
-    wg_fence();
+    __syncthreads();  // tile t has landed; every warp is done with tile t - 2
+    load_kv(t + WSTAGES - 2);
+  };
+  auto issue_qk = [&](int t) {
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       const uint32_t in_panel = (ks & 3) * 32;
-      const uint64_t da = wg_desc(
-          sq_a + (ks >> 2) * BLOCK_ROWS * 128 + wg * 64 * 128 + in_panel, 16, 1024);
-      const uint64_t db = wg_desc(
-          sk_a + stage * TILE + (ks >> 2) * BN * 128 + in_panel, 16, 1024);
-      wgmma_64x64_ss(s, da, db, ks > 0);
+      wgmma_64x64_ss(
+          s,
+          wg_desc(sq_a + (ks >> 2) * BLOCK_ROWS * 128 + wg * 64 * 128 + in_panel,
+                  16, 1024),
+          wg_desc(sk_a + (t % WSTAGES) * TILE + (ks >> 2) * BN * 128 + in_panel,
+                  16, 1024),
+          ks > 0);
     }
     wg_commit();
-    wg_wait();
-    keep(s);
-
-    if (masked) {
+  };
+  auto issue_pv = [&](int t) {
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_pv(o, pa[kk],
+               wg_desc(sv_a + (t % WSTAGES) * TILE + kk * 16 * 128, BN * 128, 1024));
+    wg_commit();
+  };
+  // masks, running max and sum of tile t on the scores in s; p overwrites s
+  auto softmax = [&](int t) {
+    const int stage = t % WSTAGES, j0 = t * BN;
+    // The tile's 64 key segments against the warpgroup's 64 rows: a tile of
+    // one segment that every row shares needs no compare off the diagonal.
+    const int seg_a = sseg[stage * BN + lane], seg_b = sseg[stage * BN + 32 + lane];
+    const int seg_0 = __shfl_sync(0xffffffffu, seg_a, 0);
+    const int row_a = sqseg[wg * 64 + lane], row_b = sqseg[wg * 64 + 32 + lane];
+    const bool plain = __all_sync(0xffffffffu, seg_a == seg_0 && seg_b == seg_0 &&
+                                               row_a == seg_0 && row_b == seg_0);
+    if (j0 + BN - 1 > gq0 || !plain) {
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int2 kseg = *reinterpret_cast<const int2*>(
@@ -646,7 +679,7 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       mxr = fmaxf(mxr, __shfl_xor_sync(0xffffffffu, mxr, 2));
       const float m_new = fmaxf(m[hf], mxr * scale_log2);
       const float m_safe = m_new == -CUDART_INF_F ? 0.f : m_new;
-      const float alpha = ex2(m[hf] - m_safe);
+      alpha[hf] = ex2(m[hf] - m_safe);
       float rs = 0.f;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
@@ -656,17 +689,19 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
         s[nt * 4 + hf * 2 + 1] = p1;
         rs += p0 + p1;
       }
-      l[hf] = l[hf] * alpha + rs;
+      l[hf] = l[hf] * alpha[hf] + rs;
       m[hf] = m_new;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        o[dt * 4 + hf * 2] *= alpha;
-        o[dt * 4 + hf * 2 + 1] *= alpha;
-      }
     }
-
-    // O += P . V, P rounded to bf16 in registers
-    uint32_t pa[BN / 16][4];
+  };
+  // O takes the new maximum's scale and P is rounded to bf16, in registers
+  auto rescale_and_pack = [&]() {
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        o[dt * 4 + hf * 2] *= alpha[hf];
+        o[dt * 4 + hf * 2 + 1] *= alpha[hf];
+      }
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       pa[kk][0] = pack_bf16(s[(2 * kk) * 4 + 0], s[(2 * kk) * 4 + 1]);
@@ -674,16 +709,59 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       pa[kk][2] = pack_bf16(s[(2 * kk + 1) * 4 + 0], s[(2 * kk + 1) * 4 + 1]);
       pa[kk][3] = pack_bf16(s[(2 * kk + 1) * 4 + 2], s[(2 * kk + 1) * 4 + 3]);
     }
-    keep(o);
-    wg_fence();
+  };
+
+  // The two warpgroups take the same tiles half an iteration apart, so that
+  // one's softmax runs while the other's products hold the tensor cores:
+  // warpgroup 0 takes the softmax of tile t right after its products, in
+  // iteration t; warpgroup 1 carries the scores over the barrier and takes
+  // it at the start of iteration t + 1, before it issues its own products.
+  auto fence_pa = [&]() {
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_pv(o, pa[kk],
-               wg_desc(sv_a + stage * TILE + kk * 16 * 128, BN * 128, 1024));
-    wg_commit();
-    wg_wait();
-    keep(o);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pa[kk][e])::"memory");
+  };
+  tile_arrives(0);
+  keep(s);
+  wg_fence();
+  issue_qk(0);
+  wg_wait<0>();
+  keep(s);
+  if (wg == 0) {
+    softmax(0);
+    rescale_and_pack();
   }
+  for (int t = 1; t < n_tiles; ++t) {
+    tile_arrives(t);
+    if (wg == 1) {
+      softmax(t - 1);
+      rescale_and_pack();
+    }
+    keep(s);
+    keep(o);
+    fence_pa();
+    wg_fence();
+    issue_qk(t);
+    issue_pv(t - 1);
+    wg_wait<1>();  // Q.K^T, the older group
+    keep(s);
+    if (wg == 0) softmax(t);  // while P.V of tile t - 1 runs
+    wg_wait<0>();             // it has read pa and written o
+    fence_pa();
+    keep(o);
+    if (wg == 0) rescale_and_pack();
+  }
+  if (wg == 1) {
+    softmax(n_tiles - 1);
+    rescale_and_pack();
+  }
+  keep(o);
+  fence_pa();
+  wg_fence();
+  issue_pv(n_tiles - 1);
+  wg_wait<0>();
+  keep(o);
 
   // the warpgroup is done reading its Q rows: O / l goes back through them
   asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
@@ -725,8 +803,8 @@ int launch_mma(const void* q, const void* k, const void* v, const int* seg,
   const dim3 grid((S + bmq - 1) / bmq, nh / G, B);
 #if FA_WGMMA
   {
-    const int smem = BLOCK_ROWS * HD * 2 + 2 * STAGES * BN * HD * 2 +
-                     (STAGES * BN + BLOCK_ROWS) * (int)sizeof(int) + 1024;
+    const int smem = BLOCK_ROWS * HD * 2 + 2 * WSTAGES * BN * HD * 2 +
+                     (WSTAGES * BN + BLOCK_ROWS) * (int)sizeof(int) + 1024;
     cudaError_t err = cudaFuncSetAttribute(
         flash_attn_wgmma_kernel<HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
