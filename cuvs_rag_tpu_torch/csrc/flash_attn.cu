@@ -457,6 +457,17 @@ __device__ __forceinline__ void wgmma_64x64_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 128) = or += a (64 x 16, shared, K-major) . b (16 x 128, shared, K-major)
+__device__ __forceinline__ void wgmma_64x128_ss(float (&d)[64], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (64 x 64) += a (64 x 16, registers) . b (16 x 64, shared, MN-major)
 __device__ __forceinline__ void wgmma_64x64_rs(float (&d)[32],
                                                const uint32_t (&a)[4],
@@ -497,7 +508,8 @@ __device__ __forceinline__ uint32_t panel(int rows, int row, int chunk) {
                     (((chunk & 7) ^ (row & 7)) << 4));
 }
 
-constexpr int WSTAGES = 4;  // K/V tiles in the wgmma kernel's ring
+constexpr int WBN = 128;    // keys per tile of the wgmma kernel
+constexpr int WSTAGES = 3;  // K/V tiles in its ring
 
 template <int N>
 __device__ __forceinline__ void wg_wait() {
@@ -515,17 +527,17 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int THREADS = 256;
   constexpr int CH = HD / 8;
   constexpr int KS = HD / 16;
-  constexpr int NT = BN / 8;
+  constexpr int NT = WBN / 8;
   constexpr int DT = HD / 8;
-  constexpr int TILE = BN * HD * 2;
+  constexpr int TILE = WBN * HD * 2;
   extern __shared__ __align__(128) unsigned char smem[];
   // the panels' swizzle is in the address bits: 1,024-byte aligned bases
   unsigned char* base = smem + ((1024u - (smem_u32(smem) & 1023u)) & 1023u);
   unsigned char* sq = base;                      // [HD / 64][128][64]
-  unsigned char* sk = sq + BLOCK_ROWS * HD * 2;  // [WSTAGES][HD / 64][BN][64]
-  unsigned char* sv = sk + WSTAGES * TILE;       // [WSTAGES][HD / 64][BN][64]
-  int* sseg = reinterpret_cast<int*>(sv + WSTAGES * TILE);  // [WSTAGES][BN]
-  int* sqseg = sseg + WSTAGES * BN;                         // [128]
+  unsigned char* sk = sq + BLOCK_ROWS * HD * 2;  // [WSTAGES][HD / 64][WBN][64]
+  unsigned char* sv = sk + WSTAGES * TILE;       // [WSTAGES][HD / 64][WBN][64]
+  int* sseg = reinterpret_cast<int*>(sv + WSTAGES * TILE);  // [WSTAGES][WBN]
+  int* sqseg = sseg + WSTAGES * WBN;                         // [128]
   const uint32_t sq_a = smem_u32(sq), sk_a = smem_u32(sk), sv_a = smem_u32(sv);
 
   const int tid = threadIdx.x, lane = tid & 31;
@@ -556,7 +568,7 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     sqseg[tid] = i < S ? segb[i] : SEG_NONE_Q;
   }
   const int kv_end = min(S, i0 + bmq);
-  const int n_tiles = (kv_end + BN - 1) / BN;
+  const int n_tiles = (kv_end + WBN - 1) / WBN;
   // K/V tile loads: this thread's 16-byte chunk column and first row, its
   // offsets in global and in shared memory worked out once (rows RPP apart
   // share row % 8, so the swizzled offset only steps by whole rows)
@@ -564,17 +576,17 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const int lr0 = tid / CH, lc = tid % CH;
   const long long g_off0 = (long long)lr0 * kv_stride + lc * 8;
   const long long g_step = (long long)RPP * kv_stride;
-  const uint32_t s_off0 = panel(BN, lr0, lc);
+  const uint32_t s_off0 = panel(WBN, lr0, lc);
   // one commit group a call, also where no tile is left: the waits count groups
   auto load_kv = [&](int t) {
     if (t < n_tiles) {
-      const int stage = t % WSTAGES, j0 = t * BN;
+      const int stage = t % WSTAGES, j0 = t * WBN;
       const __nv_bfloat16* kp = kb + (long long)j0 * kv_stride + g_off0;
       const __nv_bfloat16* vp = vb + (long long)j0 * kv_stride + g_off0;
       uint32_t dst = stage * TILE + s_off0;
       int left = S - j0 - lr0;  // rows from this thread's first to the end
 #pragma unroll
-      for (int i = 0; i < BN / RPP; ++i) {
+      for (int i = 0; i < WBN / RPP; ++i) {
         const bool live = left > 0;
         cp_async16(sk_a + dst, live ? kp : kb, live ? 16 : 0);
         cp_async16(sv_a + dst, live ? vp : vb, live ? 16 : 0);
@@ -583,11 +595,11 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
         dst += RPP * 128;
         left -= RPP;
       }
-      if (tid < BN) {
+      if (tid < WBN) {
         if (j0 + tid < S)
-          cp_async4(smem_u32(sseg + stage * BN + tid), segb + j0 + tid);
+          cp_async4(smem_u32(sseg + stage * WBN + tid), segb + j0 + tid);
         else
-          sseg[stage * BN + tid] = SEG_NONE_K;
+          sseg[stage * WBN + tid] = SEG_NONE_K;
       }
     }
     cp_async_commit();
@@ -617,7 +629,7 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   // the softmax of tile t while that P.V runs on the tensor cores. No wgmma
   // stands under a condition on data: the compiler fences every wgmma of a
   // path it cannot prove the same for the whole warp, one after another.
-  uint32_t pa[BN / 16][4];  // P of the tile before, waiting for its P.V
+  uint32_t pa[WBN / 16][4];  // P of the tile before, waiting for its P.V
   float s[NT * 4], alpha[2];
   auto tile_arrives = [&](int t) {
     asm volatile("cp.async.wait_group %0;" ::"n"(WSTAGES - 3) : "memory");
@@ -629,11 +641,11 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       const uint32_t in_panel = (ks & 3) * 32;
-      wgmma_64x64_ss(
+      wgmma_64x128_ss(
           s,
           wg_desc(sq_a + (ks >> 2) * BLOCK_ROWS * 128 + wg * 64 * 128 + in_panel,
                   16, 1024),
-          wg_desc(sk_a + (t % WSTAGES) * TILE + (ks >> 2) * BN * 128 + in_panel,
+          wg_desc(sk_a + (t % WSTAGES) * TILE + (ks >> 2) * WBN * 128 + in_panel,
                   16, 1024),
           ks > 0);
     }
@@ -641,26 +653,27 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   };
   auto issue_pv = [&](int t) {
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk)
+    for (int kk = 0; kk < WBN / 16; ++kk)
       wgmma_pv(o, pa[kk],
-               wg_desc(sv_a + (t % WSTAGES) * TILE + kk * 16 * 128, BN * 128, 1024));
+               wg_desc(sv_a + (t % WSTAGES) * TILE + kk * 16 * 128, WBN * 128, 1024));
     wg_commit();
   };
   // masks, running max and sum of tile t on the scores in s; p overwrites s
   auto softmax = [&](int t) {
-    const int stage = t % WSTAGES, j0 = t * BN;
-    // The tile's 64 key segments against the warpgroup's 64 rows: a tile of
+    const int stage = t % WSTAGES, j0 = t * WBN;
+    // The tile's 128 key segments against the warpgroup's 64 rows: a tile of
     // one segment that every row shares needs no compare off the diagonal.
-    const int seg_a = sseg[stage * BN + lane], seg_b = sseg[stage * BN + 32 + lane];
-    const int seg_0 = __shfl_sync(0xffffffffu, seg_a, 0);
+    const int4 ksegs = *reinterpret_cast<const int4*>(sseg + stage * WBN + lane * 4);
+    const int seg_0 = __shfl_sync(0xffffffffu, ksegs.x, 0);
     const int row_a = sqseg[wg * 64 + lane], row_b = sqseg[wg * 64 + 32 + lane];
-    const bool plain = __all_sync(0xffffffffu, seg_a == seg_0 && seg_b == seg_0 &&
-                                               row_a == seg_0 && row_b == seg_0);
-    if (j0 + BN - 1 > gq0 || !plain) {
+    const bool plain = __all_sync(
+        0xffffffffu, ksegs.x == seg_0 && ksegs.y == seg_0 && ksegs.z == seg_0 &&
+                         ksegs.w == seg_0 && row_a == seg_0 && row_b == seg_0);
+    if (j0 + WBN - 1 > gq0 || !plain) {
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int2 kseg = *reinterpret_cast<const int2*>(
-            sseg + stage * BN + nt * 8 + (lane & 3) * 2);
+            sseg + stage * WBN + nt * 8 + (lane & 3) * 2);
         const int key = j0 + nt * 8 + (lane & 3) * 2;
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
@@ -703,7 +716,7 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
         o[dt * 4 + hf * 2 + 1] *= alpha[hf];
       }
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
+    for (int kk = 0; kk < WBN / 16; ++kk) {
       pa[kk][0] = pack_bf16(s[(2 * kk) * 4 + 0], s[(2 * kk) * 4 + 1]);
       pa[kk][1] = pack_bf16(s[(2 * kk) * 4 + 2], s[(2 * kk) * 4 + 3]);
       pa[kk][2] = pack_bf16(s[(2 * kk + 1) * 4 + 0], s[(2 * kk + 1) * 4 + 1]);
@@ -718,7 +731,7 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   // it at the start of iteration t + 1, before it issues its own products.
   auto fence_pa = [&]() {
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk)
+    for (int kk = 0; kk < WBN / 16; ++kk)
 #pragma unroll
       for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pa[kk][e])::"memory");
   };
@@ -803,8 +816,8 @@ int launch_mma(const void* q, const void* k, const void* v, const int* seg,
   const dim3 grid((S + bmq - 1) / bmq, nh / G, B);
 #if FA_WGMMA
   {
-    const int smem = BLOCK_ROWS * HD * 2 + 2 * WSTAGES * BN * HD * 2 +
-                     (WSTAGES * BN + BLOCK_ROWS) * (int)sizeof(int) + 1024;
+    const int smem = BLOCK_ROWS * HD * 2 + 2 * WSTAGES * WBN * HD * 2 +
+                     (WSTAGES * WBN + BLOCK_ROWS) * (int)sizeof(int) + 1024;
     cudaError_t err = cudaFuncSetAttribute(
         flash_attn_wgmma_kernel<HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
