@@ -45,7 +45,10 @@ is non-zero):
                version on the whole output: one 8,192-token sequence at the
                Qwen3 widths (16 heads over 8 kv heads, head_dim 128, bf16),
                16 x 512 with ragged right and left padding down to one
-               token, S = 1000, fp32 inputs at S = 777, 4 heads of 64.
+               token, S = 1000 (two-sided and left padding), fp32 inputs at
+               S = 777, 4 heads of 64, q = 0 and 64-fold sharpened scores;
+               bf16 within the error that one rounding of P and one of the
+               output allow, the largest error / allowed error per case.
  10. stream_parity — the measurement kernels M1-M4 against their plain
                versions on the flat corpus: read_all in both modes (and on a
                ragged row count), gather_rows on bf16 and int8 rows at span
@@ -1291,7 +1294,7 @@ def qwen_main_path(seed: int, dev):
 
 # The port's own kernels, as the profiler names them.
 OWN_KERNELS = ("exact_scan_kernel", "ivf_scan_kernel", "merge_partials_kernel",
-               "pq_adc_kernel", "flash_attn_mma_kernel")
+               "pq_adc_kernel", "flash_attn_wgmma_kernel")
 
 
 def profile_calls(fn, calls: int = 20, top: int = 6) -> dict:

@@ -4,7 +4,7 @@
 // cuvs_rag_tpu/models/flax_qwen.py:157:
 //   K7  jax.experimental.pallas.ops.tpu.flash_attention.flash_attention
 //       (causal=True, segment_ids = the attention mask)
-//         -> flash_attn_mma_kernel (bf16) and flash_attn_fp32_kernel (fp32)
+//         -> flash_attn_wgmma_kernel (bf16) and flash_attn_fp32_kernel (fp32)
 //
 // out[b, i, h, :] = sum_j softmax_j(scale * q[b, i, h, :] . k[b, j, g, :])
 //                   * v[b, j, g, :],   g = h / (nh / nkv),
@@ -15,47 +15,60 @@
 // the TPU path's two moveaxis round trips and its materialized GQA repeat
 // have no counterpart here. The TPU grid walked 1024-wide kv blocks one
 // after another with its state in VMEM; here blocks run in parallel, each
-// loops over 64-key tiles up to its own causal limit (the loop bound is the
-// causal skip), and the heaviest query tiles are scheduled first. Any S:
-// ragged tiles are masked, not required to divide.
+// loops over key tiles up to its own causal limit (the loop bound is the
+// causal skip), and the blocks with the longest loops are scheduled first.
+// Any S: ragged tiles are masked, not required to divide.
 //
 // What bounds it on the H100: operations. One layer at S = 8192, 16 heads,
 // hd = 128 is 0.263 TFLOP after the causal skip against 0.10 GB of q, k, v
 // and out: 0.27 ms on the bf16 tensor cores (989 TFLOP/s), 0.03 ms of bytes.
+// Beside the products stand S^2 / 2 exponentials a head on a unit that does
+// 16 a clock and SM: half the products' time at hd = 128. So the design is
+// about keeping the tensor cores fed while the softmax runs.
 //
-// bf16 inputs: flash_attn_mma_kernel, on the tensor cores.
-// - Both products are mma.sync.aligned.m16n8k16 (bf16 x bf16 -> fp32).
-//   Operands come from shared memory by ldmatrix (.trans for V); products of
-//   bf16 values are exact and sums are fp32, so the scores differ from an
-//   fp32 computation by summation order alone. scale * log2(e) (positive)
-//   meets the fp32 scores in one fused multiply-add with the running max,
-//   and the exponentials are ex2.approx.
-// - P never leaves registers: the accumulator fragment of Q.K^T is packed to
-//   bf16 and is the A fragment of P.V. As in the TPU kernel (and the dense
+// bf16 inputs: flash_attn_wgmma_kernel.
+// - Both products are warpgroup multiplies (wgmma.mma_async, bf16 x bf16 ->
+//   fp32): S = Q.K^T as m64n128k16 with Q and K read from shared memory,
+//   O += P.V as m64n(hd)k16 with P as the register operand and V read from
+//   shared memory transposed. Products of bf16 values are exact and sums
+//   are fp32, so the scores differ from an fp32 computation by summation
+//   order alone. scale * log2(e) (positive) meets the fp32 scores in one
+//   fused multiply-add with the running max; exponentials are ex2.approx.
+// - P never leaves registers: the score accumulator is packed to bf16 in
+//   place and is the A operand of P.V. As in the TPU kernel (and the dense
 //   branch of flax_qwen.py), P is rounded to bf16 before P.V while the
 //   denominator l sums the fp32 p.
-// - A block serves the G query heads of one kv group that fit its 128 rows
-//   (G = 4, 2 or 1, a divisor of nh / nkv; 128 / G query rows each), so a
-//   K/V tile is loaded once for all of them: at Qwen3's 16 / 8 heads, 2
-//   heads x 64 rows. Each warp owns 16 * MT rows of one head.
-// - Q (128 rows), and a two-stage ring of K, V and key-segment tiles, sit in
-//   shared memory as bf16, rows XOR-swizzled by 16-byte chunk (chunk ^ row %
-//   8) so that no ldmatrix has a bank conflict. K/V tiles arrive by cp.async
-//   (16 bytes a thread, zero-filled past S): tile t + 1 is in flight while
-//   tile t multiplies, one __syncthreads() a tile.
-// - The masks cost what the data needs: a warp skips tiles wholly above its
-//   rows and looks at each tile's 64 key segments once (two loads, a shuffle
-//   and a vote): a tile of one segment that all the warp's rows share needs
-//   no compare off the diagonal, one that none shares (pad rows against text
-//   keys) is skipped whole, and only the rest, with the diagonal tiles,
-//   take the per-element causal and segment compares. A row whose keys so
-//   far are all masked (a real row of a left-padded sequence sees pad-only
-//   tiles first) keeps m = -inf: the exponentials are taken against 0 then,
-//   never exp(-inf + inf).
-// - The output tile goes back through the warp's own Q rows in shared memory
-//   and leaves as 16-byte stores.
-// Budget (nvcc 12, -Xptxas -v; see PERF.md for the run that printed it):
-// the figures are in the table at `launch_mma` below.
+// - A block is two warpgroups of 64 rows each and serves the G query heads
+//   of one kv group that fit its 128 rows (G = 4, 2 or 1, a divisor of nh /
+//   nkv; 128 / G query rows each), so a K/V tile is loaded once for all of
+//   them: at Qwen3's 16 / 8 heads, one head a warpgroup.
+// - Q (128 rows) and a three-stage ring of 128-key K, V and key-segment
+//   tiles sit in shared memory as bf16 panels of 64 values (128 bytes) a
+//   row, the 16-byte chunks of a row XORed with row % 8: the 128-byte
+//   swizzle that the wgmma descriptors name. K/V tiles arrive by cp.async
+//   (16 bytes a thread, zero-filled past S, every thread's offsets worked
+//   out once), the next tile in flight while this one multiplies; one
+//   __syncthreads() a tile.
+// - The two warpgroups run half an iteration apart: warpgroup 0 takes the
+//   softmax of tile t right after issuing Q.K^T of tile t and P.V of tile
+//   t - 1 (while that P.V runs); warpgroup 1 carries its scores over the
+//   barrier and takes the softmax at the start of the next iteration, while
+//   warpgroup 0's products hold the tensor cores.
+// - No wgmma stands under a condition on data: the compiler fences, one
+//   after another, every wgmma of a path it cannot prove uniform. So every
+//   warpgroup multiplies every tile up to the block's causal limit, and
+//   what the data allows is saved in the softmax instead: a warp looks at
+//   the tile's key segments and its warpgroup's row segments once (three
+//   loads, a shuffle and a vote), and only a tile on the diagonal or with
+//   more than one segment takes the per-element causal and segment
+//   compares. A row whose keys so far are all masked (a real row of a
+//   left-padded sequence sees pad-only tiles first) keeps m = -inf: the
+//   exponentials are taken against 0 then, never exp(-inf + inf).
+// - The output tile goes back through the warpgroup's own Q rows in shared
+//   memory and leaves as 16-byte stores.
+// Budget: 256 threads, one block an SM (227 KB of shared memory at hd = 128:
+// Q 32 KB + 3 x 64 KB of K/V); O is 64 and S 64 fp32 registers a thread.
+// chip_smoke.py's build phase prints what ptxas counted; PERF.md keeps it.
 //
 // fp32 inputs: flash_attn_fp32_kernel, on the CUDA cores in fp32 (fp32
 // storage means fp32 math: no TF32): blocks over (64-row query tile x head x
@@ -71,13 +84,6 @@
 #include <math_constants.h>
 #include <stdint.h>
 
-#ifndef FA_WGMMA
-#define FA_WGMMA 0
-#endif
-#ifndef FA_PROXY_FENCE
-#define FA_PROXY_FENCE 1
-#endif
-
 namespace {
 
 constexpr int SEG_NONE_Q = -2147483647;  // a query row past S matches no key
@@ -85,9 +91,9 @@ constexpr int SEG_NONE_K = -2147483646;  // a key past S matches no row
 
 // ------------------------------------------------------------- bf16 ------
 
-constexpr int BN = 64;         // keys per tile
 constexpr int BLOCK_ROWS = 128;  // (heads of the block) x (query rows each)
-constexpr int STAGES = 2;      // K/V tiles in the ring
+constexpr int WBN = 128;         // keys per tile
+constexpr int WSTAGES = 3;       // K/V tiles in the ring
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -109,32 +115,6 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// c (16 x 8, fp32) += a (16 x 16, bf16, row-major) . b (16 x 8, bf16, column-major)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -146,275 +126,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Byte offset of 16-byte chunk `chunk` of row `row` in a tile of HD bf16
-// values a row: the chunk index is XORed with row % 8, so the eight rows of
-// an ldmatrix 8 x 8 block fall in eight different bank groups.
-template <int HD>
-__device__ __forceinline__ uint32_t swz(int row, int chunk) {
-  return (uint32_t)(row * (HD * 2) + ((chunk ^ (row & 7)) << 4));
-}
-
-// HD: head_dim; MT: 16-row mma tiles a warp (the block has 128 / (16 MT)
-// warps). G heads of one kv group x (128 / G) query rows a block.
-template <int HD, int MT>
-__global__ void __launch_bounds__(BLOCK_ROWS / (16 * MT) * 32, 2)
-flash_attn_mma_kernel(const __nv_bfloat16* __restrict__ q,    // (B, S, nh, HD)
-                      const __nv_bfloat16* __restrict__ k,    // (B, S, nkv, HD)
-                      const __nv_bfloat16* __restrict__ v,    // (B, S, nkv, HD)
-                      const int* __restrict__ seg,            // (B, S)
-                      __nv_bfloat16* __restrict__ out,        // (B, S, nh, HD)
-                      int S, int nh, int nkv, int G, float scale_log2) {
-  constexpr int THREADS = BLOCK_ROWS / (16 * MT) * 32;
-  constexpr int CH = HD / 8;    // 16-byte chunks a row
-  constexpr int KS = HD / 16;   // k-steps of Q.K^T
-  constexpr int NT = BN / 8;    // 8-key tiles of the scores
-  constexpr int DT = HD / 8;    // 8-column tiles of the output
-  constexpr int TILE = BN * HD * 2;  // bytes of a K or V tile
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* sq = smem;                          // [128][HD]
-  unsigned char* sk = sq + BLOCK_ROWS * HD * 2;      // [STAGES][BN][HD]
-  unsigned char* sv = sk + STAGES * TILE;            // [STAGES][BN][HD]
-  int* sseg = reinterpret_cast<int*>(sv + STAGES * TILE);  // [STAGES][BN]
-  const uint32_t sq_a = smem_u32(sq), sk_a = smem_u32(sk), sv_a = smem_u32(sv);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int bmq = BLOCK_ROWS / G;             // query rows of the block's tile
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest loops first
-  const int h0 = blockIdx.y * G, b = blockIdx.z;
-  const int kvh = h0 / (nh / nkv);
-  const int i0 = qt * bmq;
-  const long long q_stride = (long long)nh * HD, kv_stride = (long long)nkv * HD;
-  const __nv_bfloat16* kb = k + (long long)b * S * kv_stride + (long long)kvh * HD;
-  const __nv_bfloat16* vb = v + (long long)b * S * kv_stride + (long long)kvh * HD;
-  const int* segb = seg + (long long)b * S;
-
-  // Q: block row r is query i0 + r % bmq of head h0 + r / bmq
-  for (int e = tid; e < BLOCK_ROWS * CH; e += THREADS) {
-    const int r = e / CH, c = e % CH;
-    const int i = i0 + r % bmq;
-    const bool live = i < S;
-    const __nv_bfloat16* src =
-        q + ((long long)b * S + i) * q_stride + (long long)(h0 + r / bmq) * HD + c * 8;
-    cp_async16(sq_a + swz<HD>(r, c), live ? src : q, live ? 16 : 0);
-  }
-  auto load_kv = [&](int t) {
-    const int stage = t % STAGES, j0 = t * BN;
-    for (int e = tid; e < BN * CH; e += THREADS) {
-      const int r = e / CH, c = e % CH;
-      const bool live = j0 + r < S;
-      const long long off = (long long)(j0 + r) * kv_stride + c * 8;
-      const uint32_t dst = stage * TILE + swz<HD>(r, c);
-      cp_async16(sk_a + dst, live ? kb + off : kb, live ? 16 : 0);
-      cp_async16(sv_a + dst, live ? vb + off : vb, live ? 16 : 0);
-    }
-    if (tid < BN) {
-      if (j0 + tid < S)
-        cp_async4(smem_u32(sseg + stage * BN + tid), segb + j0 + tid);
-      else
-        sseg[stage * BN + tid] = SEG_NONE_K;
-    }
-    cp_async_commit();
-  };
-  const int kv_end = min(S, i0 + bmq);  // keys past the tile's last row are causal-dead
-  const int n_tiles = (kv_end + BN - 1) / BN;
-  load_kv(0);  // one group with Q
-
-  // this warp: block rows [rb, rb + 16 MT) of head h0 + rb / bmq; this
-  // thread: rows lane / 4 and lane / 4 + 8 of each 16-row tile
-  const int rb = warp * 16 * MT;
-  const int wq0 = i0 + rb % bmq;  // the warp's first query
-  const int wq_last = wq0 + 16 * MT - 1;
-  int qrow[MT][2], segq[MT][2];
-  float m[MT][2], l[MT][2], o[MT][DT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      qrow[mt][hf] = wq0 + mt * 16 + hf * 8 + (lane >> 2);
-      segq[mt][hf] = qrow[mt][hf] < S ? segb[qrow[mt][hf]] : SEG_NONE_Q;
-      m[mt][hf] = -CUDART_INF_F;
-      l[mt][hf] = 0.f;
-    }
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[mt][dt][e] = 0.f;
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait_all();
-    __syncthreads();  // tile t has landed; every warp is done with tile t - 1
-    if (t + 1 < n_tiles) load_kv(t + 1);
-    const int stage = t % STAGES, j0 = t * BN;
-    if (j0 > wq_last) continue;  // wholly above this warp's rows
-    // What this tile's keys are to this warp's rows (the same answer in
-    // every lane). Most tiles hold one segment: if every row of the warp is
-    // of it, no key needs the segment compare; if none is, no key is
-    // allowed and the tile is skipped (pad rows against text keys).
-    const int seg_a = sseg[stage * BN + lane], seg_b = sseg[stage * BN + 32 + lane];
-    const int seg_0 = __shfl_sync(0xffffffffu, seg_a, 0);
-    const bool one_seg = __all_sync(0xffffffffu, seg_a == seg_0 && seg_b == seg_0);
-    bool mine_all = true, mine_any = false;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        mine_all = mine_all && segq[mt][hf] == seg_0;
-        mine_any = mine_any || segq[mt][hf] == seg_0;
-      }
-    if (one_seg && !__any_sync(0xffffffffu, mine_any)) continue;
-    // a tile that crosses no row's diagonal needs no causal compare
-    const bool masked = j0 + BN - 1 > wq0 ||
-                        !(one_seg && __all_sync(0xffffffffu, mine_all));
-
-    // S = Q . K^T
-    float s[MT][NT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[mt][nt][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldmatrix_x4(a[mt], sq_a + swz<HD>(rb + mt * 16 + (lane & 15),
-                                          ks * 2 + (lane >> 4)));
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bk[4];  // b0, b1 of key tile 2 np, then of 2 np + 1
-        ldmatrix_x4(bk, sk_a + stage * TILE +
-                            swz<HD>(np * 16 + ((lane >> 4) << 3) + (lane & 7),
-                                    ks * 2 + ((lane >> 3) & 1)));
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(s[mt][2 * np], a[mt], bk[0], bk[1]);
-          mma_bf16(s[mt][2 * np + 1], a[mt], bk[2], bk[3]);
-        }
-      }
-    }
-
-    // masked scores become -inf (only where a tile needs it), then the
-    // online softmax of each row over this tile; p overwrites s
-    if (masked) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        // the segments of this thread's two keys of this key tile
-        const int2 kseg = *reinterpret_cast<const int2*>(
-            sseg + stage * BN + nt * 8 + (lane & 3) * 2);
-        const int key = j0 + nt * 8 + (lane & 3) * 2;
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int row = qrow[mt][hf], sg = segq[mt][hf];
-            if (!(kseg.x == sg && key <= row)) s[mt][nt][hf * 2] = -CUDART_INF_F;
-            if (!(kseg.y == sg && key + 1 <= row)) s[mt][nt][hf * 2 + 1] = -CUDART_INF_F;
-          }
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        // the scale is positive: the largest score is the largest product
-        float mxr = -CUDART_INF_F;
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          mxr = fmaxf(mxr, fmaxf(s[mt][nt][hf * 2], s[mt][nt][hf * 2 + 1]));
-        mxr = fmaxf(mxr, __shfl_xor_sync(0xffffffffu, mxr, 1));
-        mxr = fmaxf(mxr, __shfl_xor_sync(0xffffffffu, mxr, 2));
-        const float m_new = fmaxf(m[mt][hf], mxr * scale_log2);
-        const float m_safe = m_new == -CUDART_INF_F ? 0.f : m_new;
-        const float alpha = ex2(m[mt][hf] - m_safe);
-        float rs = 0.f;  // this thread's share of the row's sum: l is
-                         // reduced over the four lanes of a row at the end
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const float p0 = ex2(fmaf(s[mt][nt][hf * 2], scale_log2, -m_safe));
-          const float p1 = ex2(fmaf(s[mt][nt][hf * 2 + 1], scale_log2, -m_safe));
-          s[mt][nt][hf * 2] = p0;
-          s[mt][nt][hf * 2 + 1] = p1;
-          rs += p0 + p1;
-        }
-        l[mt][hf] = l[mt][hf] * alpha + rs;
-        m[mt][hf] = m_new;
-#pragma unroll
-        for (int dt = 0; dt < DT; ++dt) {
-          o[mt][dt][hf * 2] *= alpha;
-          o[mt][dt][hf * 2 + 1] *= alpha;
-        }
-      }
-    }
-
-    // O += P . V, P rounded to bf16 in registers
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t pa[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        pa[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
-        pa[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
-        pa[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
-        pa[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
-      }
-#pragma unroll
-      for (int dp = 0; dp < DT / 2; ++dp) {
-        uint32_t bv[4];  // b0, b1 of column tile 2 dp, then of 2 dp + 1
-        ldmatrix_x4_trans(
-            bv, sv_a + stage * TILE +
-                    swz<HD>(kk * 16 + (((lane >> 3) & 1) << 3) + (lane & 7),
-                            dp * 2 + (lane >> 4)));
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(o[mt][2 * dp], pa[mt], bv[0], bv[1]);
-          mma_bf16(o[mt][2 * dp + 1], pa[mt], bv[2], bv[3]);
-        }
-      }
-    }
-  }
-
-  // O / l as bf16 into the warp's own Q rows (no other warp reads them),
-  // then out in 16-byte chunks
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      float sum = l[mt][hf];
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      const float inv = 1.0f / sum;  // a live row has sum > 0: key j = i is allowed
-      const int r = rb + mt * 16 + hf * 8 + (lane >> 2);
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt)
-        *reinterpret_cast<uint32_t*>(sq + swz<HD>(r, dt) + (lane & 3) * 4) =
-            pack_bf16(o[mt][dt][hf * 2] * inv, o[mt][dt][hf * 2 + 1] * inv);
-    }
-  __syncwarp();
-  __nv_bfloat16* ob = out + (long long)b * S * q_stride + (long long)(h0 + rb / bmq) * HD;
-  for (int e = lane; e < 16 * MT * CH; e += 32) {
-    const int r = e / CH, c = e % CH;
-    const int i = wq0 + r;
-    if (i < S)
-      *reinterpret_cast<uint4*>(ob + i * q_stride + c * 8) =
-          *reinterpret_cast<const uint4*>(sq + swz<HD>(rb + r, c));
-  }
-}
-
-// Registers, spills and shared memory of each instantiation, and the tile
-// shape chosen, are printed by `nvcc -Xptxas -v`; MT is the m16 tiles a warp.
-
-// ----------------------------------------------------- bf16, wgmma -------
-// The same loop with both products as warpgroup multiplies. A block is two
-// warpgroups of 64 block rows each. Tiles sit in shared memory as panels of
-// 64 values (128 bytes) a row, the 16-byte chunks of a row XORed with row %
-// 8: the 128-byte swizzle that wgmma's descriptors name, written here by
-// cp.async. Q and K are read K-major (rows 128 bytes apart, 8-row groups
-// 1,024), V MN-major (the transposed read: 64-column panels 8,192 bytes
-// apart). P goes from the score accumulator to the A registers of P.V.
-
+// A wgmma operand in shared memory: where it starts, and the two strides
+// its layout leaves open. Q and K are read K-major (a row's 64 values are
+// 128 contiguous bytes; 8-row groups 1,024 bytes apart: the stride operand),
+// V MN-major (the transposed read; its 64-column panels are the leading
+// operand apart, its 8-key groups 1,024 bytes).
 __device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo_bytes,
                                             uint32_t sbo_bytes) {
   return (uint64_t)((addr & 0x3FFFFu) >> 4) |
@@ -428,8 +144,10 @@ __device__ __forceinline__ void wg_fence() {
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
+// The compiler may not move a use of these registers across this point: an
+// asynchronous wgmma reads or writes them from its issue to its wait.
 template <int N>
-__device__ __forceinline__ void keep(float (&r)[N]) {  // no motion across
+__device__ __forceinline__ void keep(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
@@ -445,17 +163,6 @@ __device__ __forceinline__ void keep(float (&r)[N]) {  // no motion across
             "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "  \
             "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "  \
             "%62, %63}"
-
-// d (64 x 64) = or += a (64 x 16, shared, K-major) . b (16 x 64, shared, K-major)
-__device__ __forceinline__ void wgmma_64x64_ss(float (&d)[32], uint64_t da,
-                                               uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : D8(0), D8(8), D8(16), D8(24)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
 
 // d (64 x 128) = or += a (64 x 16, shared, K-major) . b (16 x 128, shared, K-major)
 __device__ __forceinline__ void wgmma_64x128_ss(float (&d)[64], uint64_t da,
@@ -508,9 +215,6 @@ __device__ __forceinline__ uint32_t panel(int rows, int row, int chunk) {
                     (((chunk & 7) ^ (row & 7)) << 4));
 }
 
-constexpr int WBN = 128;    // keys per tile of the wgmma kernel
-constexpr int WSTAGES = 3;  // K/V tiles in its ring
-
 template <int N>
 __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
@@ -546,8 +250,10 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
   const int wg = warp >> 2;
   const int bmq = BLOCK_ROWS / G;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h0 = blockIdx.y * G, b = blockIdx.z;
+  // heads in x, query tiles in y from the last down: every head's longest
+  // loops are scheduled before any shorter one
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int h0 = blockIdx.x * G, b = blockIdx.z;
   const int kvh = h0 / (nh / nkv);
   const int i0 = qt * bmq;
   const long long q_stride = (long long)nh * HD, kv_stride = (long long)nkv * HD;
@@ -806,38 +512,22 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 #undef R64
 
 template <int HD>
-int launch_mma(const void* q, const void* k, const void* v, const int* seg,
-               void* out, int B, int S, int nh, int nkv, float scale,
-               cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, const int* seg,
+                void* out, int B, int S, int nh, int nkv, float scale,
+                cudaStream_t stream) {
   // the heads of a kv group that share a block: a divisor of the group
   const int rep = nh / nkv;
   const int G = rep % 4 == 0 ? 4 : rep % 2 == 0 ? 2 : 1;
   const int bmq = BLOCK_ROWS / G;
-  const dim3 grid((S + bmq - 1) / bmq, nh / G, B);
-#if FA_WGMMA
-  {
-    const int smem = BLOCK_ROWS * HD * 2 + 2 * WSTAGES * WBN * HD * 2 +
-                     (WSTAGES * WBN + BLOCK_ROWS) * (int)sizeof(int) + 1024;
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_attn_wgmma_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_attn_wgmma_kernel<HD><<<grid, 256, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), seg, static_cast<__nv_bfloat16*>(out),
-        S, nh, nkv, G, scale * 1.4426950408889634f);
-    return (int)cudaGetLastError();
-  }
-#endif
-  constexpr int MT = 2;  // 32 rows a warp: a K or V fragment feeds 4 mma
-  constexpr int THREADS = BLOCK_ROWS / (16 * MT) * 32;
-  const int smem = BLOCK_ROWS * HD * 2 + 2 * STAGES * BN * HD * 2 +
-                   STAGES * BN * (int)sizeof(int);
+  // Q, the ring, the key and row segments, and room to align the panels
+  const int smem = BLOCK_ROWS * HD * 2 + 2 * WSTAGES * WBN * HD * 2 +
+                   (WSTAGES * WBN + BLOCK_ROWS) * (int)sizeof(int) + 1024;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_mma_kernel<HD, MT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_attn_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
-  flash_attn_mma_kernel<HD, MT><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid(nh / G, (S + bmq - 1) / bmq, B);
+  flash_attn_wgmma_kernel<HD><<<grid, 256, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), seg, static_cast<__nv_bfloat16*>(out),
       S, nh, nkv, G, scale * 1.4426950408889634f);
@@ -847,6 +537,7 @@ int launch_mma(const void* q, const void* k, const void* v, const int* seg,
 // ------------------------------------------------------------- fp32 ------
 
 constexpr int BM = 64;        // query rows per block
+constexpr int BN = 64;        // keys per tile
 constexpr int THREADS = 256;  // thread (ty, tx) = (tid / 16, tid % 16)
 constexpr int RPT = 4;        // query rows per thread: ty * 4 + i
 constexpr int CPT = 4;        // score columns per thread: tx + 16 j
@@ -1059,8 +750,8 @@ int flash_attention(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return hd == 128
-        ? launch_mma<128>(q, k, v, seg, out, B, S, nh, nkv, scale, stream)
-        : launch_mma<64>(q, k, v, seg, out, B, S, nh, nkv, scale, stream);
+        ? launch_bf16<128>(q, k, v, seg, out, B, S, nh, nkv, scale, stream)
+        : launch_bf16<64>(q, k, v, seg, out, B, S, nh, nkv, scale, stream);
   return hd == 128
       ? launch_fp32<128>(q, k, v, seg, out, B, S, nh, nkv, scale, stream)
       : launch_fp32<64>(q, k, v, seg, out, B, S, nh, nkv, scale, stream);

@@ -29,6 +29,7 @@ import argparse
 import json
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -66,6 +67,23 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def host_us(fn, iters: int = 300, warmup: int = 30) -> float:
+    """Mean host time of one fn() call in microseconds: what the caller's
+    thread spends before the call returns, the launch still in flight (the
+    card is only waited for before and after the loop). Where this exceeds
+    the kernel's time, it is what a loop of such calls costs. Few enough
+    calls that the launch queue never fills and blocks the host."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    spent = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return spent / iters * 1e6
 
 
 def _rate(n_bytes: int, ms: float, rows: int = 0) -> dict:
@@ -143,8 +161,8 @@ def gather_ids(n: int, m: int, gen: torch.Generator) -> dict:
 def gather_rates(vectors: torch.Tensor, sets: dict, iters: int = 10) -> dict:
     """Scattered-gather rates of rows of `vectors` (n, d) on the id sets of
     `gather_ids`: `gather_rows` on each set, `gather_reduce`, and
-    `torch.index_select` as the library's gather. Timing only, ids
-    unchecked: `check_gathers` holds the same calls against the plain
+    `torch.index_select` as the library's gather, and the host microseconds
+    a call of each takes (`host_us`). Timing only, ids unchecked: `check_gathers` holds the same calls against the plain
     versions, and checks the ids."""
     n, d = vectors.shape
     row_bytes = d * vectors.element_size()
@@ -162,6 +180,14 @@ def gather_rates(vectors: torch.Tensor, sets: dict, iters: int = 10) -> dict:
         lambda: sk.gather_reduce(vectors, ids, check_ids=False), iters), m)
     out["torch_index_select"] = _rate(m * row_bytes, cuda_ms(
         lambda: vectors.index_select(0, ids), iters), m)
+    # the wrappers' host work beside the library call's
+    out["host_us"] = {
+        "gather_rows": host_us(
+            lambda: sk.gather_rows(vectors, ids, check_ids=False)),
+        "gather_reduce": host_us(
+            lambda: sk.gather_reduce(vectors, ids, check_ids=False)),
+        "torch_index_select": host_us(lambda: vectors.index_select(0, ids)),
+    }
     if vectors.is_floating_point():
         # the nearest single library call to gather_reduce, not the same
         # function: its sum comes back rounded to the rows' own dtype

@@ -3,8 +3,8 @@
 The counterpart of the Pallas TPU `flash_attention` that the JAX package's
 Qwen3 encoder calls (`models/flax_qwen.py:157`). One wrapper,
 `flash_attention`, launches the hand-written CUDA kernels of
-`csrc/flash_attn.cu` on a CUDA tensor (bf16: the tensor-core kernel; fp32:
-the CUDA-core kernel, fp32 math throughout) and runs `flash_attention_plain`
+`csrc/flash_attn.cu` on a CUDA tensor (bf16: the tensor-core kernel, both
+products as `wgmma`; fp32: the CUDA-core kernel, fp32 math throughout) and runs `flash_attention_plain`
 on a CPU tensor — never a fallback from one to the other. It counts its
 kernel launches in `flash_attention.launches`.
 
@@ -118,13 +118,17 @@ def flash_attention(q, k, v, mask, sm_scale: float):
     Replaces the bundled Pallas TPU flash_attention called at
     cuvs_rag_tpu/models/flax_qwen.py:157. It is bound by operations (one
     layer at S = 8192, 16 heads, hd = 128 is 0.263 TFLOP against 0.10 GB).
-    bf16: both products run on the tensor cores (`mma.sync` m16n8k16, fp32
-    sums) from swizzled bf16 tiles in shared memory; P stays in registers,
-    rounded to bf16 before P.V; a block serves the query heads of one kv
-    group, so each K/V tile is loaded once for them, by `cp.async` into a
-    two-stage ring while the tile before multiplies; blocks loop to their
-    own causal limit, longest first. fp32: the same loop on the CUDA cores
-    in fp32, one head a block. Any S; hd 64 or 128; any nh % nkv == 0.
+    What stands beside the products is the softmax: S^2 / 2 exponentials a
+    head on a unit that does 16 a clock and SM. bf16: both products are
+    warpgroup multiplies (`wgmma`, fp32 sums) from 128-byte-swizzled bf16
+    tiles in shared memory; P stays in registers, rounded to bf16 before
+    P.V; a block of two warpgroups serves the query heads of one kv group,
+    so each 128-key K/V tile is loaded once for them, by `cp.async` into a
+    three-stage ring while the tile before multiplies; the warpgroups run
+    half an iteration apart, one's softmax under the other's products;
+    blocks loop to their own causal limit, longest first. fp32: the same
+    loop on the CUDA cores in fp32, one head and 64 keys a block. Any S; hd
+    64 or 128; any nh % nkv == 0.
     sm_scale must be positive (the kernel takes a row's largest score from
     its largest product). Anything else on a CUDA tensor raises.
     """

@@ -153,7 +153,7 @@ def test_ivf_pq_search_launches_the_kernel(cuda_device):
 
 def test_flash_attention_matches_plain(cuda_device):
     """K7 on the whole output for bf16 and fp32, head_dim 128 and 64, GQA
-    and MHA, S no multiple of the 64-key tiles, right, left and two-sided
+    and MHA, S no multiple of the 128-key tiles, right, left and two-sided
     padding down to a one-token row, q = 0 and sharpened scores: fp32
     within rtol 1e-4 / atol 1e-5 of the plain version, bf16 within
     `attention_rounding_bound` of the plain version on the same values in
