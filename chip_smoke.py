@@ -1538,7 +1538,8 @@ def qwen_timing(enc, enc_long, texts, long_texts, by_shape, seed: int):
     each, and K7 per launch at both shapes (the masks the tokenizer gives
     those texts) vs its plain version, beside its bound and one library call
     (scaled_dot_product_attention on the same inputs, GQA heads repeated
-    and the same mask, outside the timed region)."""
+    and the same mask, outside the timed region; and the same call with the
+    causal rule alone, under its own name)."""
     import torch
     import torch.nn.functional as F
 
@@ -1606,6 +1607,12 @@ def qwen_timing(enc, enc_long, texts, long_texts, by_shape, seed: int):
             "library_ms": cuda_ms(lib, 20, 3),
         })
         rows[-1]["tflops"] = rows[-1]["operations"] / rows[-1]["ms"] / 1e9
+        # the library's fastest attention takes no pad mask: causal only, so
+        # another function wherever a text is padded, and no library_ms; it
+        # shows what the card allows a kernel of this shape
+        rows[-1]["library_causal_only_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(lq, lk, lv, scale=scale,
+                                                   is_causal=True), 20, 3)
         del lq, lk, lv
     return e2e, rows
 

@@ -162,8 +162,9 @@ def gather_rates(vectors: torch.Tensor, sets: dict, iters: int = 10) -> dict:
     """Scattered-gather rates of rows of `vectors` (n, d) on the id sets of
     `gather_ids`: `gather_rows` on each set, `gather_reduce`, and
     `torch.index_select` as the library's gather, and the host microseconds
-    a call of each takes (`host_us`). Timing only, ids unchecked: `check_gathers` holds the same calls against the plain
-    versions, and checks the ids."""
+    a call of each takes (`host_us`). Timing only, ids unchecked:
+    `check_gathers` holds the same calls against the plain versions, and
+    checks the ids."""
     n, d = vectors.shape
     row_bytes = d * vectors.element_size()
     m = sets["rows"].numel()

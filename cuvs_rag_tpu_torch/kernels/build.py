@@ -138,7 +138,8 @@ def load(source: str) -> ctypes.CDLL:
 def resources(source: str) -> dict:
     """Registers, spilled bytes (stores, loads) and static shared memory of
     each kernel of a built source, as `ptxas -v` printed them at its build:
-    {"flash_attn_mma_kernel<128,2>": {"registers": ..., ...}, ...}."""
+    {"flash_attn_wgmma_kernel<128>": {"registers": ..., ...}, ...}. Integer
+    template arguments are shown, type arguments are not."""
     log = _build(source).with_suffix(".log").read_text()
     out = {}
     for entry in log.split("Compiling entry function")[1:]:
@@ -188,8 +189,8 @@ def device_guard(device):
 
 def raw_stream(device) -> int:
     """The handle of PyTorch's current stream on the CUDA `device`, without
-    building a `torch.cuda.Stream` around it (10 us a call on an H100's
-    host, `python -m cuvs_rag_tpu_torch.eval.roofline`'s `host_us`)."""
+    building a `torch.cuda.Stream` around it, which costs a launch-bound
+    caller several microseconds a call."""
     import torch
 
     return torch._C._cuda_getCurrentRawStream(

@@ -185,8 +185,8 @@ def gather_rows(vectors, ids, span: int = 1, *, check_ids: bool = True):
     bound by bytes: m * span rows read and written once, and at a few
     thousand rows by the launch. A group of lanes (`gather_plan`) owns a
     segment: one load of its id, shared by shuffle; the lanes walk its
-    16-byte chunks with no division; several segments are in flight a
-    group; rows leave by streaming stores, so the copy does not evict
+    16-byte chunks with no division; the grid has a group for every
+    segment; rows leave by streaming stores, so the copy does not evict
     corpus lines that duplicate ids hit in the L2.
     """
     if vectors.device.type == "cpu":
@@ -260,7 +260,8 @@ def gather_reduce(vectors, ids, *, check_ids: bool = True):
     with build.device_guard(src.device):
         err = build.load(_SOURCE).gather_reduce(
             src.data_ptr(), ids.data_ptr(), m, d, _REDUCE_KINDS[src.dtype],
-            n_blocks, partial.data_ptr(), out.data_ptr(), build.raw_stream(src.device))
+            n_blocks, partial.data_ptr(), out.data_ptr(),
+            build.raw_stream(src.device))
     build.check(err, "gather_reduce")
     gather_reduce.launches += 1
     return out

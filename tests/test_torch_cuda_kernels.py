@@ -166,6 +166,36 @@ def test_flash_attention_matches_plain(cuda_device):
     assert max(out["max_err_over_allowed"].values()) <= 1.0
 
 
+@pytest.mark.parametrize("nh,nkv,hd", [
+    (8, 2, 128),   # four heads of a kv group share a block, 32 rows each
+    (6, 2, 64),    # a group of three: one head a block, 128 rows
+    (4, 1, 64), (2, 2, 128), (16, 8, 64),
+])
+@pytest.mark.parametrize("padding", ["left", "mixed"])
+def test_flash_attention_head_groupings(cuda_device, nh, nkv, hd, padding):
+    """bf16 K7 at every way the query heads of a kv group fill a block's 128
+    rows, S no multiple of the 128-key tile nor of any row tile, ragged
+    padding: within `attention_rounding_bound`; with q = 0 (the output is
+    the mean of the allowed v rows: head mapping and masks) within the
+    output's one rounding."""
+    import chip_smoke
+    from cuvs_rag_tpu_torch.ops import attention_kernels as ak
+
+    g = torch.Generator(device=cuda_device).manual_seed(nh * hd)
+    b, s = 3, 333
+    q, k, v = chip_smoke.attn_inputs(b, s, nh, nkv, hd, torch.bfloat16, g,
+                                     cuda_device)
+    mask = chip_smoke.pad_mask(padding, b, s, cuda_device)
+    for exact_p in (False, True):
+        if exact_p:
+            q = torch.zeros_like(q)
+        got = ak.flash_attention(q, k, v, mask, hd ** -0.5)
+        torch.cuda.synchronize()
+        _, ratio, _ = chip_smoke.attn_hold(got, q, k, v, mask, hd ** -0.5,
+                                           exact_p=exact_p)
+        assert ratio <= 1.0
+
+
 @pytest.mark.parametrize("bad", ["head_dim", "dtype"])
 def test_flash_attention_raises_on_what_the_kernel_does_not_take(cuda_device,
                                                                   bad):
@@ -193,6 +223,25 @@ def test_stream_kernels_match_plain(cuda_device):
                          device=cuda_device).to(torch.bfloat16)
     out = chip_smoke.stream_parity_phase(corpus, 40_003, seed=0, m=8192)
     assert out["cases"] == 22
+
+
+@pytest.mark.parametrize("row_bytes", [16, 96, 768, 1536, 4096])
+@pytest.mark.parametrize("m,span", [(1, 1), (1000, 1), (37, 32), (1, 32)])
+def test_gather_rows_on_ragged_chunk_counts(cuda_device, row_bytes, m, span):
+    """M2 / M4 bit-equal to the plain version where a row's 16-byte chunks
+    fill no whole number of lane groups (1, 6, 48, 96 and 256 chunks a row;
+    32-row spans), on one segment and on many, with duplicate ids."""
+    from cuvs_rag_tpu_torch.ops import stream_kernels as sk
+
+    g = torch.Generator(device=cuda_device).manual_seed(row_bytes + m)
+    x = torch.randint(-128, 128, (5000, row_bytes), generator=g,
+                      device=cuda_device).to(torch.int8)
+    ids = torch.randint(0, 5000 - span + 1, (m,), generator=g,
+                        device=cuda_device)
+    ids[: m // 3] = ids[0]
+    got = sk.gather_rows(x, ids, span)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sk.gather_rows_plain(x, ids, span))
 
 
 def test_stream_kernels_count_launches_and_check_ids(cuda_device):
