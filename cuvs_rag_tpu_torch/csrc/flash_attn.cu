@@ -50,7 +50,7 @@
 //   out once), the next tile in flight while this one multiplies; one
 //   __syncthreads() a tile.
 // - The two warpgroups run half an iteration apart: warpgroup 0 takes the
-//   softmax of tile t right after issuing Q.K^T of tile t and P.V of tile
+//   softmax of tile t right after starting Q.K^T of tile t and P.V of tile
 //   t - 1 (while that P.V runs); warpgroup 1 carries its scores over the
 //   barrier and takes the softmax at the start of the next iteration, while
 //   warpgroup 0's products hold the tensor cores.
@@ -145,7 +145,7 @@ __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
 // The compiler may not move a use of these registers across this point: an
-// asynchronous wgmma reads or writes them from its issue to its wait.
+// asynchronous wgmma reads or writes them from its start to its wait.
 template <int N>
 __device__ __forceinline__ void keep(float (&r)[N]) {
 #pragma unroll
@@ -331,7 +331,7 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int e = 0; e < DT * 4; ++e) o[e] = 0.f;
 
-  // Iteration t issues Q.K^T of tile t and then P.V of tile t - 1, and takes
+  // Iteration t starts Q.K^T of tile t and then P.V of tile t - 1, and takes
   // the softmax of tile t while that P.V runs on the tensor cores. No wgmma
   // stands under a condition on data: the compiler fences every wgmma of a
   // path it cannot prove the same for the whole warp, one after another.
@@ -343,7 +343,7 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();  // tile t has landed; every warp is done with tile t - 2
     load_kv(t + WSTAGES - 2);
   };
-  auto issue_qk = [&](int t) {
+  auto start_qk = [&](int t) {
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       const uint32_t in_panel = (ks & 3) * 32;
@@ -357,7 +357,7 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     }
     wg_commit();
   };
-  auto issue_pv = [&](int t) {
+  auto start_pv = [&](int t) {
 #pragma unroll
     for (int kk = 0; kk < WBN / 16; ++kk)
       wgmma_pv(o, pa[kk],
@@ -434,7 +434,7 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   // one's softmax runs while the other's products hold the tensor cores:
   // warpgroup 0 takes the softmax of tile t right after its products, in
   // iteration t; warpgroup 1 carries the scores over the barrier and takes
-  // it at the start of iteration t + 1, before it issues its own products.
+  // it at the start of iteration t + 1, before it starts its own products.
   auto fence_pa = [&]() {
 #pragma unroll
     for (int kk = 0; kk < WBN / 16; ++kk)
@@ -444,7 +444,7 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   tile_arrives(0);
   keep(s);
   wg_fence();
-  issue_qk(0);
+  start_qk(0);
   wg_wait<0>();
   keep(s);
   if (wg == 0) {
@@ -461,8 +461,8 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     keep(o);
     fence_pa();
     wg_fence();
-    issue_qk(t);
-    issue_pv(t - 1);
+    start_qk(t);
+    start_pv(t - 1);
     wg_wait<1>();  // Q.K^T, the older group
     keep(s);
     if (wg == 0) softmax(t);  // while P.V of tile t - 1 runs
@@ -478,7 +478,7 @@ flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   keep(o);
   fence_pa();
   wg_fence();
-  issue_pv(n_tiles - 1);
+  start_pv(n_tiles - 1);
   wg_wait<0>();
   keep(o);
 
