@@ -10,7 +10,9 @@ is non-zero):
                nvcc per source, all started together.
   3. parity  — each flat kernel (K1 exact, K2 sketch, K3 large-k) against
                its plain PyTorch version at D = 384 on 1,048,576 rows, and
-               on a ragged corpus with tombstoned rows.
+               on a ragged corpus with tombstoned rows; K1 also within the
+               error its roundings allow (flat_rounding_bound), at 16, 1
+               and 40 queries, and timed on fp32, bf16 and int8 rows.
   4. ivf_parity — the IVF scan kernels (K4 probed top-k, K5 certified
                large-k) against their plain versions on IVF-Flat indexes of
                a clustered 1,048,576 x 384 corpus (fp32, bf16, int8, 1% of
@@ -64,9 +66,10 @@ is non-zero):
                shapes (CUDA events) beside its bound (the larger of this
                run's bytes over H100_BYTES_PER_S and its operations over the
                peak rate of their type), a second bound from the read rate
-               M1 measured, and one library call where there is one; the
-               streaming and gather rates of eval/roofline.py; encode times
-               with a torch.profiler table; then the kernels JSON line.
+               M1 measured, and one library call where there is one; K1
+               also at one query and, over the Qwen3 index, at D = 1024;
+               the streaming and gather rates of eval/roofline.py; encode
+               times with a torch.profiler table; then the kernels JSON line.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -138,6 +141,8 @@ K_LARGE = 2000
 # order, so they agree to rounding; ids agree as sets up to swaps among
 # scores tied (within this tolerance) with the k-th.
 TOL = dict(rtol=1e-5, atol=1e-3)
+# K1 is held tighter as well: every returned score within what its fp32
+# adds can lose against the same values in fp64 (k1_hold).
 # K6 vs plain: the same fp32 table entries summed in another order (the
 # reference's own tolerance); ids and the -inf pattern must be equal.
 PQ_TOL = dict(rtol=1e-5, atol=1e-4)
@@ -240,14 +245,39 @@ def clustered_rows(n, centres, gen, device):
         centres[b] + SPREAD * make_rows(n, centres.shape[1], gen, device), dim=1)
 
 
+def k1_hold(got, args, metric) -> float:
+    """Hold K1's returned scores to the fp64 scores of the rows it returned,
+    within `flat_rounding_bound` (what D truncating fp32 adds, the scale
+    product and the subtraction can lose): some 30 times tighter than TOL
+    on unit rows. Returns the largest error / allowed error; raises above
+    1."""
+    from cuvs_rag_tpu_torch.ops import flat_kernels as fk
+
+    s, i = got
+    want, allowed = fk.flat_rounding_bound(*args, metric=metric, rows=i)
+    live = i >= 0
+    if not live.any():
+        return 0.0
+    ratio = ((s.double() - want).abs() / allowed)[live]
+    worst = float(ratio.max())
+    if not worst <= 1.0:
+        raise AssertionError(
+            f"K1 score off by {worst} times what its roundings allow "
+            f"({int((ratio > 1).sum())} of {int(live.sum())} slots)")
+    return worst
+
+
 def parity_phase(n_rows: int, n_ragged: int, seed: int, device="cuda",
                  k_large: int = 2000) -> dict:
     """Every kernel vs its plain version on `n_rows` rows (no padding) and on
     a ragged corpus of `n_ragged` rows (storage not a multiple of any tile,
     pad rows past n_valid, 1% of rows tombstoned), for each storage dtype
-    the kernel takes: K1 and K3 fp32, bf16 and int8; K2 bf16 and int8."""
+    the kernel takes: K1 and K3 fp32, bf16 and int8; K2 bf16 and int8. K1
+    is also held by `k1_hold`, also at 1 and 40 queries (the last query
+    tile has zero rows), and timed at k = 10 on the full corpus."""
     import torch
 
+    from cuvs_rag_tpu_torch.eval.roofline import cuda_ms
     from cuvs_rag_tpu_torch.index import flat
     from cuvs_rag_tpu_torch.ops import flat_kernels as fk
     from cuvs_rag_tpu_torch.utils.compare import compare_topk
@@ -255,8 +285,9 @@ def parity_phase(n_rows: int, n_ragged: int, seed: int, device="cuda",
 
     gen = torch.Generator(device=device).manual_seed(seed)
     n_q = 16
-    out = {"exact": 0.0, "sketch": 0.0, "large": 0.0, "large_uncertified": 0,
-           "cases": 0}
+    out = {"exact": 0.0, "exact_over_allowed": 0.0, "sketch": 0.0,
+           "large": 0.0, "large_uncertified": 0, "cases": 0,
+           "exact_ms": {}, "exact_route": {}}
     for case, n in (("full", n_rows), ("ragged", n_ragged)):
         x = make_rows(n, D, gen, device)
         # half the queries are noisy copies of corpus rows, half random
@@ -271,12 +302,22 @@ def parity_phase(n_rows: int, n_ragged: int, seed: int, device="cuda",
                 storage = min(ix.size, n + 1000)
             args = (ix.vectors[:storage], ix.sqnorms[:storage], q, ix.n_valid,
                     ix.scales[:storage])
+            if case == "full":
+                out["exact_route"][dtype] = fk.exact_route(ix.vectors.dtype, D)
+                out["exact_ms"][dtype] = {
+                    "ms": cuda_ms(lambda: fk.flat_topk_exact(
+                        *args, k=10, metric="sqeuclidean"), 10),
+                    **flat_bound(*args, k=10)}
             for metric in ("sqeuclidean", "inner_product"):
-                for k in (1, 10, 32):
-                    got = fk.flat_topk_exact(*args, k=k, metric=metric)
-                    want = fk.flat_topk_exact_plain(*args, k=k, metric=metric)
+                for k, queries in ((1, q), (10, q), (32, q), (10, q[:1]),
+                                   (10, torch.cat([q, q + 0.01, q[:8] - 0.01]))):
+                    a = (args[0], args[1], queries) + args[3:]
+                    got = fk.flat_topk_exact(*a, k=k, metric=metric)
+                    want = fk.flat_topk_exact_plain(*a, k=k, metric=metric)
                     out["exact"] = max(out["exact"],
                                        compare_topk(*got, *want, **TOL))
+                    out["exact_over_allowed"] = max(
+                        out["exact_over_allowed"], k1_hold(got, a, metric))
                     out["cases"] += 1
                 if dtype != "float32":
                     int8c = dtype == "int8"
@@ -1162,8 +1203,9 @@ def qwen_main_path(seed: int, dev):
     encoder with the plain attention swapped in agrees at cosine >= 0.999
     at 16 x 512 and at 1 x 8,192; K7 launched once per layer and forward
     call, and K1 launched, and K1 within TOL of its plain version on this
-    corpus at both query counts (launches that the counts leave out). Returns (fields, (encoder, long encoder, texts,
-    long texts, launches of K7 by shape))."""
+    corpus at both query counts, within `k1_hold`, and timed there
+    (launches that the counts leave out). Returns (fields, (encoder, long
+    encoder, texts, long texts, launches of K7 by shape))."""
     import torch
 
     from cuvs_rag_tpu_torch.index import flat
@@ -1241,13 +1283,14 @@ def qwen_main_path(seed: int, dev):
     # phases hold it at D = 384 only): the index's own arrays, a batch of
     # 16 planted embeddings and the one long query, k = 10
     ix = retriever.index
-    k1_err = 0.0
+    k1_rows = []
     for queries in (planted_emb[:BATCH], planted_emb[QWEN_PLANTED:][:1]):
         args = (ix.vectors, ix.sqnorms, queries, ix.n_valid, ix.scales)
         kw = dict(k=10, metric=flat._kernel_metric(ix.metric))
-        k1_err = max(k1_err, compare_topk(
-            *fk.flat_topk_exact(*args, **kw),
-            *fk.flat_topk_exact_plain(*args, **kw), **TOL))
+        k1_rows.append(k1_shape_row(
+            f"{queries.shape[0]} x {QWEN_ROWS} x {cfg.hidden_size} bf16",
+            args, kw))
+    k1_err = max(r["max_abs_err"] for r in k1_rows)
 
     # a passage alone against the same passage inside its batch of 16
     alone = enc.encode_device(texts[3:4])[0]
@@ -1279,6 +1322,7 @@ def qwen_main_path(seed: int, dev):
         "forward_calls": len(shapes), "launches": launches,
         "launches_by_shape": by_shape,
         "flat_topk_exact_max_abs_err_dim1024": k1_err,
+        "flat_topk_exact_dim1024": k1_rows,
         "alone_vs_batch_max_abs_diff": alone_diff,
         "cosine_vs_plain_attention_16x512": cos_short,
         "cosine_vs_plain_attention_1x8192": cos_long,
@@ -1374,6 +1418,28 @@ def pq_bound(codes, row_ids, corr, luts, offs, cnts, coarse, *, window):
     return bound(live * (mb + 4 + (4 if corr is not None else 0))
                  + nbytes(luts, offs, cnts, coarse) + offs.numel() * window * 8,
                  2.0 * mb * live, "fp32")
+
+
+def k1_shape_row(shape: str, args, kw) -> dict:
+    """K1 at one call shape: held against its plain version (TOL) and
+    within `k1_hold`, then timed beside its bound and the library call that
+    computes the same (one matmul + top-k over the corpus)."""
+    from cuvs_rag_tpu_torch.eval.roofline import cuda_ms
+    from cuvs_rag_tpu_torch.ops import flat_kernels as fk
+    from cuvs_rag_tpu_torch.ops import topk as topk_ops
+    from cuvs_rag_tpu_torch.utils.compare import compare_topk
+
+    got = fk.flat_topk_exact(*args, **kw)
+    want = fk.flat_topk_exact_plain(*args, **kw)
+    return {
+        "shape": shape,
+        "max_abs_err": compare_topk(*got, *want, **TOL),
+        "max_err_over_allowed": k1_hold(got, args, kw["metric"]),
+        "ms": cuda_ms(lambda: fk.flat_topk_exact(*args, **kw), 10),
+        **flat_bound(*args, **kw),
+        "library_ms": cuda_ms(
+            lambda: topk_ops.flat_topk_search_dense(*args, **kw), 5, 1),
+    }
 
 
 def timing_phase(flat_r, ivf_r, pq_r, ooc_r, enc, texts, launches: dict):
@@ -1474,6 +1540,11 @@ def timing_phase(flat_r, ivf_r, pq_r, ooc_r, enc, texts, launches: dict):
         err = compare_topk(got[0], got[1], want[0], want[1], **TOL)
         library_ms = None
         if name == "flat_topk_exact":
+            e2e["flat_topk_exact_max_err_over_allowed"] = k1_hold(
+                got, args, kw["metric"])
+            e2e["flat_topk_exact_one_query"] = k1_shape_row(
+                f"1 x {ROWS} x {D} bf16",
+                (args[0], args[1], q1) + args[3:], kw)
             # the one library route to K1's function: a (Q, N) matmul and a
             # top-k over it; timed here as a yardstick only
             lib = topk_ops.flat_topk_search_dense(*args, **kw)
@@ -1723,7 +1794,8 @@ def main() -> int:
         list(pool.map(build.load, sources))
     emit("build", sources=sources, seconds=time.perf_counter() - t0,
          ptxas={src: build.resources(src)
-                for src in ("flash_attn.cu", "stream.cu")})
+                for src in ("flash_attn.cu", "stream.cu", "flat_topk.cu",
+                            "pq_adc.cu")})
 
     t0 = time.perf_counter()
     parity = parity_phase(PARITY_ROWS, PARITY_RAGGED, args.seed)
@@ -1792,11 +1864,18 @@ def main() -> int:
     qwen_e2e, qwen_rows = qwen_timing(*qwen_state, args.seed)
 
     kernels += qwen_rows + stream_rows
-    for row in kernels:
+    k1_shapes = [e2e["flat_topk_exact_one_query"],
+                 *qwen_out["flat_topk_exact_dim1024"],
+                 *parity["exact_ms"].values()]
+    for name, row in parity["exact_ms"].items():
+        row["shape"] = f"{BATCH} x {PARITY_ROWS} x {D} {name}"
+    for row in kernels + k1_shapes:
         # the same bytes over the streaming-read rate that M1 measured here
         row["measured_bound_ms"] = 1e3 * row["bytes"] / read_rate
+    # K1 beyond its row of the kernels line: one query, D = 1024, and the
+    # parity corpus in each storage type, each with both bounds
     emit("timing", gpu=gpu, **e2e, **qwen_e2e, measured_read_bytes_per_s=read_rate,
-         stream=stream_out)
+         flat_topk_exact_shapes=k1_shapes, stream=stream_out)
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

@@ -1,7 +1,8 @@
 // Fused score tile + top-k selection for exact flat search on Hopper (sm_90a).
 //
 // Replaces the three Pallas TPU kernel paths of cuvs_rag_tpu/ops/pallas_flat.py:
-//   K1  flat_topk_pallas(mode="exact")   -> exact_scan_kernel + merge_partials_kernel
+//   K1  flat_topk_pallas(mode="exact")   -> exact_scan_kernel (or exact_scan_cores_kernel)
+//                                           + merge_partials_kernel
 //   K2  flat_topk_pallas(mode="sketch")  -> sketch_scan_kernel + sketch_merge_kernel
 //   K3  flat_topk_large                  -> topr_scan_kernel + topr_merge_kernel
 //
@@ -13,14 +14,64 @@
 // What bounds them on the H100: at the main path's batch (16 queries) each
 // corpus byte feeds only ~16 multiply-adds, so the floor is reading the
 // corpus from HBM once (4.8 GB of bf16 at 6.29M x 384, 1.4 ms). The design
-// keeps everything else off HBM: the score tile lives in registers, the pad
-// and tombstone penalties ride the one epilogue FMA (no mask passes), the
-// running selections stay in registers (K1/K2) or shared memory (K3), and
-// partials are small. This first version multiplies on the CUDA cores in
-// fp32 (exact products of bf16/int8 operands, fp32 accumulation, no TF32)
-// with 6 shared-memory loads per 8 FMAs, which bounds it instead: ~16% of
-// the read floor. Tensor cores (mma/wgmma), 16-byte loads and TMA
-// pipelining are later work.
+// keeps everything else off HBM: the pad and tombstone penalties ride the
+// one epilogue FMA (no mask passes), the running selections stay in
+// registers (K1/K2) or shared memory (K3), and partials are small.
+//
+// K1 has three routes, chosen by the wrapper from the storage type and depth
+// (ops/flat_kernels.exact_route):
+// - bf16 and int8 rows whose rows are a multiple of 32 bytes: exact_scan_kernel,
+//   the tensor-core route. Reading 4.88 GB in 1.6 ms needs 48 TFLOP/s of
+//   multiply-adds, beyond CUDA cores fed from shared memory and 5% of the
+//   tensor cores' bf16 rate, so the product is the easy part and feeding it
+//   is the design:
+//   * The product is mma.sync m16n8k16 (bf16 x bf16 -> fp32) with the 16
+//     queries of the block's tile as M: the query tile is exactly one M, so
+//     one-query calls cost what 16 cost and no accumulator row is wasted
+//     above 16; wgmma's 64-row M would put corpus rows there and buys
+//     nothing at 5% of the peak. Products of bf16 values are exact and the
+//     sum stays fp32, so the scores are still exact scores up to the order
+//     and rounding of fp32 adds (ops/flat_kernels.flat_rounding_bound).
+//     int8 rows are widened to bf16 in registers (exact) after ldmatrix and
+//     take the same product; their depth order inside a 16-step is permuted
+//     the same way in the staged queries.
+//   * The corpus comes by cp.async, 16 bytes a thread, into a ring of three
+//     stages in dynamic shared memory; a stage is 128 rows x one depth
+//     chunk of 128 bytes a row (one cache line; six chunks a tile at D = 384
+//     bf16), two stages are always in flight and one __syncthreads() a
+//     chunk is all the block waits on. Two blocks an SM (77 KB each at D =
+//     384), one split a block: one block's products and selection run under
+//     the other's copies. Measured on 6.29M x 384 bf16 rows, 16 queries
+//     (NVIDIA H100 80GB HBM3, 700 W; eval/ring_sweep.py, which rebuilds
+//     this file with other sizes; one streaming read of the corpus takes
+//     1.55-1.57 ms on such a card): this ring 1.84-1.89 ms; chunks of 64 bytes
+//     2.66, 96 bytes 2.19, 160 bytes 1.92, 192 bytes 1.90; four stages
+//     1.91, two stages 2.03 (two stages of 256 bytes 1.77); one block an SM
+//     with three stages of 384-byte chunks (100 KB an SM in flight) 2.13,
+//     with four stages (150 KB) 2.29. More bytes in flight than ~70 KB an
+//     SM cost time instead of hiding it, and chunks that are whole
+//     128-byte lines beat every other width. With the products left out
+//     this ring takes 1.80, with the selection left out 1.84, with both
+//     1.77: the copies bound it.
+//   * Rows sit at a pitch of chunk bytes + 16, an odd number of 16-byte
+//     units, so the eight rows of every ldmatrix fall in eight different
+//     bank groups (at a pitch of 128 or 768 bytes they would share one).
+//   * Selection is unchanged: the 16 x 128 fp32 score tile goes through
+//     shared memory once and is read back as (warp = query, lane = row) into
+//     WarpTopK::offer in ascending row order; sqnorms and scales of a
+//     tile's rows are plain loads started before the tile's products.
+// - fp32 rows of a multiple of 16 bytes: the same kernel and ring, but fp32
+//   storage means fp32 math (no TF32, no bf16 split), so the product stays
+//   on the CUDA cores: each thread keeps 2 queries x 4 rows in the
+//   selection's own layout and reads queries and rows as float4 along the
+//   depth (6 shared-memory loads per 32 FMAs, conflict-free at the ring's
+//   pitch), adding in depth order. No score tile passes through shared
+//   memory. It is bound by those FMAs and loads, not by the read.
+// - every other depth: exact_scan_cores_kernel, which multiplies on the
+//   CUDA cores in fp32 through score_tile (scalar loads, 6 shared-memory
+//   loads per 8 FMAs, two barriers a 32-deep chunk) and is bound by that
+//   inner loop, at about a sixth of the read floor. K2 and K3 still use
+//   score_tile too.
 //
 // Plain C ABI (built with nvcc, loaded with ctypes): every entry point
 // launches on the caller's stream, allocates nothing, and returns
@@ -140,10 +191,13 @@ __device__ __forceinline__ void score_tile(
 // ---------------------------------------------------------------- K1 -----
 // grid (ceil(n_q / TQ), n_splits); split s covers rows
 // [s * rows_per_split, min(n_rows, (s + 1) * rows_per_split)). Warp w keeps
-// the running top-k of queries w and w + 8 in registers; the score tile it
-// selects from is already in its own registers. Partials: (n_q, S, k).
+// the running top-k of queries w and w + 8 in registers. Partials:
+// (n_q, S, k).
+//
+// The CUDA-core route: the score tile the warp selects from is already in
+// its own registers.
 template <typename QT, typename XT>
-__global__ void __launch_bounds__(THREADS) exact_scan_kernel(
+__global__ void __launch_bounds__(THREADS) exact_scan_cores_kernel(
     const QT* __restrict__ q, const XT* __restrict__ x,
     const float* __restrict__ sqn, const float* __restrict__ scales, int n_q,
     int d, long long n_rows, int n_valid, int metric_sq, int k,
@@ -168,6 +222,326 @@ __global__ void __launch_bounds__(THREADS) exact_scan_kernel(
 #pragma unroll
       for (int j = 0; j < CPT; ++j)
         top[i].offer(v[i][j], (int)(row0 + lane + 32 * j), k, lane);
+  }
+#pragma unroll
+  for (int i = 0; i < QPT; ++i) {
+    const int qq = q0 + warp + 8 * i;
+    if (qq < n_q && lane < k) {
+      const long long o = ((long long)qq * n_splits + split) * k + lane;
+      part_s[o] = top[i].s;
+      part_i[o] = top[i].id;
+    }
+  }
+}
+
+// The ring-fed routes (see the note at the top of the file).
+constexpr int RING_STAGES = 3;
+constexpr int RING_CHUNK = 128;  // a stage's bytes a row: one cache line
+constexpr int SCORE_PITCH = TC + 8;  // fragments' float2 stores hit 32 banks
+constexpr int MAX_SMEM = 227 * 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, asynchronously; `bytes` = 0 writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c (16 queries x 8 rows, fp32) += a (16 x 16 bf16) . b (16 x 8 bf16)
+__device__ __forceinline__ void mma_16x8x16(float (&c)[4], const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four int8 values of one register -> two registers of bf16 pairs, exactly:
+// byte + 128 becomes the low mantissa bits of 2^23, and 2^23 + 128 comes off.
+__device__ __forceinline__ void widen_int8(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
+  const __nv_bfloat162 a = __floats2bfloat162_rn(f0, f1);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(f2, f3);
+  lo = *reinterpret_cast<const uint32_t*>(&a);
+  hi = *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// The ring's loader: one depth chunk (`width` bytes a row, from byte
+// `byte0` of each row) of the TC rows that start at `first_row` of a
+// row-major corpus of `row_bytes` a row, into the stage at `dst` with
+// `pitch` bytes a row; rows at or past `n_live` become zeros and are never
+// read from the corpus. The tile's first row is an argument, so tiles need
+// not be consecutive (K2 / K3 walk tiles W rows apart). (r0, c0) is this
+// thread's first (row, 16-byte piece) and (step_r, step_c) the step of one
+// pass of the block, worked out once by the caller for `pieces` pieces a
+// full chunk's row.
+struct RingLoader {
+  int r0, c0, step_r, step_c, pieces, passes;
+
+  __device__ __forceinline__ void init(int chunk_bytes) {
+    pieces = chunk_bytes >> 4;
+    r0 = threadIdx.x / pieces;
+    c0 = threadIdx.x % pieces;
+    step_r = THREADS / pieces;
+    step_c = THREADS % pieces;
+    passes = (TC * pieces + THREADS - 1) / THREADS;
+  }
+
+  __device__ __forceinline__ void load(uint32_t dst, int pitch,
+                                       const unsigned char* x, long long row_bytes,
+                                       long long first_row, int n_live, int byte0,
+                                       int width) const {
+    const unsigned char* src = x + first_row * row_bytes + byte0;
+    int r = r0, c = c0;
+    for (int i = 0; i < passes; ++i) {
+      if (r < TC && (c << 4) < width) {
+        const bool live = r < n_live;
+        cp_async16(dst + r * pitch + (c << 4),
+                   live ? src + r * row_bytes + (c << 4) : x, live ? 16 : 0);
+      }
+      r += step_r;
+      c += step_c;
+      if (c >= pieces) {
+        c -= pieces;
+        ++r;
+      }
+    }
+  }
+};
+
+// MODE 0: bf16 rows; 1: int8 rows (widened to bf16 in registers), both with
+// bf16 queries on the tensor cores: warp w multiplies the 16 queries with
+// rows [16 w, 16 w + 16) of each tile (two 8-row mma tiles), then selects
+// for queries w and w + 8 over the whole tile. MODE 2: fp32 rows and
+// queries, fp32 multiply-adds on the CUDA cores (fp32 storage means fp32
+// math): thread (warp w, lane l) keeps queries w, w + 8 x rows l + 32 j,
+// the selection's own layout, reads queries and rows as float4 along the
+// depth (6 shared-memory loads per 32 FMAs) and adds in depth order, as the
+// CUDA-core kernel above does. `chunk_bytes` (a multiple of 32; of 16 in
+// MODE 2) is a stage's bytes a row; the last chunk of a row may be shorter.
+// No mode spills (the registers are in chip_smoke.py's `build` line).
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 2) exact_scan_kernel(
+    const void* __restrict__ q, const unsigned char* __restrict__ x,
+    const float* __restrict__ sqn, const float* __restrict__ scales, int n_q,
+    int d, long long n_rows, int n_valid, int metric_sq, int k,
+    long long rows_per_split, int n_dc, int chunk_bytes,
+    float* __restrict__ part_s, int* __restrict__ part_i) {
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  constexpr bool INT8 = MODE == 1, FP32 = MODE == 2;
+  constexpr int QS = FP32 ? 4 : 2;  // bytes of a staged query value
+  const int row_bytes = FP32 ? 4 * d : INT8 ? d : 2 * d;
+  const int pitch = chunk_bytes + 16;
+  const int q_pitch = QS * d + 16;
+  const int stage_bytes = TC * pitch;
+  unsigned char* s_q = ring_smem;                                   // [TQ][q_pitch]
+  float* s_sc = reinterpret_cast<float*>(s_q + TQ * q_pitch);       // [TQ][SCORE_PITCH]
+  // [STAGES][TC][pitch]; MODE 2 has no score tile in front of it
+  unsigned char* s_ring = reinterpret_cast<unsigned char*>(s_sc + (FP32 ? 0 : TQ * SCORE_PITCH));
+  const uint32_t q_a = smem_u32(s_q);
+  const uint32_t ring_a = smem_u32(s_ring);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * TQ, split = blockIdx.y, n_splits = gridDim.y;
+  const long long start = (long long)split * rows_per_split;
+  const long long stop = min(n_rows, start + rows_per_split);
+  const int n_tiles = (int)((stop - start + TC - 1) / TC);
+  const int n_chunks = n_tiles * n_dc;
+
+  RingLoader loader;
+  loader.init(chunk_bytes);
+  int ld_tile = 0, ld_dc = 0;  // the next chunk to load
+  auto load_next = [&](int chunk) {
+    if (chunk < n_chunks) {
+      const long long first = start + (long long)ld_tile * TC;
+      const int byte0 = ld_dc * chunk_bytes;
+      loader.load(ring_a + (chunk % RING_STAGES) * stage_bytes, pitch, x, row_bytes,
+                  first, (int)min((long long)TC, stop - first), byte0,
+                  min(chunk_bytes, row_bytes - byte0));
+      if (++ld_dc == n_dc) {
+        ld_dc = 0;
+        ++ld_tile;
+      }
+    }
+    // one commit group a call, also where no chunk is left: the waits count groups
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+#pragma unroll
+  for (int c = 0; c < RING_STAGES - 1; ++c) load_next(c);
+
+  // the query tile, once a block: zeros past n_q. With int8 rows a thread's
+  // ldmatrix register holds depths 4t .. 4t + 3 of a 16-step (t = lane % 4)
+  // where the mma wants 2t, 2t + 1, 8 + 2t, 9 + 2t: the queries are staged in
+  // that order instead, and a dot product does not mind.
+  for (int e = tid; e < TQ * d; e += THREADS) {
+    const int r = e / d, c = e % d;
+    const bool live = q0 + r < n_q;
+    const long long src = (long long)(q0 + r) * d + c;
+    if constexpr (FP32) {
+      reinterpret_cast<float*>(s_q + r * q_pitch)[c] =
+          live ? static_cast<const float*>(q)[src] : 0.f;
+    } else {
+      int col = c;
+      if (INT8) {
+        const int t = (c & 15) >> 2, j = c & 3;
+        col = (c & ~15) | (j < 2 ? 2 * t + j : 8 + 2 * t + (j - 2));
+      }
+      reinterpret_cast<__nv_bfloat16*>(s_q + r * q_pitch)[col] =
+          live ? static_cast<const __nv_bfloat16*>(q)[src] : __float2bfloat16(0.f);
+    }
+  }
+
+  // ldmatrix addresses: A's four 8 x 8 blocks are (queries 0-7 | 8-15) x
+  // (depth 0-7 | 8-15) of a 16-step; B's are (rows 0-7 | 8-15 of the warp's
+  // 16) x (bytes 0-15 | 16-31) of a 32-byte unit.
+  const int mat = lane >> 3;
+  const uint32_t a_lane = q_a + ((lane & 7) + (mat & 1) * 8) * q_pitch + (mat >> 1) * 16;
+  const uint32_t b_lane =
+      (warp * 16 + (lane & 7) + (mat >> 1) * 8) * pitch + (mat & 1) * 16;
+
+  WarpTopK top[QPT];
+#pragma unroll
+  for (int i = 0; i < QPT; ++i) top[i].init();
+  const float mult = metric_sq ? 2.0f : 1.0f;
+  float acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  float scale[CPT], csq[CPT];
+  int tile = 0, dc = 0;
+
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    asm volatile("cp.async.wait_group %0;" ::"n"(RING_STAGES - 2) : "memory");
+    __syncthreads();  // the chunk has landed; every warp is done with the one before
+    load_next(chunk + RING_STAGES - 1);
+
+    const long long row0 = start + (long long)tile * TC;
+    const int n_live = (int)min((long long)TC, stop - row0);
+    if (dc == 0) {
+      // this thread's rows of the selection (lane + 32 j): loaded before the
+      // products, used after them
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int r = lane + 32 * j;
+        scale[j] = 1.0f;
+        csq[j] = 0.0f;
+        if (r < n_live) {
+          const long long row = row0 + r;
+          scale[j] = scales[row];
+          const float s = sqn[row];
+          const float pen = row < n_valid ? 0.0f : PAD_PENALTY;
+          csq[j] = metric_sq ? s + pen : pen + fmaxf(s - DELETED_THRESHOLD, 0.0f);
+        }
+      }
+    }
+
+    const int byte0 = dc * chunk_bytes;
+    const int width = min(chunk_bytes, row_bytes - byte0);
+    if constexpr (FP32) {
+      const unsigned char* rows = s_ring + (chunk % RING_STAGES) * stage_bytes + lane * pitch;
+      const unsigned char* qs = s_q + warp * q_pitch + byte0;
+#pragma unroll 2
+      for (int u = 0; u < width; u += 16) {
+        float4 a[QPT], b[CPT];
+#pragma unroll
+        for (int i = 0; i < QPT; ++i)
+          a[i] = *reinterpret_cast<const float4*>(qs + 8 * i * q_pitch + u);
+#pragma unroll
+        for (int j = 0; j < CPT; ++j)
+          b[j] = *reinterpret_cast<const float4*>(rows + 32 * j * pitch + u);
+#pragma unroll
+        for (int i = 0; i < QPT; ++i)
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) {
+            acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+            acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+            acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+            acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+          }
+      }
+    } else {
+      const int units = width >> 5;
+      const uint32_t b_addr = ring_a + (chunk % RING_STAGES) * stage_bytes + b_lane;
+      // the chunk's first value in the staged queries (2 bytes a value)
+      const uint32_t a_addr = a_lane + (INT8 ? 2 * byte0 : byte0);
+#pragma unroll 4
+      for (int u = 0; u < units; ++u) {
+        uint32_t b[4];
+        ldmatrix_x4(b, b_addr + u * 32);
+        if (INT8) {
+          uint32_t a0[4], a1[4], lo, hi;
+          ldmatrix_x4(a0, a_addr + u * 64);
+          ldmatrix_x4(a1, a_addr + u * 64 + 32);
+          widen_int8(b[0], lo, hi);
+          mma_16x8x16(acc[0], a0, lo, hi);
+          widen_int8(b[2], lo, hi);
+          mma_16x8x16(acc[1], a0, lo, hi);
+          widen_int8(b[1], lo, hi);
+          mma_16x8x16(acc[0], a1, lo, hi);
+          widen_int8(b[3], lo, hi);
+          mma_16x8x16(acc[1], a1, lo, hi);
+        } else {
+          uint32_t a[4];
+          ldmatrix_x4(a, a_addr + u * 32);
+          mma_16x8x16(acc[0], a, b[0], b[1]);
+          mma_16x8x16(acc[1], a, b[2], b[3]);
+        }
+      }
+    }
+    if (++dc < n_dc) continue;
+    dc = 0;
+    ++tile;
+
+    if constexpr (!FP32) {
+      // the tile's scores: fragments (query lane / 4 (+ 8), rows 2 (lane % 4),
+      // + 1 of each 8) -> shared memory -> (warp = query, lane = row); the
+      // next tile's are written after its chunks' barriers
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float* dst = s_sc + (lane >> 2) * SCORE_PITCH + warp * 16 + nt * 8 + (lane & 3) * 2;
+        *reinterpret_cast<float2*>(dst) = make_float2(acc[nt][0], acc[nt][1]);
+        *reinterpret_cast<float2*>(dst + 8 * SCORE_PITCH) = make_float2(acc[nt][2], acc[nt][3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[nt][j] = 0.f;
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < QPT; ++i) {
+      const bool dead = q0 + warp + 8 * i >= n_q;  // the same for the whole warp
+      if constexpr (!FP32) {
+        if (dead) continue;
+      }
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int r = lane + 32 * j;
+        float dot;
+        if constexpr (FP32) {
+          dot = acc[i][j];
+          acc[i][j] = 0.f;
+          if (dead) continue;
+        } else {
+          dot = s_sc[(warp + 8 * i) * SCORE_PITCH + r];
+        }
+        const float v = mult * (dot * scale[j]) - csq[j];
+        top[i].offer(r < n_live ? v : neg_inf(), (int)(row0 + r), k, lane);
+      }
+    }
   }
 #pragma unroll
   for (int i = 0; i < QPT; ++i) {
@@ -422,24 +796,56 @@ enum Combo { F32 = 0, BF16 = 1, I8_BF16 = 2, I8_I8 = 3 };
 
 extern "C" {
 
-int flat_exact_topk(int combo, const void* q, const void* x, const float* sqn,
-                    const float* scales, int n_q, int d, long long n_rows,
-                    int n_valid, int metric_sq, int k, long long rows_per_split,
-                    int n_splits, float* part_s, int* part_i, float* out_s,
-                    int* out_i, cudaStream_t stream) {
-  if (k < 1 || k > 32) return (int)cudaErrorInvalidValue;
+// ring = 1 takes the ring-fed kernel (bf16 or int8 rows of a multiple of 32
+// bytes on the tensor cores, fp32 rows of a multiple of 16 bytes on the
+// CUDA cores; the corpus 16-byte aligned, two blocks an SM), 0 the older
+// CUDA-core kernel; the wrapper chooses and sizes the splits to match.
+int flat_exact_topk(int combo, int ring, const void* q, const void* x,
+                    const float* sqn, const float* scales, int n_q, int d,
+                    long long n_rows, int n_valid, int metric_sq, int k,
+                    long long rows_per_split, int n_splits, float* part_s,
+                    int* part_i, float* out_s, int* out_i, cudaStream_t stream) {
+  if (k < 1 || k > 32 || n_q < 1 || n_rows < 1 || rows_per_split % TC != 0)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((n_q + TQ - 1) / TQ, n_splits);
+  if (ring) {
+    const bool fp32 = combo == F32;
+    const int row_bytes = fp32 ? 4 * d : combo == I8_BF16 ? d : 2 * d;
+    if ((!fp32 && combo != BF16 && combo != I8_BF16) ||
+        row_bytes % (fp32 ? 16 : 32) != 0 || (uintptr_t)x % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    const int chunk_bytes = std::min(RING_CHUNK, row_bytes);
+    const int n_dc = (row_bytes + chunk_bytes - 1) / chunk_bytes;
+    // the staged queries, the score tile (tensor-core modes) and the ring
+    const int smem = TQ * ((fp32 ? 4 : 2) * d + 16) +
+                     (fp32 ? 0 : TQ * SCORE_PITCH * (int)sizeof(float)) +
+                     RING_STAGES * TC * (chunk_bytes + 16);
+    if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+#define LAUNCH_RING(I8)                                                      \
+  {                                                                          \
+    cudaError_t e = cudaFuncSetAttribute(                                    \
+        exact_scan_kernel<I8>, cudaFuncAttributeMaxDynamicSharedMemorySize,  \
+        smem);                                                               \
+    if (e != cudaSuccess) return (int)e;                                     \
+    exact_scan_kernel<I8><<<grid, THREADS, smem, stream>>>(                  \
+        q, (const unsigned char*)x, sqn, scales, n_q, d, n_rows, n_valid,    \
+        metric_sq, k, rows_per_split, n_dc, chunk_bytes, part_s, part_i);    \
+  }
+    if (fp32) LAUNCH_RING(2) else if (combo == I8_BF16) LAUNCH_RING(1) else LAUNCH_RING(0)
+#undef LAUNCH_RING
+  } else {
 #define LAUNCH_EXACT(QT, XT)                                                 \
-  exact_scan_kernel<QT, XT><<<grid, THREADS, 0, stream>>>(                   \
+  exact_scan_cores_kernel<QT, XT><<<grid, THREADS, 0, stream>>>(             \
       (const QT*)q, (const XT*)x, sqn, scales, n_q, d, n_rows, n_valid,      \
       metric_sq, k, rows_per_split, part_s, part_i)
-  switch (combo) {
-    case F32: LAUNCH_EXACT(float, float); break;
-    case BF16: LAUNCH_EXACT(__nv_bfloat16, __nv_bfloat16); break;
-    case I8_BF16: LAUNCH_EXACT(__nv_bfloat16, int8_t); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+    switch (combo) {
+      case F32: LAUNCH_EXACT(float, float); break;
+      case BF16: LAUNCH_EXACT(__nv_bfloat16, __nv_bfloat16); break;
+      case I8_BF16: LAUNCH_EXACT(__nv_bfloat16, int8_t); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
 #undef LAUNCH_EXACT
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int warps = 8;

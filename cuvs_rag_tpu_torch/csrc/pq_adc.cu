@@ -27,13 +27,17 @@
 // the lookups of a warp never conflict. The list count is the loop bound:
 // a chunk past it writes its -inf / -1 and reads nothing.
 //
-// What bounds it on the H100: bytes. Each live slot costs mb code bytes, a
-// 4-byte id, a 4-byte correction and 8 bytes of output against 2 mb adds;
-// at the main path's shape (16 queries x 20 probes, about 500 live rows of
-// 48 bytes per window, 2 MB of tables, 3.3 MB of output) that is a few
-// microseconds of memory traffic, so the launch itself dominates. Byte-wide
-// code loads and one table copy per chunk are what a later version would
-// widen and share.
+// What bounds it on the H100: by bytes it is a few microseconds (each live
+// slot costs mb code bytes, a 4-byte id, a 4-byte correction and 8 bytes of
+// output against 2 mb adds; at the main path's shape, 16 queries x 20
+// probes, about 850 live rows of 48 bytes per window, 2 MB of tables, 3.3
+// MB of output), but it takes 17 us on the device (NVIDIA H100 80GB HBM3,
+// 700 W; chip_smoke.py's profile), and not for its byte-wide loads or its
+// table copies: a version with one block a pair, one table copy and four
+// slots a thread from one 32-bit load a stream held every case and took
+// more than twice as long in the same profile, so this one stays, with
+// running pointers in its stream loop (18.4-18.7 -> 17.2-17.4 us). The
+// launch and the wrapper's host work dominate a call.
 //
 // Plain C ABI (built with nvcc, loaded with ctypes): the entry point
 // launches on the caller's stream, allocates nothing, and returns
@@ -85,7 +89,6 @@ pq_adc_kernel(const uint8_t* __restrict__ codes,   // (mb, cap)
   __syncthreads();
 
   const float base = coarse[qp];
-  const float* hi_lut = lut + mb * 16;
   for (int j = j0 + threadIdx.x; j < j1; j += THREADS) {
     const long long slot = off + j;
     const int id = j < cnt ? row_ids[slot] : -1;
@@ -96,10 +99,14 @@ pq_adc_kernel(const uint8_t* __restrict__ codes,   // (mb, cap)
     }
     const uint8_t* c = codes + slot;
     float lo = 0.f, hi = 0.f;
+    const float* l0 = lut;  // the stream's low-nibble row; high rows mb * 16 on
+#pragma unroll 8
     for (int s = 0; s < mb; ++s) {
-      const unsigned b = c[(long long)s * cap];
-      lo += lut[s * 16 + (b & 15u)];
-      hi += hi_lut[s * 16 + (b >> 4)];
+      const unsigned b = *c;
+      c += cap;
+      lo += l0[b & 15u];
+      hi += l0[mb * 16 + (b >> 4)];
+      l0 += 16;
     }
     float v = base + (lo + hi);
     if (corr != nullptr) v -= corr[slot];

@@ -39,7 +39,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "flat_topk.cu": {
         "flat_exact_topk": [
-            _I, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _L, _I,
+            _I, _I, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _L, _I,
             _P, _P, _P, _P, _P,
         ],
         "flat_sketch_topk": [

@@ -28,6 +28,7 @@ not be a multiple of any tile: the CUDA kernels mask the ragged edge.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -45,9 +46,16 @@ _PAD_PENALTY = 1e30
 _VALID_MIN = -dist_ops.DELETED_THRESHOLD
 # Tile shape of csrc/flat_topk.cu (TQ, TC): used only to size the splits.
 _TQ, _TC = 16, 128
-# Blocks per SM the split count aims for: enough to hide memory latency
-# without multiplying the partials the merge pass reads.
+# Blocks per SM the split count aims for. The CUDA-core kernels (K2, K3 and
+# K1's "cores" route) hide memory latency with 4 blocks of a 19 KB stage;
+# K1's ring routes run two blocks of a three-stage ring an SM (one block's
+# products under the other's copies), all in one wave.
 _BLOCKS_PER_SM = 4
+_RING_BLOCKS_PER_SM = 2
+# K1's ring routes stage the 16 x d query tile beside the ring: at d = 2048
+# that is 66 KB of bf16 (131 KB of fp32) and a block already has its SM to
+# itself; deeper rows stay with the older CUDA-core kernel.
+_RING_MAX_DIM = 2048
 _SOURCE = "flat_topk.cu"
 _COMBO = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _INT8_X_INT8 = 3
@@ -139,16 +147,41 @@ def _require_cuda(corpus):
         raise ValueError(f"no kernel for tensors on {corpus.device}")
 
 
+@functools.lru_cache(maxsize=None)
 def _sm_count(device) -> int:
+    """SMs of a CUDA device, looked up once a device."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _exact_splits(n_rows: int, n_q: int, sm_count: int):
-    """(rows_per_split, n_splits) for K1: about _BLOCKS_PER_SM blocks per SM
-    over (query tiles x splits), each split at least 4 tiles long."""
+def exact_route(dtype, d: int) -> str:
+    """Which of K1's kernels takes rows of `dtype` and depth `d`. "ring":
+    the tensor cores fed by the copy ring (bf16 rows, or int8 rows widened
+    to bf16, whose bytes a row are a multiple of 32: mma steps are 16
+    values deep and an ldmatrix reads 32-byte units). "ring_fp32": fp32
+    rows of a multiple of 16 bytes through the same ring, multiplied on the
+    CUDA cores in fp32 (fp32 storage means fp32 math). "cores": the older
+    CUDA-core kernel, for every other depth. A pure function of its
+    arguments; all three are kernels of csrc/flat_topk.cu."""
+    if dtype not in _COMBO:
+        raise ValueError(f"unsupported storage dtype {dtype}")
+    if d > _RING_MAX_DIM:
+        return "cores"
+    if dtype == torch.float32:
+        return "ring_fp32" if d % 4 == 0 else "cores"
+    row_bytes = d * (1 if dtype == torch.int8 else 2)
+    return "ring" if row_bytes % 32 == 0 else "cores"
+
+
+def _exact_splits(n_rows: int, n_q: int, sm_count: int,
+                  blocks_per_sm: int = _RING_BLOCKS_PER_SM):
+    """(rows_per_split, n_splits) for K1: about `blocks_per_sm` blocks per
+    SM over (query tiles x splits), a split a whole number of tiles. The
+    splits are as even as tiles allow, so the one wave of the ring
+    routes ends together (49,141 tiles over 2 x 132 blocks: 187 a split,
+    the last one shorter)."""
     q_tiles = -(-n_q // _TQ)
-    want = max(1, -(-_BLOCKS_PER_SM * sm_count // q_tiles))
-    n_splits = max(1, min(want, -(-n_rows // (4 * _TC))))
+    want = max(1, -(-blocks_per_sm * sm_count // q_tiles))
+    n_splits = max(1, min(want, -(-n_rows // _TC)))
     per = topk_ops.round_up(-(-n_rows // n_splits), _TC)
     return per, -(-n_rows // per)
 
@@ -167,6 +200,12 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
+def _aligned(t):
+    """`t`, or a copy where its first byte is not 16-byte aligned (a view
+    that starts inside an allocation): K1 copies rows 16 bytes at a time."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 # ------------------------------------------------------------------- K1 ---
 
 
@@ -180,6 +219,61 @@ def flat_topk_exact_plain(corpus, corpus_sqnorms, queries, n_valid,
     return topk_ops.merge_topk(s, ids[None, :].expand_as(s), k)
 
 
+# Units in the last place a running fp32 sum may lose per term when its
+# adds truncate, as the tensor cores' accumulation does (round-to-nearest
+# loses half as much): the c of `flat_rounding_bound`.
+_TRUNCATION_ULPS = 2.0
+_FP32_HALF_ULP = 2.0 ** -24
+
+
+def flat_rounding_bound(corpus, corpus_sqnorms, queries, n_valid,
+                        corpus_scales=None, *, metric: str, rows=None):
+    """What K1's scores may differ by from exact arithmetic, elementwise:
+    (want, allowed), fp64. `want` is the score of the same stored values
+    (queries cast to the scoring dtype first, as the kernel casts them)
+    computed in fp64; `allowed` is what the kernel's roundings can add up
+    to,
+
+        mult * |scale| * c * D * 2^-24 * sum_i |q_i| |x_i|   the D fp32 adds
+        + 2^-24 * |mult * scale * (q . x)|                   the scale product
+        + 2^-24 * |want|                                     the subtraction
+
+    with c = 2: products of bf16 or int8 values are exact, and every add of
+    the running fp32 sum, in whatever order and grouping (16-deep steps on
+    the tensor cores, whose adds truncate; an FMA chain on the CUDA cores),
+    loses at most one unit in the last place of a partial sum that never
+    exceeds sum_i |q_i| |x_i|. For fp32 rows the products round too, which
+    c = 2 covers under round-to-nearest. On unit rows at D = 384 this is a
+    few 1e-5, some 30 times tighter than atol 1e-3: a dropped 16-deep step
+    or a wrong scale is far outside it.
+
+    With `rows` (Q, k) int ids only those pairs are scored: (Q, k) results,
+    ids < 0 read row 0 and are the caller's to skip. Otherwise (Q, N).
+    """
+    queries, _, scales = _prepare(corpus, corpus_sqnorms, queries, n_valid,
+                                  corpus_scales, metric)
+    mult = 2.0 if metric == Metric.SQEUCLIDEAN else 1.0
+    csq = _csq_slot(corpus_sqnorms, n_valid, metric).double()
+    q = queries.double()
+    scales = scales.double()
+    if rows is None:
+        x = corpus.double()
+        ip, mag = q @ x.T, q.abs() @ x.abs().T
+        scales, csq = scales[None, :], csq[None, :]
+    else:
+        idx = rows.long().clamp(min=0)
+        x = corpus[idx].double()  # (Q, k, D)
+        ip = torch.einsum("qd,qkd->qk", q, x)
+        mag = torch.einsum("qd,qkd->qk", q.abs(), x.abs())
+        scales, csq = scales[idx], csq[idx]
+    term = mult * scales * ip
+    want = term - csq
+    allowed = (mult * scales.abs() * _TRUNCATION_ULPS * corpus.shape[1]
+               * _FP32_HALF_ULP * mag
+               + _FP32_HALF_ULP * term.abs() + _FP32_HALF_ULP * want.abs())
+    return want, allowed
+
+
 def flat_topk_exact(corpus, corpus_sqnorms, queries, n_valid,
                     corpus_scales=None, *, k: int, metric: str):
     """K1: exact top-k, k <= 32. Returns ((Q, k) fp32 scores descending,
@@ -188,14 +282,21 @@ def flat_topk_exact(corpus, corpus_sqnorms, queries, n_valid,
     Replaces cuvs_rag_tpu/ops/pallas_flat.py flat_topk_pallas(mode="exact")
     (`_kernel`, `_score_tile`, `_select_topk_*`). Its floor on the H100 is
     the one HBM read of the corpus (about 16 multiply-adds per byte at a
-    batch of 16); this version is bound instead by its fp32 CUDA-core inner
-    loop (shared-memory loads feeding FMAs), measured at ~16% of that floor
-    on a 6.29M x 384 bf16 corpus. Blocks over (16-query tile x corpus split)
-    keep the score tile in
-    registers, and each warp holds its two queries' running top-k in its
-    lanes behind a k-th-best threshold, so selection costs one ballot per
-    score; the per-split partials (Q, S, k) are reduced by a merge pass.
-    Scores stay exact fp32 (the TPU's 11-bit key truncation is not copied).
+    batch of 16). bf16 and int8 rows take the tensor-core route
+    (`exact_route`): blocks over (16-query tile x corpus split), two an SM,
+    stream their split through a three-stage cp.async ring in shared memory
+    and multiply with mma.sync (bf16 x bf16 products are exact, sums fp32;
+    int8 rows are widened in registers), so the read is what bounds it;
+    the 16 x 128 score tile passes through shared memory into the
+    selection. fp32 rows come through the same ring and are multiplied on
+    the CUDA cores in fp32 (no TF32), float4 reads from shared memory
+    feeding FMA chains in depth order, which bound it; depths neither
+    takes keep the older CUDA-core kernel, bound by its scalar inner loop.
+    In all three each warp holds its two queries' running top-k in its lanes
+    behind a k-th-best threshold, so selection costs one ballot per score;
+    the per-split partials (Q, S, k) are reduced by a merge pass. Scores
+    stay exact fp32 up to the order of the adds (`flat_rounding_bound`;
+    the TPU's 11-bit key truncation is not copied).
     """
     if not 1 <= k <= MAX_KERNEL_K:
         raise ValueError(f"k must be in [1, {MAX_KERNEL_K}], got {k}")
@@ -210,20 +311,25 @@ def flat_topk_exact(corpus, corpus_sqnorms, queries, n_valid,
     dev = corpus.device
     n, d = corpus.shape
     n_q = queries.shape[0]
-    per, n_splits = _exact_splits(n, n_q, _sm_count(dev))
+    ring = exact_route(corpus.dtype, d) != "cores"
+    per, n_splits = _exact_splits(
+        n, n_q, _sm_count(dev),
+        _RING_BLOCKS_PER_SM if ring else _BLOCKS_PER_SM)
     queries = queries.contiguous()
-    corpus = corpus.contiguous()
+    corpus = _aligned(corpus.contiguous())
+    sqnorms = corpus_sqnorms.contiguous()
+    scales = scales.contiguous()
     part_s = torch.empty((n_q, n_splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_q, n_splits, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((n_q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_q, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with build.device_guard(dev):
         err = build.load(_SOURCE).flat_exact_topk(
-            _COMBO[corpus.dtype], _ptr(queries), _ptr(corpus),
-            _ptr(corpus_sqnorms.contiguous()), _ptr(scales.contiguous()),
+            _COMBO[corpus.dtype], int(ring), _ptr(queries), _ptr(corpus),
+            _ptr(sqnorms), _ptr(scales),
             n_q, d, n, int(n_valid), int(metric == Metric.SQEUCLIDEAN), k,
             per, n_splits, _ptr(part_s), _ptr(part_i), _ptr(out_s),
-            _ptr(out_i), torch.cuda.current_stream(dev).cuda_stream,
+            _ptr(out_i), build.raw_stream(dev),
         )
     build.check(err, "flat_exact_topk")
     flat_topk_exact.launches += 1
@@ -267,8 +373,11 @@ def flat_topk_sketch(corpus, corpus_sqnorms, queries, n_valid,
     are quantized per row and the dot runs int8 x int8 -> int32.
 
     Replaces cuvs_rag_tpu/ops/pallas_flat.py flat_topk_pallas(mode="sketch")
-    (`_sketch_kernel`, `_quantize_query_rows`). Bound like K1 (same score
-    tile; int8 x int8 runs as int32 multiply-adds). Blocks over (query tile x 128-class chunk x split of the corpus
+    (`_sketch_kernel`, `_quantize_query_rows`). Bound like K1's CUDA-core
+    route, by the multiply-add loop of the score tile they share (int8 x
+    int8 runs as int32 multiply-adds), at about a sixth of the read floor;
+    K1's tensor-core tile is not used here yet. Blocks over (query tile x
+    128-class chunk x split of the corpus
     tiles) keep each (query, class) winner in registers with a strict > so
     the earliest row wins a tie; the merge pass takes the per-class max
     across splits in row order, then the top-k of the winners.
@@ -298,14 +407,14 @@ def flat_topk_sketch(corpus, corpus_sqnorms, queries, n_valid,
     out_s = torch.empty((n_q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_q, k), dtype=torch.int32, device=dev)
     combo = _INT8_X_INT8 if int8_compute else _COMBO[corpus.dtype]
-    with torch.cuda.device(dev):
+    with build.device_guard(dev):
         err = build.load(_SOURCE).flat_sketch_topk(
             combo, _ptr(queries), _ptr(corpus),
             _ptr(corpus_sqnorms.contiguous()), _ptr(scales.contiguous()),
             _ptr(qscales), n_q, d, n, int(n_valid),
             int(metric == Metric.SQEUCLIDEAN), tile_c, k, per, n_splits,
             _ptr(part_s), _ptr(part_i), _ptr(out_s), _ptr(out_i),
-            torch.cuda.current_stream(dev).cuda_stream,
+            build.raw_stream(dev),
         )
     build.check(err, "flat_sketch_topk")
     flat_topk_sketch.launches += 1
@@ -385,7 +494,8 @@ def flat_topk_large(corpus, corpus_sqnorms, queries, n_valid,
     Uncertified rows must be recomputed by the caller.
 
     Replaces cuvs_rag_tpu/ops/pallas_flat.py flat_topk_large (`_topr_kernel`,
-    `default_r_planes`). Bound like K1 once the inserts stay on chip:
+    `default_r_planes`). Bound like K2 (the shared CUDA-core score tile)
+    once the inserts stay on chip:
     blocks over (query tile x 128-class chunk x split of the corpus
     tiles) own disjoint (query, class) states, whose planes live in the
     block's shared memory (an insert chain through global memory measured
@@ -422,14 +532,14 @@ def flat_topk_large(corpus, corpus_sqnorms, queries, n_valid,
     planes_i = torch.empty((n_q, r_planes, tile_c), dtype=torch.int32,
                            device=dev)
     rej = torch.empty((n_q, tile_c), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with build.device_guard(dev):
         err = build.load(_SOURCE).flat_topr(
             _COMBO[corpus.dtype], _ptr(queries), _ptr(corpus),
             _ptr(corpus_sqnorms.contiguous()), _ptr(scales.contiguous()),
             n_q, d, n, int(n_valid), int(metric == Metric.SQEUCLIDEAN),
             tile_c, r_planes, per, n_splits, _ptr(part_s), _ptr(part_i),
             _ptr(part_rej), _ptr(planes_s), _ptr(planes_i), _ptr(rej),
-            torch.cuda.current_stream(dev).cuda_stream,
+            build.raw_stream(dev),
         )
     build.check(err, "flat_topr")
     flat_topk_large.launches += 1

@@ -179,7 +179,7 @@ def ivf_scan(sorted_vectors, sorted_sqnorms, sorted_scales, queries,
     args = [q, sorted_vectors, sorted_sqnorms, sorted_scales, offs, cnts,
             coarse]
     args = [t.contiguous() for t in args]  # held until the call returns
-    with torch.cuda.device(dev):
+    with build.device_guard(dev):
         err = build.load(_SOURCE).ivf_scan_topk(
             _COMBO[sorted_vectors.dtype], *(t.data_ptr() for t in args),
             q_n, p_n, sorted_vectors.shape[1], window,
@@ -187,7 +187,7 @@ def ivf_scan(sorted_vectors, sorted_sqnorms, sorted_scales, queries,
             int(sorted_vectors.dtype == torch.int8), k, n_chunks,
             part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
             out_i.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            build.raw_stream(dev),
         )
     build.check(err, "ivf_scan_topk")
     ivf_scan.launches += 1
@@ -306,14 +306,14 @@ def ivf_scan_large(sorted_vectors, sorted_sqnorms, sorted_scales, queries,
     args = [q, sorted_vectors, sorted_sqnorms, sorted_scales, offs, cnts,
             coarse]
     args = [t.contiguous() for t in args]
-    with torch.cuda.device(dev):
+    with build.device_guard(dev):
         err = build.load(_SOURCE).ivf_scan_topr(
             _COMBO[sorted_vectors.dtype], *(t.data_ptr() for t in args),
             q_n, p_n, sorted_vectors.shape[1], window, n_sub,
             int(metric == Metric.SQEUCLIDEAN),
             int(sorted_vectors.dtype == torch.int8), r_planes,
             planes_s.data_ptr(), planes_i.data_ptr(), rej.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            build.raw_stream(dev),
         )
     build.check(err, "ivf_scan_topr")
     ivf_scan_large.launches += 1

@@ -109,9 +109,11 @@ def pq_adc_scores(packed_codes, sorted_row_ids, norm_corr, luts,
     scores, (Q, P, window) int32 row ids), -inf / -1 on dead slots.
 
     Replaces cuvs_rag_tpu/ops/pallas_pq.py pq_adc_scores_pallas (`_kernel`).
-    It is bound by bytes (mb code bytes + 8 B of id and correction per live
-    slot, the tables once, 8 B of output per window slot): a few
-    microseconds at 16 queries x 20 probes, so the launch dominates. Blocks
+    By bytes it is a few microseconds (mb code bytes + 8 B of id and
+    correction per live slot, the tables once, 8 B of output per window
+    slot at 16 queries x 20 probes); on the device it takes ~17 us, the
+    arithmetic of its 2 mb table lookups and adds a slot, and the launch
+    and this wrapper's host work are what a caller sees. Blocks
     over (query x probe x 512-slot chunk) hold the pair's table in shared
     memory, one thread scores one slot with coalesced byte loads along the
     contiguous slot axis, and the list count is the loop bound: a chunk past
@@ -140,13 +142,13 @@ def pq_adc_scores(packed_codes, sorted_row_ids, norm_corr, luts,
     codes = packed_codes.contiguous()
     rids = sorted_row_ids.contiguous()
     corr = None if norm_corr is None else norm_corr.contiguous()
-    with torch.cuda.device(dev):
+    with build.device_guard(dev):
         err = build.load(_SOURCE).pq_adc_scores(
             codes.data_ptr(), rids.data_ptr(),
             None if corr is None else corr.data_ptr(), luts.data_ptr(),
             offs.data_ptr(), cnts.data_ptr(), coarse.data_ptr(),
             q_n * p_n, mb, cap, window, out_s.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            build.raw_stream(dev),
         )
     build.check(err, "pq_adc_scores")
     pq_adc_scores.launches += 1

@@ -82,19 +82,13 @@ def _require_ported(family: str, placement: str = "single") -> None:
 
 def _index_device(device, encoder, embeddings=None) -> torch.device:
     """Where the index lives: `device` if given, else a tensor's own device,
-    else the encoder's `device`. Raises when none of them names one, so a
-    numpy corpus never lands on the CPU unasked."""
-    if device is not None:
-        return torch.device(device)
-    if isinstance(embeddings, torch.Tensor):
-        return embeddings.device
-    enc_device = getattr(encoder, "device", None)
-    if enc_device is None:
-        raise ValueError(
-            "no device for the index: pass device=..., or an encoder with "
-            "a device, or the embeddings as a tensor on the device"
-        )
-    return torch.device(enc_device)
+    else the encoder's `device`, else the card (`base.resolve_device`: an
+    encoder without a device, such as the hashing encoder, says nothing
+    about where to search). There is no fallback to the CPU: a caller that
+    wants it says device="cpu"."""
+    if device is None and not isinstance(embeddings, torch.Tensor):
+        device = getattr(encoder, "device", None)
+    return base.resolve_device(device, embeddings)
 
 
 def encode_on_device(encoder, texts: List[str], device) -> torch.Tensor:
@@ -146,7 +140,7 @@ class Retriever:
         embeddings. Embeddings may be a numpy array (stored as fp32, as the
         JAX package does) or a tensor (kept in its own float dtype). The
         index lives on `device`; None means the embeddings' own device for
-        a tensor, else the encoder's `device`, and raises if it has none."""
+        a tensor, else the encoder's `device`, else the card."""
         _require_ported(family, placement)
         if corpus.embeddings is None:
             corpus.embeddings = encoder.encode(
@@ -271,7 +265,7 @@ class Retriever:
     @classmethod
     def load(cls, directory: str, encoder, *, device=None) -> "Retriever":
         """Restore a `save()`d retriever with a caller-supplied encoder, onto
-        `device` (None: the encoder's `device`; raises if it has none)."""
+        `device` (None: the encoder's `device`, else the card)."""
         with open(os.path.join(directory, "retriever.json")) as f:
             meta = json.load(f)
         _require_ported(meta["family"], meta["placement"])

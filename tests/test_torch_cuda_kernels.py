@@ -22,15 +22,98 @@ def cuda_device():
 
 
 def test_kernels_match_plain_versions(cuda_device):
-    """K1 (3 dtypes x 2 metrics x k in {1, 10, 32}), K2 (bf16, int8 x int8)
-    and K3 (3 dtypes, k = 600 and the few-planes certificate case) on a
-    tile-aligned and a ragged corpus with tombstones: scores within rtol
-    1e-5 / atol 1e-3, ids equal up to k-th-score ties."""
+    """K1 (3 dtypes x 2 metrics x k in {1, 10, 32} at 16 queries, k = 10 at
+    1 and 40), K2 (bf16, int8 x int8) and K3 (3 dtypes, k = 600 and the
+    few-planes certificate case) on a tile-aligned and a ragged corpus with
+    tombstones: scores within rtol 1e-5 / atol 1e-3, ids equal up to
+    k-th-score ties; K1 also within its rounding bound."""
     import chip_smoke
 
     out = chip_smoke.parity_phase(50_000, 40_003, seed=0, device=cuda_device,
                                   k_large=600)
-    assert out["cases"] == 68
+    assert out["cases"] == 92 and out["exact_over_allowed"] <= 1.0
+    assert out["exact_route"] == {"float32": "ring_fp32", "bfloat16": "ring",
+                                  "int8": "ring"}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("d", [16, 40, 42, 64, 384, 1024])
+def test_exact_kernel_routes_match_plain(cuda_device, d, dtype):
+    """K1 by every route (tensor cores where a bf16 or int8 row is a whole
+    number of 32-byte units, fp32 rows through the ring on the CUDA cores,
+    the older CUDA-core kernel elsewhere: d = 42 for every type) on a ragged
+    100,003-row corpus with pad rows and 1% tombstones, n_q in {1, 16, 17,
+    40} x k in {1, 10, 32}, both metrics: against the plain version (rtol
+    1e-5 / atol 1e-3, ids up to ties) and within flat_rounding_bound."""
+    import chip_smoke
+    from cuvs_rag_tpu_torch.index import flat
+    from cuvs_rag_tpu_torch.ops import flat_kernels as fk
+    from cuvs_rag_tpu_torch.utils.compare import compare_topk
+    from cuvs_rag_tpu_torch.utils.config import FlatParams
+
+    n = 100_003
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    x = torch.randn((n, d), generator=g, device=cuda_device)
+    ix = flat.build(FlatParams(dtype=dtype, tile_n=2048), x)
+    ix = flat.delete(ix, torch.arange(3, n, 100, device=cuda_device))
+    storage = min(ix.size, n + 1000)
+    before = fk.flat_topk_exact.launches
+    for n_q in (1, 16, 17, 40):
+        q = torch.cat([x[:n_q // 2] + 0.05, torch.randn(
+            (n_q - n_q // 2, d), generator=g, device=cuda_device)])
+        args = (ix.vectors[:storage], ix.sqnorms[:storage], q, ix.n_valid,
+                ix.scales[:storage])
+        for metric in ("sqeuclidean", "inner_product"):
+            for k in (1, 10, 32):
+                got = fk.flat_topk_exact(*args, k=k, metric=metric)
+                torch.cuda.synchronize()
+                want = fk.flat_topk_exact_plain(*args, k=k, metric=metric)
+                compare_topk(*got, *want, **chip_smoke.TOL)
+                assert chip_smoke.k1_hold(got, args, metric) <= 1.0
+    assert fk.flat_topk_exact.launches == before + 24
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_exact_kernel_tie_order(cuda_device, dtype):
+    """Small-integer rows make every score exact in fp32 whatever the order
+    of the adds, and a corpus with each row stored three times ties
+    heavily: ids and scores must equal a stable descending sort of the
+    plain scores (the lower row first), across tiles and splits."""
+    from cuvs_rag_tpu_torch.ops import flat_kernels as fk
+
+    n, d, k = 50_000, 384, 32
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randint(-2, 3, (n, d), generator=g, device=cuda_device).float()
+    x[1000:2000] = x[:1000]
+    x[30_000:31_000] = x[:1000]
+    q = torch.cat([x[:8], torch.randint(-2, 3, (8, d), generator=g,
+                                        device=cuda_device).float()])
+    v, sq = x.to(getattr(torch, dtype)), (x * x).sum(1)
+    for metric in ("sqeuclidean", "inner_product"):
+        got_s, got_i = fk.flat_topk_exact(v, sq, q, n, None, k=k, metric=metric)
+        qq, _, scales = fk._prepare(v, sq, q, n, None, metric)
+        order = torch.sort(fk._scores_plain(v, sq, qq, n, scales, metric),
+                           dim=1, descending=True, stable=True)
+        assert torch.equal(got_i, order.indices[:, :k].to(torch.int32))
+        assert torch.equal(got_s, order.values[:, :k])
+
+
+@pytest.mark.parametrize("n", [5, 100])
+def test_exact_kernel_on_short_corpora(cuda_device, n):
+    """A corpus shorter than k and one shorter than a tile."""
+    import chip_smoke
+    from cuvs_rag_tpu_torch.ops import flat_kernels as fk
+    from cuvs_rag_tpu_torch.utils.compare import compare_topk
+
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.randn((n, 384), generator=g, device=cuda_device).bfloat16()
+    sq = (x.float() ** 2).sum(1)
+    q = torch.randn((3, 384), generator=g, device=cuda_device)
+    got = fk.flat_topk_exact(x, sq, q, n, None, k=10, metric="sqeuclidean")
+    want = fk.flat_topk_exact_plain(x, sq, q, n, None, k=10,
+                                    metric="sqeuclidean")
+    compare_topk(*got, *want, **chip_smoke.TOL)
+    assert int((got[1] >= 0).sum()) == 3 * min(n, 10)
 
 
 def test_ivf_kernels_match_plain_versions(cuda_device):
@@ -118,6 +201,42 @@ def test_pq_adc_kernel_matches_plain(cuda_device, mb, window, cap, use_corr):
     live = ~torch.isinf(ps)
     assert live.any() and (~live).any()
     torch.testing.assert_close(s[live], ps[live], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+@pytest.mark.parametrize("cap,window", [(9000, 1280), (9001, 1280),
+                                        (9000, 1001), (4099, 37)])
+def test_pq_adc_kernel_alignment(cuda_device, shift, cap, window):
+    """K6 where a kernel with wider code loads would have to care: window
+    starts at every offset mod 4, an odd cap (stream starts are not 4-byte
+    aligned), windows that are no multiple of 4, lists of 0 rows and of
+    more rows than the window, with and without the correction: ids and
+    the -inf pattern equal the plain version's, scores within rtol 1e-5 /
+    atol 1e-4."""
+    from cuvs_rag_tpu_torch.ops import pq_kernels as pk
+
+    g = torch.Generator(device=cuda_device).manual_seed(cap + window + shift)
+    mb, q_n, p_n = 48, 5, 7
+    kw = dict(generator=g, device=cuda_device)
+    codes = torch.randint(0, 256, (mb, cap), dtype=torch.uint8, **kw)
+    row_ids = torch.randint(0, 1 << 20, (cap,), dtype=torch.int32, **kw)
+    row_ids[torch.rand(cap, **kw) < 0.05] = -1
+    luts = torch.randn((q_n, p_n, 2 * mb, 16), **kw)
+    offs = (torch.randint(0, cap - window // 2, (q_n, p_n), **kw) // 4 * 4
+            + shift).to(torch.int32)
+    cnts = torch.randint(0, window + 200, (q_n, p_n), **kw).to(torch.int32)
+    cnts[0, 0] = 0
+    offs[0, -1], cnts[0, -1] = cap - 3, window
+    coarse = torch.randn((q_n, p_n), **kw)
+    for corr in (torch.randn(cap, **kw), None):
+        args = (codes, row_ids, corr, luts, offs, cnts, coarse)
+        s, i = pk.pq_adc_scores(*args, window=window)
+        torch.cuda.synchronize()
+        ps, pi = pk.pq_adc_scores_plain(*args, window=window)
+        assert torch.equal(i, pi)
+        live = torch.isfinite(ps)
+        assert torch.equal(torch.isfinite(s), live)
+        torch.testing.assert_close(s[live], ps[live], rtol=1e-5, atol=1e-4)
 
 
 def test_pq_kernel_matches_plain_on_indexes(cuda_device):

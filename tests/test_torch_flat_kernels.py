@@ -203,3 +203,198 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         fk.flat_topk_exact(c, sq, q, 65, k=3, metric="sqeuclidean")
     assert fk.flat_topk_exact.launches == 0  # the CPU path launches nothing
+
+
+# ------------------------------------------- K1's rounding bound ----------
+# The card's K1 multiplies 16-deep steps on the tensor cores into a running
+# fp32 sum whose adds truncate. The CPU cannot run that kernel, so what is
+# held here is the bound the card run holds it to: it equals its fp64
+# definition, a numpy emulation of the kernel's order of operations stays
+# inside it, and faults a kernel could have fall far outside it.
+
+
+def _stored(dtype, seed, n=300, d=96, q=5):
+    """(storage tensor, sqnorms, queries fp32, scales or None) of unit rows
+    with noisy copies of the first rows as queries."""
+    from cuvs_rag_tpu_torch.ops import distance as dist_ops
+
+    corpus, queries = _data(seed, n=n, d=d, q=q)
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+    queries = corpus[:q] + 0.05 * queries
+    x = torch.from_numpy(corpus)
+    if dtype == "int8":
+        x, scales = dist_ops.quantize_rows(x)
+        sq = ((x.float() * scales[:, None]) ** 2).sum(1)
+    else:
+        x, scales = x.to(getattr(torch, dtype)), None
+        sq = (x.float() ** 2).sum(1)
+    return x, sq, torch.from_numpy(queries), scales
+
+
+def _values(x, queries, scales):
+    """fp64 numpy values of what the kernel multiplies: the stored rows,
+    the queries cast to the scoring dtype, the scales."""
+    from cuvs_rag_tpu_torch.ops import topk as topk_ops
+
+    qv = queries.to(topk_ops.query_dtype(x.dtype)).double().numpy()
+    sv = np.ones(x.shape[0]) if scales is None else scales.double().numpy()
+    return x.double().numpy(), qv, sv
+
+
+def _truncate_to_fp32(v):
+    """fp64 -> fp32 rounding toward zero."""
+    r = v.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(v)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def _emulate_tile(xv, qv, sv, sq, metric, *, drop_step=None, scale=True):
+    """K1's tensor-core route in numpy: 16-deep steps of exact products
+    summed into an fp32 accumulator with truncating adds, then the fp32
+    epilogue mult * (acc * scale) - csq (no pad rows, no tombstones)."""
+    acc = np.zeros((qv.shape[0], xv.shape[0]), np.float32)
+    for step, k0 in enumerate(range(0, xv.shape[1], 16)):
+        if step == drop_step:
+            continue
+        part = qv[:, k0:k0 + 16] @ xv[:, k0:k0 + 16].T
+        acc = _truncate_to_fp32(acc.astype(np.float64) + part)
+    mult = np.float32(2.0 if metric == "sqeuclidean" else 1.0)
+    s32 = sv.astype(np.float32) if scale else np.ones_like(sv, np.float32)
+    csq = sq.numpy() if metric == "sqeuclidean" else np.float32(0)
+    return mult * (acc * s32[None, :]) - csq
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+def test_rounding_bound_matches_fp64_reference(dtype, metric):
+    x, sq, queries, scales = _stored(dtype, 11)
+    n, d = x.shape
+    want, allowed = fk.flat_rounding_bound(x, sq, queries, n, scales,
+                                           metric=metric)
+    xv, qv, sv = _values(x, queries, scales)
+    mult = 2.0 if metric == "sqeuclidean" else 1.0
+    term = mult * sv[None, :] * (qv @ xv.T)
+    ref = term - (sq.double().numpy()[None, :] if metric == "sqeuclidean" else 0)
+    ref_allowed = (mult * np.abs(sv)[None, :] * 2 * d * 2.0 ** -24
+                   * (np.abs(qv) @ np.abs(xv).T)
+                   + 2.0 ** -24 * np.abs(term) + 2.0 ** -24 * np.abs(ref))
+    np.testing.assert_allclose(want.numpy(), ref, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(allowed.numpy(), ref_allowed, rtol=1e-12)
+    assert want.dtype == torch.float64 and allowed.shape == (5, n)
+    # tight enough to hold something: far below the outer atol of 1e-3
+    assert float(allowed.max()) < 1e-4
+    # the same numbers at chosen rows only; ids < 0 are the caller's to skip
+    rows = torch.tensor([[3, 0, n - 1], [7, 7, -1], [1, 2, 3], [9, 8, 7],
+                         [0, -1, -1]], dtype=torch.int32)
+    w, a = fk.flat_rounding_bound(x, sq, queries, n, scales, metric=metric,
+                                  rows=rows)
+    pick = rows.long().clamp(min=0)
+    assert torch.equal(w, torch.gather(want, 1, pick))
+    assert torch.equal(a, torch.gather(allowed, 1, pick))
+    # the plain version is inside its own bound
+    s, i = fk.flat_topk_exact(x, sq, queries, n, scales, k=10, metric=metric)
+    w, a = fk.flat_rounding_bound(x, sq, queries, n, scales, metric=metric,
+                                  rows=i)
+    assert bool(((s.double() - w).abs() <= a).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+def test_tile_order_emulation_stays_within_bound(dtype, metric):
+    x, sq, queries, scales = _stored(dtype, 12)
+    want, allowed = fk.flat_rounding_bound(x, sq, queries, x.shape[0], scales,
+                                           metric=metric)
+    got = _emulate_tile(*_values(x, queries, scales), sq, metric)
+    ratio = np.abs(got - want.numpy()) / allowed.numpy()
+    assert ratio.max() <= 1.0
+    # truncation biases the sum, so the emulation really uses the bound
+    assert ratio.max() > 1e-3
+
+
+@pytest.mark.parametrize("fault", ["dropped_step", "swapped_query",
+                                   "missing_scale"])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+def test_planted_faults_break_the_bound(fault, metric):
+    """Each would pass the outer gate's atol of 1e-3 on some slots or all;
+    none passes the rounding bound."""
+    x, sq, queries, scales = _stored("int8", 13)
+    want, allowed = fk.flat_rounding_bound(x, sq, queries, x.shape[0], scales,
+                                           metric=metric)
+    xv, qv, sv = _values(x, queries, scales)
+    if fault == "dropped_step":
+        got = _emulate_tile(xv, qv, sv, sq, metric, drop_step=3)
+    elif fault == "swapped_query":
+        got = _emulate_tile(xv, qv[[1, 0, 2, 3, 4]], sv, sq, metric)
+    else:
+        got = _emulate_tile(xv, qv, sv, sq, metric, scale=False)
+    ratio = np.abs(got - want.numpy()) / allowed.numpy()
+    assert ratio.max() > 10.0
+    if fault == "swapped_query":  # only the two swapped rows are off
+        assert ratio[2:].max() <= 1.0
+
+
+# ---------------------------------------------- K1's routes and splits ----
+
+
+@pytest.mark.parametrize("sm_count", [1, 132])
+@pytest.mark.parametrize("n_q", [1, 16, 17, 40])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 1_000_003, 6_290_000])
+def test_exact_splits_cover_every_row_once(n, n_q, sm_count):
+    for blocks_per_sm in (fk._RING_BLOCKS_PER_SM, fk._BLOCKS_PER_SM):
+        per, n_splits = fk._exact_splits(n, n_q, sm_count, blocks_per_sm)
+        assert per % fk._TC == 0 and per > 0 and n_splits >= 1
+        # split s covers [s * per, min(n, (s + 1) * per)): all rows, once,
+        # and no split is empty
+        assert (n_splits - 1) * per < n <= n_splits * per
+        q_tiles = -(-n_q // fk._TQ)
+        want = -(-blocks_per_sm * sm_count // q_tiles)
+        assert n_splits <= max(1, want)
+        # one wave: never more blocks than the card holds at once (+ the
+        # rounding of one query tile)
+        assert n_splits * q_tiles < blocks_per_sm * sm_count + q_tiles
+        # as even as whole tiles allow
+        assert per - fk._TC < -(-n // max(1, min(want, -(-n // fk._TC))))
+
+
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 40, 64, 100, 102, 384, 400,
+                               1024, 2048, 2064, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_exact_route_table(dtype, d):
+    """bf16 and int8 rows take the tensor cores when a row is a whole number
+    of 32-byte units; fp32 rows keep fp32 math, through the ring when a row
+    is a whole number of 16-byte pieces; the query tile must fit."""
+    row_bytes = d * {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[dtype]
+    if d > 2048:
+        want = "cores"
+    elif dtype == torch.float32:
+        want = "ring_fp32" if row_bytes % 16 == 0 else "cores"
+    else:
+        want = "ring" if row_bytes % 32 == 0 else "cores"
+    assert fk.exact_route(dtype, d) == want
+    assert fk.exact_route(dtype, d) == fk.exact_route(dtype, d)
+    if dtype == torch.int8:
+        with pytest.raises(ValueError):
+            fk.exact_route(torch.float16, d)
+
+
+def test_ring_sweep_variants_apply_to_the_source():
+    """eval/ring_sweep.py makes its variants by replacing constants and two
+    statements of csrc/flat_topk.cu: every replacement must still find its
+    text, the first variant is the source itself, and the rest differ."""
+    from cuvs_rag_tpu_torch.eval import ring_sweep
+    from cuvs_rag_tpu_torch.kernels import build
+
+    source = (build.CSRC / "flat_topk.cu").read_text()
+    made = ring_sweep.variants(source)
+    assert len(made) == len(ring_sweep.SIZES) + len(ring_sweep.LEFT_OUT)
+    names = list(made)
+    stages, chunk, blocks = ring_sweep.SIZES[0]
+    assert made[names[0]] == (source, blocks, True)
+    assert blocks == fk._RING_BLOCKS_PER_SM
+    assert f"RING_STAGES = {stages};" in source
+    assert f"RING_CHUNK = {chunk};" in source
+    texts = [text for text, _, _ in made.values()]
+    assert len(set(texts)) == len(texts)
+    with pytest.raises(RuntimeError):
+        ring_sweep.variants(source.replace("RING_STAGES", "STAGES"))

@@ -198,22 +198,50 @@ def test_unported_families_and_placements_raise(encoders):
 
 
 def test_index_device_is_never_chosen_silently(tmp_path):
-    """A numpy corpus with an encoder that has no device needs device=...;
-    given one, the index lives there and save/load keeps to the same rule."""
+    """A numpy or text corpus with an encoder that has no device goes to the
+    card, as every entry point's device=None does; it never carries on on
+    the CPU unasked. An explicit device wins, a tensor keeps its own, an
+    encoder's device is taken; device="cpu" builds, saves, loads and
+    answers."""
     from cuvs_rag_tpu_torch.models.encoder import HashingEncoder
+    from cuvs_rag_tpu_torch.rag import pipeline
 
     encoder = HashingEncoder(dim=16)
     passages = ["alpha beta", "gamma delta", "epsilon zeta"]
-    with pytest.raises(ValueError, match="no device"):
-        Retriever.build(Corpus(passages=list(passages)), encoder)
-    r = Retriever.build(Corpus(passages=list(passages)), encoder, device="cpu")
-    assert r.index.device == torch.device("cpu")
+    cpu, card = torch.device("cpu"), torch.device("cuda")
+    emb = encoder.encode(passages)
+
+    class OnCpu:
+        device = "cpu"
+
+    assert pipeline._index_device(None, encoder) == card
+    assert pipeline._index_device(None, encoder, emb) == card
+    assert pipeline._index_device(None, encoder, torch.from_numpy(emb)) == cpu
+    assert pipeline._index_device(None, OnCpu(), emb) == cpu
+    assert pipeline._index_device("cpu", encoder, emb) == cpu
+    assert pipeline._index_device("cuda", OnCpu(), torch.from_numpy(emb)) == card
+
+    def build(dev):
+        return Retriever.build(Corpus(passages=list(passages)), encoder,
+                               device=dev)
+
+    r = build("cpu")
+    assert r.index.device == cpu
     assert r.retrieve_ids(passages, 1)[1][:, 0].tolist() == [0, 1, 2]
     r.save(str(tmp_path / "r"))
-    with pytest.raises(ValueError, match="no device"):
-        Retriever.load(str(tmp_path / "r"), encoder)
-    loaded = Retriever.load(str(tmp_path / "r"), encoder, device="cpu")
+
+    def load(dev):
+        return Retriever.load(str(tmp_path / "r"), encoder, device=dev)
+
+    loaded = load("cpu")
+    assert loaded.index.device == cpu
     assert loaded.retrieve_ids(passages, 1)[1][:, 0].tolist() == [0, 1, 2]
+    for make in (build, load):
+        if torch.cuda.is_available():
+            assert make(None).index.device.type == "cuda"
+        else:  # CUDA's own error, no CPU index
+            with pytest.raises((RuntimeError, AssertionError)):
+                make(None)
 
 
 def test_import_leaves_jax_out():

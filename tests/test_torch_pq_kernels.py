@@ -130,3 +130,28 @@ def test_wrapper_validates(fixture):
             pk.pq_adc_scores(*broken, window=WINDOW)
     with pytest.raises(ValueError, match="window"):
         pk.pq_adc_scores(*args, window=0)
+
+
+@pytest.mark.parametrize("window", [77, 130])
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+def test_ragged_windows_match_oracle(fixture, shift, window):
+    """What a card kernel with wider code loads would have to get right,
+    held on the plain version: window starts at every offset mod 4, an odd
+    cap (stream starts are then not 4-byte aligned), a window that is no
+    multiple of 4, lists of 0 rows and of more rows than the window."""
+    nibbles, packed, row_ids, corr, luts, offs, cnts, coarse = fixture
+    cap = CAP - 1  # odd
+    offs = offs.copy() + shift
+    cnts = cnts.copy()
+    cnts[3, 0], cnts[3, 1] = 0, window + 50
+    offs[4, 2], cnts[4, 2] = cap - 5, window  # runs past the layout
+    s, i = _plain(np.ascontiguousarray(packed[:, :cap]), row_ids[:cap],
+                  corr[:cap], luts, offs, cnts, coarse, window)
+    want_s, want_i = _oracle(nibbles[:cap], row_ids[:cap], corr[:cap], luts,
+                             offs, cnts, coarse, True, window)
+    np.testing.assert_array_equal(i, want_i)
+    np.testing.assert_array_equal(np.isinf(s), np.isinf(want_s))
+    np.testing.assert_allclose(s, want_s, **TOL)
+    assert np.isinf(s[3, 0]).all() and np.isinf(s[4, 2, 5:]).all()
+    assert np.isfinite(s[3, 1]).sum() == (
+        row_ids[offs[3, 1]:offs[3, 1] + window] >= 0).sum()
