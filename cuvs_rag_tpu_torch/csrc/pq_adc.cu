@@ -31,13 +31,21 @@
 // slot costs mb code bytes, a 4-byte id, a 4-byte correction and 8 bytes of
 // output against 2 mb adds; at the main path's shape, 16 queries x 20
 // probes, about 850 live rows of 48 bytes per window, 2 MB of tables, 3.3
-// MB of output), but it takes 17 us on the device (NVIDIA H100 80GB HBM3,
-// 700 W; chip_smoke.py's profile), and not for its byte-wide loads or its
-// table copies: a version with one block a pair, one table copy and four
-// slots a thread from one 32-bit load a stream held every case and took
-// more than twice as long in the same profile, so this one stays, with
-// running pointers in its stream loop (18.4-18.7 -> 17.2-17.4 us). The
-// launch and the wrapper's host work dominate a call.
+// MB of output), but it takes 16-17 us on the device (NVIDIA H100 80GB
+// HBM3, 700 W). eval/k6_ablation.py, which rebuilds this file with parts
+// of the work left out, says where they go: the same 15.4 us with every
+// code resident in L2; 14.9 without the table copy, 15.2 without ids and
+// corrections, 15.5 without the lookups, 11.6 without the code loads;
+// 13.9 with the code loads alone, 10.8 with the lookups alone; 52-54 for
+// four times the pairs. So neither DRAM, nor a chain of latencies, nor
+// the launch bounds it, but the issue of 48 byte loads and 96 lookups a
+// slot, which overlap. Two other designs were built, held every case and
+// were no faster: one block a pair with one table copy and four slots a
+// thread from one 32-bit load a stream (more than twice as slow), and this
+// block shape with ids, corrections and a first round of loads ahead of
+// the table copy and double-buffered rounds of 4-24 streams. This one
+// stays, with running pointers in its stream loop. The launch and the
+// wrapper's host work dominate a call.
 //
 // Plain C ABI (built with nvcc, loaded with ctypes): the entry point
 // launches on the caller's stream, allocates nothing, and returns

@@ -67,6 +67,29 @@ def variants(source: str) -> dict:
     return out
 
 
+def build_variants(source: str, folder: str, texts: dict) -> dict:
+    """Write each variant {name: text} of csrc/`source` to build/`folder`/,
+    beside copies of the shared headers, build them all at once with the
+    source's signatures and return {name: path}; `build.load(path)` then
+    gives a variant's library, as `build.load(source)` gives the source's."""
+    from cuvs_rag_tpu_torch.kernels import build
+
+    work = os.path.join(ROOT, "build", folder)
+    os.makedirs(work, exist_ok=True)
+    for header in build.CSRC.glob("*.cuh"):
+        shutil.copy(header, work)
+    paths = {}
+    for name, text in texts.items():
+        paths[name] = os.path.join(work, f"{name}.cu")
+        with open(paths[name], "w") as f:
+            f.write(text)
+        # an absolute path takes the place of a name under csrc/
+        build.SIGNATURES[paths[name]] = build.SIGNATURES[source]
+    with ThreadPoolExecutor(len(paths)) as pool:
+        list(pool.map(build.load, paths.values()))
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -86,20 +109,9 @@ def main() -> int:
         return 1
     print(gpu_line(), flush=True)
 
-    work = os.path.join(ROOT, "build", "ring_sweep")
-    os.makedirs(work, exist_ok=True)
-    for header in build.CSRC.glob("*.cuh"):
-        shutil.copy(header, work)
     made = variants((build.CSRC / "flat_topk.cu").read_text())
-    paths = {}
-    for name, (text, _, _) in made.items():
-        paths[name] = os.path.join(work, f"{name}.cu")
-        with open(paths[name], "w") as f:
-            f.write(text)
-        # an absolute path takes the place of a name under csrc/
-        build.SIGNATURES[paths[name]] = build.SIGNATURES["flat_topk.cu"]
-    with ThreadPoolExecutor(len(paths)) as pool:
-        list(pool.map(build.load, paths.values()))
+    paths = build_variants("flat_topk.cu", "ring_sweep",
+                           {name: text for name, (text, _, _) in made.items()})
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     x = torch.nn.functional.normalize(

@@ -111,9 +111,10 @@ def pq_adc_scores(packed_codes, sorted_row_ids, norm_corr, luts,
     Replaces cuvs_rag_tpu/ops/pallas_pq.py pq_adc_scores_pallas (`_kernel`).
     By bytes it is a few microseconds (mb code bytes + 8 B of id and
     correction per live slot, the tables once, 8 B of output per window
-    slot at 16 queries x 20 probes); on the device it takes ~17 us, the
-    arithmetic of its 2 mb table lookups and adds a slot, and the launch
-    and this wrapper's host work are what a caller sees. Blocks
+    slot at 16 queries x 20 probes); on the device it takes 16-17 us, the
+    issue of its mb byte loads and 2 mb table lookups a slot
+    (eval/k6_ablation.py), and the launch and this wrapper's host work are
+    what a caller sees. Blocks
     over (query x probe x 512-slot chunk) hold the pair's table in shared
     memory, one thread scores one slot with coalesced byte loads along the
     contiguous slot axis, and the list count is the loop bound: a chunk past

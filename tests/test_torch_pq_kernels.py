@@ -155,3 +155,18 @@ def test_ragged_windows_match_oracle(fixture, shift, window):
     assert np.isinf(s[3, 0]).all() and np.isinf(s[4, 2, 5:]).all()
     assert np.isfinite(s[3, 1]).sum() == (
         row_ids[offs[3, 1]:offs[3, 1] + window] >= 0).sum()
+
+
+def test_ablation_variants_apply_to_the_source():
+    """eval/k6_ablation.py leaves parts of csrc/pq_adc.cu out by replacing
+    statements: every replacement must still find its text, "shipped" is
+    the source itself and the others all differ."""
+    from cuvs_rag_tpu_torch.eval import k6_ablation
+    from cuvs_rag_tpu_torch.kernels import build
+
+    source = (build.CSRC / "pq_adc.cu").read_text()
+    made = k6_ablation.variants(source)
+    assert made["shipped"] == source and len(made) == len(k6_ablation.LEFT_OUT)
+    assert len(set(made.values())) == len(made)
+    with pytest.raises(RuntimeError):
+        k6_ablation.variants(source.replace("row_ids[slot]", "row_ids[j]"))
