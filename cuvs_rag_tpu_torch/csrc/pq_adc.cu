@@ -37,9 +37,11 @@
 // code resident in L2; 14.9 without the table copy, 15.2 without ids and
 // corrections, 15.5 without the lookups, 11.6 without the code loads;
 // 13.9 with the code loads alone, 10.8 with the lookups alone; 52-54 for
-// four times the pairs. So neither DRAM, nor a chain of latencies, nor
-// the launch bounds it, but the issue of 48 byte loads and 96 lookups a
-// slot, which overlap. Two other designs were built, held every case and
+// four times the pairs, where the loads alone take 39.4 and the lookups
+// alone 27.2: a unit of work adds 12.3 us, 8.5 and 5.5, nearly additive.
+// So neither DRAM, nor a chain of latencies, nor the launch bounds it, but
+// the 48 byte loads and 96 lookups a slot queueing in one load/store
+// pipe. Two other designs were built, held every case and
 // were no faster: one block a pair with one table copy and four slots a
 // thread from one 32-bit load a stream (more than twice as slow), and this
 // block shape with ids, corrections and a first round of loads ahead of
