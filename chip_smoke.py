@@ -10,13 +10,16 @@ is non-zero):
                nvcc per source, all started together.
   3. parity  — each flat kernel (K1 exact, K2 sketch, K3 large-k) against
                its plain PyTorch version at D = 384 on 1,048,576 rows, and
-               on a ragged corpus with tombstoned rows; K1 also within the
-               error its roundings allow (flat_rounding_bound), at 16, 1
-               and 40 queries, and timed on fp32, bf16 and int8 rows.
+               on a ragged corpus with tombstoned rows, on fp32, bf16 and
+               int8 rows; K1 and K2 also within the error their roundings
+               allow (flat_rounding_bound), K2's int8 x int8 route bit for
+               bit; K1 at 16, 1 and 40 queries; K1 and K2 timed on each
+               storage type.
   4. ivf_parity — the IVF scan kernels (K4 probed top-k, K5 certified
                large-k) against their plain versions on IVF-Flat indexes of
                a clustered 1,048,576 x 384 corpus (fp32, bf16, int8, 1% of
-               rows deleted) and on a small index with empty and short lists.
+               rows deleted) and on a small index with empty and short
+               lists; K4 also within ivf_rounding_bound.
   5. main    — the flat retrieval path at full width: a MiniLM-L6-shaped
                encoder with seeded random weights, a clustered 6,290,000 x
                384 bf16 corpus (the reference's FAISS Wikipedia deployment)
@@ -68,6 +71,8 @@ is non-zero):
                peak rate of their type), a second bound from the read rate
                M1 measured, and one library call where there is one; K1
                also at one query and, over the Qwen3 index, at D = 1024;
+               K2 and K4 at 16 queries and at one, within their rounding
+               bounds, and the distinct lists K4's 16 x 20 pairs touch;
                the streaming and gather rates of eval/roofline.py; encode
                times with a torch.profiler table; then the kernels JSON line.
 The last line is {"ok": true, "device": {...}}.
@@ -245,16 +250,22 @@ def clustered_rows(n, centres, gen, device):
         centres[b] + SPREAD * make_rows(n, centres.shape[1], gen, device), dim=1)
 
 
-def k1_hold(got, args, metric) -> float:
-    """Hold K1's returned scores to the fp64 scores of the rows it returned,
-    within `flat_rounding_bound` (what D truncating fp32 adds, the scale
-    product and the subtraction can lose): some 30 times tighter than TOL
-    on unit rows. Returns the largest error / allowed error; raises above
-    1."""
+def k1_hold(got, args, metric, what: str = "K1") -> float:
+    """Hold K1's (or K2's) returned scores to the fp64 scores of the rows it
+    returned, within `flat_rounding_bound` (what D truncating fp32 adds, the
+    scale product and the subtraction can lose): some 30 times tighter than
+    TOL on unit rows. Returns the largest error / allowed error; raises
+    above 1."""
     from cuvs_rag_tpu_torch.ops import flat_kernels as fk
 
     s, i = got
     want, allowed = fk.flat_rounding_bound(*args, metric=metric, rows=i)
+    return _within(s, i, want, allowed, what)
+
+
+def _within(s, i, want, allowed, what: str) -> float:
+    """The largest |s - want| / allowed over the live slots (ids >= 0);
+    raises above 1."""
     live = i >= 0
     if not live.any():
         return 0.0
@@ -262,9 +273,43 @@ def k1_hold(got, args, metric) -> float:
     worst = float(ratio.max())
     if not worst <= 1.0:
         raise AssertionError(
-            f"K1 score off by {worst} times what its roundings allow "
+            f"{what} score off by {worst} times what its roundings allow "
             f"({int((ratio > 1).sum())} of {int(live.sum())} slots)")
     return worst
+
+
+def ivf_hold(got, args, kw) -> float:
+    """Hold K4's returned scores to the fp64 scores of the layout rows it
+    returned, each with its probe's coarse term, within
+    `ivf_rounding_bound`. Returns the largest error / allowed error; raises
+    above 1."""
+    from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
+
+    s, i = got
+    want, allowed = ik.ivf_rounding_bound(
+        *args, window=kw["window"], metric=kw["metric"],
+        coarse_ip=kw.get("coarse_ip"), positions=i)
+    return _within(s, i, want, allowed, "K4")
+
+
+def sketch_hold(got, args, kw):
+    """Hold K2 to its plain version: bit for bit where the queries are int8
+    (the integer dot is exact on both sides; ties included); otherwise
+    within TOL (ids up to k-th ties) and `k1_hold`'s rounding bound.
+    Returns (largest absolute error, largest error / allowed error), both
+    0 where bit-equal."""
+    import torch
+
+    from cuvs_rag_tpu_torch.ops import flat_kernels as fk
+    from cuvs_rag_tpu_torch.utils.compare import compare_topk
+
+    want = fk.flat_topk_sketch_plain(*args, **kw)
+    if kw.get("int8_compute"):
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("K2 int8 x int8 differs from its plain version")
+        return 0.0, 0.0
+    return (compare_topk(*got, *want, **TOL),
+            k1_hold(got, args, kw["metric"], "K2"))
 
 
 def parity_phase(n_rows: int, n_ragged: int, seed: int, device="cuda",
@@ -272,9 +317,11 @@ def parity_phase(n_rows: int, n_ragged: int, seed: int, device="cuda",
     """Every kernel vs its plain version on `n_rows` rows (no padding) and on
     a ragged corpus of `n_ragged` rows (storage not a multiple of any tile,
     pad rows past n_valid, 1% of rows tombstoned), for each storage dtype
-    the kernel takes: K1 and K3 fp32, bf16 and int8; K2 bf16 and int8. K1
-    is also held by `k1_hold`, also at 1 and 40 queries (the last query
-    tile has zero rows), and timed at k = 10 on the full corpus."""
+    the kernel takes: K1, K2 and K3 fp32, bf16 and int8 (K2 on int8 rows
+    with bf16 queries and int8 x int8). K1 is also held by `k1_hold`, also
+    at 1 and 40 queries (the last query tile has zero rows); K2 by
+    `sketch_hold` (int8 x int8 bit for bit). K1 and K2 are timed at k = 10
+    on the full corpus in each storage type."""
     import torch
 
     from cuvs_rag_tpu_torch.eval.roofline import cuda_ms
@@ -286,8 +333,10 @@ def parity_phase(n_rows: int, n_ragged: int, seed: int, device="cuda",
     gen = torch.Generator(device=device).manual_seed(seed)
     n_q = 16
     out = {"exact": 0.0, "exact_over_allowed": 0.0, "sketch": 0.0,
+           "sketch_over_allowed": 0.0, "sketch_int8_bit_equal": 0,
            "large": 0.0, "large_uncertified": 0, "cases": 0,
-           "exact_ms": {}, "exact_route": {}}
+           "exact_ms": {}, "exact_route": {}, "sketch_ms": {},
+           "sketch_route": {}}
     for case, n in (("full", n_rows), ("ragged", n_ragged)):
         x = make_rows(n, D, gen, device)
         # half the queries are noisy copies of corpus rows, half random
@@ -302,12 +351,23 @@ def parity_phase(n_rows: int, n_ragged: int, seed: int, device="cuda",
                 storage = min(ix.size, n + 1000)
             args = (ix.vectors[:storage], ix.sqnorms[:storage], q, ix.n_valid,
                     ix.scales[:storage])
+            sketch_kws = [dict(k=10, tile_c=2048, int8_compute=int8c)
+                          for int8c in ((False, True) if dtype == "int8"
+                                        else (False,))]
             if case == "full":
                 out["exact_route"][dtype] = fk.exact_route(ix.vectors.dtype, D)
                 out["exact_ms"][dtype] = {
                     "ms": cuda_ms(lambda: fk.flat_topk_exact(
                         *args, k=10, metric="sqeuclidean"), 10),
                     **flat_bound(*args, k=10)}
+                for kw in sketch_kws:
+                    name = "int8 x int8" if kw["int8_compute"] else dtype
+                    out["sketch_route"][name] = fk.sketch_route(
+                        ix.vectors.dtype, D, kw["int8_compute"])
+                    out["sketch_ms"][name] = {
+                        "ms": cuda_ms(lambda: fk.flat_topk_sketch(
+                            *args, metric="sqeuclidean", **kw), 10),
+                        **flat_bound(*args, k=10)}
             for metric in ("sqeuclidean", "inner_product"):
                 for k, queries in ((1, q), (10, q), (32, q), (10, q[:1]),
                                    (10, torch.cat([q, q + 0.01, q[:8] - 0.01]))):
@@ -319,15 +379,14 @@ def parity_phase(n_rows: int, n_ragged: int, seed: int, device="cuda",
                     out["exact_over_allowed"] = max(
                         out["exact_over_allowed"], k1_hold(got, a, metric))
                     out["cases"] += 1
-                if dtype != "float32":
-                    int8c = dtype == "int8"
-                    got = fk.flat_topk_sketch(*args, k=10, metric=metric,
-                                              tile_c=2048, int8_compute=int8c)
-                    want = fk.flat_topk_sketch_plain(*args, k=10, metric=metric,
-                                                     tile_c=2048,
-                                                     int8_compute=int8c)
-                    out["sketch"] = max(out["sketch"],
-                                        compare_topk(*got, *want, **TOL))
+                for kw in sketch_kws:
+                    kw = dict(kw, metric=metric)
+                    err, ratio = sketch_hold(fk.flat_topk_sketch(*args, **kw),
+                                             args, kw)
+                    out["sketch"] = max(out["sketch"], err)
+                    out["sketch_over_allowed"] = max(
+                        out["sketch_over_allowed"], ratio)
+                    out["sketch_int8_bit_equal"] += int(kw["int8_compute"])
                     out["cases"] += 1
                 ks, ki, cert = fk.flat_topk_large(*args, k=k_large,
                                                   metric=metric)
@@ -385,7 +444,8 @@ def ivf_parity_phase(n_rows: int, seed: int, device="cuda",
     """K4 and K5 vs their plain versions at N_PROBES probes, both metrics:
     on IVF-Flat indexes (default params) of a clustered `n_rows`-row corpus
     for fp32, bf16 and int8 storage with 1% of rows deleted, and on
-    `ragged_ivf_index`. K4 at k = 1, 10, 32; K5 at k = `k_large` (certified
+    `ragged_ivf_index`. K4 at k = 1, 10, 32, also within `ivf_hold`'s
+    rounding bound; K5 at k = `k_large` (certified
     rows must equal the plain exact top-k of the probed lists) and in a
     few-planes case (k = 300, 128-row classes, R = 3: flags and candidates
     must equal the plain K5's)."""
@@ -402,8 +462,8 @@ def ivf_parity_phase(n_rows: int, seed: int, device="cuda",
     # half the queries are noisy copies of corpus rows, half fresh rows
     q = torch.cat([x[:8] + 0.02 * make_rows(8, D, gen, device),
                    clustered_rows(8, centres, gen, device)])
-    out = {"k4": 0.0, "k5": 0.0, "k5_uncertified": {}, "k5_few_uncertified": {},
-           "cases": 0, "windows": {}}
+    out = {"k4": 0.0, "k4_over_allowed": 0.0, "k5": 0.0, "k5_uncertified": {},
+           "k5_few_uncertified": {}, "cases": 0, "windows": {}, "k4_route": {}}
     cases = []
     for dtype in ("float32", "bfloat16", "int8"):
         ix = ivf_flat.build(IVFFlatParams(dtype=dtype), x)
@@ -414,6 +474,7 @@ def ivf_parity_phase(n_rows: int, seed: int, device="cuda",
     for name, ix, qs in cases:
         window = ix.max_list_size
         out["windows"][name] = window
+        out["k4_route"][name] = ik.ivf_route(ix.vectors.dtype, D)
         out["k5_uncertified"][name] = out["k5_few_uncertified"][name] = 0
         for metric in ("sqeuclidean", "inner_product"):
             probes, coarse = ivf_flat.probe(ix, qs, N_PROBES, metric)
@@ -425,6 +486,8 @@ def ivf_parity_phase(n_rows: int, seed: int, device="cuda",
                 got = ik.ivf_scan(*args, k=k, **kw)
                 want = ik.ivf_scan_plain(*args, k=k, **kw)
                 out["k4"] = max(out["k4"], compare_topk(*got, *want, **TOL))
+                out["k4_over_allowed"] = max(out["k4_over_allowed"],
+                                             ivf_hold(got, args, kw))
                 out["cases"] += 1
             cfg = ik.large_k_config(window, D, k_large)
             if cfg is None:
@@ -1337,8 +1400,9 @@ def qwen_main_path(seed: int, dev):
 
 
 # The port's own kernels, as the profiler names them.
-OWN_KERNELS = ("exact_scan_kernel", "ivf_scan_kernel", "merge_partials_kernel",
-               "pq_adc_kernel", "flash_attn_wgmma_kernel")
+OWN_KERNELS = ("exact_scan_kernel", "sketch_ring_kernel", "ivf_ring_kernel",
+               "ivf_scan_kernel", "merge_partials_kernel", "pq_adc_kernel",
+               "flash_attn_wgmma_kernel")
 
 
 def profile_calls(fn, calls: int = 20, top: int = 6) -> dict:
@@ -1442,6 +1506,55 @@ def k1_shape_row(shape: str, args, kw) -> dict:
     }
 
 
+def sketch_shape_row(shape: str, args, kw) -> dict:
+    """K2 at one call shape: held by `sketch_hold`, then timed beside its
+    bound (no one library call computes a per-class sketch)."""
+    from cuvs_rag_tpu_torch.eval.roofline import cuda_ms
+    from cuvs_rag_tpu_torch.ops import flat_kernels as fk
+
+    err, ratio = sketch_hold(fk.flat_topk_sketch(*args, **kw), args, kw)
+    return {"shape": shape, "max_abs_err": err, "max_err_over_allowed": ratio,
+            "ms": cuda_ms(lambda: fk.flat_topk_sketch(*args, **kw), 10),
+            **flat_bound(*args, **kw), "library_ms": None}
+
+
+def ivf_shape_row(shape: str, args, kw) -> dict:
+    """K4 at one call shape: held against its plain version (TOL) and
+    within `ivf_hold`, then timed beside its bound (`ivf_scan_times`); with
+    the distinct non-empty lists that its (query, probe) pairs touch."""
+    from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
+    from cuvs_rag_tpu_torch.utils.compare import compare_topk
+
+    got = ik.ivf_scan(*args, **kw)
+    offs, cnts = args[4], args[5]
+    return {"shape": shape,
+            "max_abs_err": compare_topk(*got, *ik.ivf_scan_plain(*args, **kw),
+                                        **TOL),
+            "max_err_over_allowed": ivf_hold(got, args, kw),
+            # lists that hold rows have distinct offsets
+            "pairs": offs.numel(),
+            "distinct_lists": int(offs[cnts > 0].unique().numel()),
+            **ivf_scan_times(args, kw), **ivf_bound(*args, **kw),
+            "library_ms": None}
+
+
+# K4's kernels as the profiler names them: either scan, and the merge
+K4_KERNELS = ("ivf_ring_kernel", "ivf_scan_kernel", "merge_partials_kernel")
+
+
+def ivf_scan_times(args, kw) -> dict:
+    """K4 through its wrapper: "ms" by CUDA events around 20 calls (where
+    the wrapper's host work a call outlasts the kernels, that is what it
+    measures) and "device_ms", the scan's and the merge's own device time
+    a call (torch.profiler)."""
+    from cuvs_rag_tpu_torch.eval.roofline import cuda_ms, device_ms
+    from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
+
+    return {"ms": cuda_ms(lambda: ik.ivf_scan(*args, **kw), 20),
+            "device_ms": sum(device_ms(lambda: ik.ivf_scan(*args, **kw),
+                                       K4_KERNELS).values())}
+
+
 def timing_phase(flat_r, ivf_r, pq_r, ooc_r, enc, texts, launches: dict):
     """Encode and search ms per batch of BATCH planted passages, then each
     kernel vs its plain version at the main paths' call shapes, beside its
@@ -1449,7 +1562,9 @@ def timing_phase(flat_r, ivf_r, pq_r, ooc_r, enc, texts, launches: dict):
     that computes the same: one matmul + top-k over the corpus), K2 one
     query at k = 10 (approx retrieve), K3 one query at k = 2000; K4 BATCH
     queries at k = 10 and K5 one query at k = 2000, each over its queries'
-    N_PROBES probed windows; K6 BATCH queries (and one) over theirs."""
+    N_PROBES probed windows; K6 BATCH queries (and one) over theirs. K2 and
+    K4 also at BATCH queries and at one, each within its rounding bound
+    (and K4 with the distinct lists its BATCH x N_PROBES pairs touch)."""
     import torch
 
     from cuvs_rag_tpu_torch.eval.roofline import cuda_ms
@@ -1539,6 +1654,22 @@ def timing_phase(flat_r, ivf_r, pq_r, ooc_r, enc, texts, launches: dict):
             raise AssertionError(f"{name} certificate differs from plain")
         err = compare_topk(got[0], got[1], want[0], want[1], **TOL)
         library_ms = None
+        extra = {}
+        if name == "flat_topk_sketch":
+            extra["max_err_over_allowed"] = sketch_hold(got, args, kw)[1]
+            e2e["flat_topk_sketch_shapes"] = [
+                sketch_shape_row(f"{n} x {ROWS} x {D} bf16",
+                                 (args[0], args[1], qs) + args[3:], kw)
+                for n, qs in ((BATCH, q), (1, q1))]
+        elif name == "ivf_scan":
+            extra["max_err_over_allowed"] = ivf_hold(got, args, kw)
+            extra["device_ms"] = ivf_scan_times(args, kw)["device_ms"]
+            e2e["ivf_scan_shapes"] = [ivf_shape_row(
+                f"{BATCH} x {N_PROBES} probes, window {kw['window']}", args, kw)]
+            p1 = ivf_flat.probe(iv, q1, N_PROBES)[0].long()
+            e2e["ivf_scan_shapes"].append(ivf_shape_row(
+                f"1 x {N_PROBES} probes, window {kw['window']}",
+                args[:3] + (q1, iv.list_offsets[p1], iv.list_counts[p1]), kw))
         if name == "flat_topk_exact":
             e2e["flat_topk_exact_max_err_over_allowed"] = k1_hold(
                 got, args, kw["metric"])
@@ -1557,7 +1688,7 @@ def timing_phase(flat_r, ivf_r, pq_r, ooc_r, enc, texts, launches: dict):
             "max_abs_err": err,
             "ms": cuda_ms(lambda: kern(*args, **kw), 10),
             "plain_ms": cuda_ms(lambda: plain(*args, **kw), 10),
-            **bound_fn(*args, **kw), "library_ms": library_ms,
+            **bound_fn(*args, **kw), "library_ms": library_ms, **extra,
         })
 
     # K6 at the main path's probes: BATCH queries (its row of the kernels
@@ -1795,7 +1926,7 @@ def main() -> int:
     emit("build", sources=sources, seconds=time.perf_counter() - t0,
          ptxas={src: build.resources(src)
                 for src in ("flash_attn.cu", "stream.cu", "flat_topk.cu",
-                            "pq_adc.cu")})
+                            "ivf_scan.cu", "pq_adc.cu")})
 
     t0 = time.perf_counter()
     parity = parity_phase(PARITY_ROWS, PARITY_RAGGED, args.seed)
@@ -1867,13 +1998,17 @@ def main() -> int:
     k1_shapes = [e2e["flat_topk_exact_one_query"],
                  *qwen_out["flat_topk_exact_dim1024"],
                  *parity["exact_ms"].values()]
-    for name, row in parity["exact_ms"].items():
-        row["shape"] = f"{BATCH} x {PARITY_ROWS} x {D} {name}"
-    for row in kernels + k1_shapes:
+    for shapes in (parity["exact_ms"], parity["sketch_ms"]):
+        for name, row in shapes.items():
+            row["shape"] = f"{BATCH} x {PARITY_ROWS} x {D} {name}"
+    e2e["flat_topk_sketch_shapes"] += parity["sketch_ms"].values()
+    for row in (kernels + k1_shapes + e2e["flat_topk_sketch_shapes"]
+                + e2e["ivf_scan_shapes"]):
         # the same bytes over the streaming-read rate that M1 measured here
         row["measured_bound_ms"] = 1e3 * row["bytes"] / read_rate
     # K1 beyond its row of the kernels line: one query, D = 1024, and the
-    # parity corpus in each storage type, each with both bounds
+    # parity corpus in each storage type, each with both bounds; K2 and K4
+    # likewise (e2e's flat_topk_sketch_shapes, ivf_scan_shapes)
     emit("timing", gpu=gpu, **e2e, **qwen_e2e, measured_read_bytes_per_s=read_rate,
          flat_topk_exact_shapes=k1_shapes, stream=stream_out)
     emit("total", seconds=time.perf_counter() - t_start)

@@ -3,7 +3,8 @@
 // Replaces the three Pallas TPU kernel paths of cuvs_rag_tpu/ops/pallas_flat.py:
 //   K1  flat_topk_pallas(mode="exact")   -> exact_scan_kernel (or exact_scan_cores_kernel)
 //                                           + merge_partials_kernel
-//   K2  flat_topk_pallas(mode="sketch")  -> sketch_scan_kernel + sketch_merge_kernel
+//   K2  flat_topk_pallas(mode="sketch")  -> sketch_ring_kernel (or sketch_scan_kernel)
+//                                           + sketch_merge_kernel
 //   K3  flat_topk_large                  -> topr_scan_kernel + topr_merge_kernel
 //
 // The TPU walked the corpus axis in order and kept its running selection in
@@ -70,8 +71,16 @@
 // - every other depth: exact_scan_cores_kernel, which multiplies on the
 //   CUDA cores in fp32 through score_tile (scalar loads, 6 shared-memory
 //   loads per 8 FMAs, two barriers a 32-deep chunk) and is bound by that
-//   inner loop, at about a sixth of the read floor. K2 and K3 still use
+//   inner loop, at about a sixth of the read floor. K3 still uses
 //   score_tile too.
+//
+// K2 (ops/flat_kernels.sketch_route) streams the same ring with its own row
+// walk (a block's tiles are W rows apart) and its own selection (a running
+// best per (query, class) in registers): bf16 and int8 rows on the tensor
+// cores as K1's, int8 rows with int8 queries through mma.sync m16n8k32
+// (exact int32 sums, so bit-equal to the plain version), fp32 rows with fp32
+// FMAs; other depths keep sketch_scan_kernel on score_tile. The ring
+// helpers live in ring.cuh, which ivf_scan.cu's K4 shares.
 //
 // Plain C ABI (built with nvcc, loaded with ctypes): every entry point
 // launches on the caller's stream, allocates nothing, and returns
@@ -83,16 +92,12 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "ring.cuh"
 #include "topk_common.cuh"
 
 namespace {
 
-constexpr int TQ = 16;            // queries per block
-constexpr int TC = 128;           // corpus rows per tile
 constexpr int DK = 32;            // depth chunk staged in shared memory
-constexpr int THREADS = 256;      // 8 warps
-constexpr int QPT = TQ / 8;       // queries per thread (warp w: w, w + 8)
-constexpr int CPT = TC / 32;      // rows per thread (lane l: l + 32 j)
 constexpr float PAD_PENALTY = 1e30f;
 
 template <bool INT8C>
@@ -179,7 +184,8 @@ __device__ __forceinline__ void score_tile(
       if constexpr (INT8C) {
         const int qq = q0 + warp + 8 * i;
         const float qs = qq < n_q ? qscales[qq] : 1.0f;
-        v = (mult * qs) * ((float)acc[i][j] * scale) - csq;
+        // no contraction into an FMA: the plain version rounds each step
+        v = __fsub_rn(__fmul_rn(mult * qs, __fmul_rn((float)acc[i][j], scale)), csq);
       } else {
         v = mult * (acc[i][j] * scale) - csq;
       }
@@ -237,92 +243,6 @@ __global__ void __launch_bounds__(THREADS) exact_scan_cores_kernel(
 // The ring-fed routes (see the note at the top of the file).
 constexpr int RING_STAGES = 3;
 constexpr int RING_CHUNK = 128;  // a stage's bytes a row: one cache line
-constexpr int SCORE_PITCH = TC + 8;  // fragments' float2 stores hit 32 banks
-constexpr int MAX_SMEM = 227 * 1024;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, asynchronously; `bytes` = 0 writes zeros.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// c (16 queries x 8 rows, fp32) += a (16 x 16 bf16) . b (16 x 8 bf16)
-__device__ __forceinline__ void mma_16x8x16(float (&c)[4], const uint32_t (&a)[4],
-                                            uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four int8 values of one register -> two registers of bf16 pairs, exactly:
-// byte + 128 becomes the low mantissa bits of 2^23, and 2^23 + 128 comes off.
-__device__ __forceinline__ void widen_int8(uint32_t w, uint32_t& lo, uint32_t& hi) {
-  const uint32_t u = w ^ 0x80808080u;
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
-  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.f;
-  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
-  const __nv_bfloat162 a = __floats2bfloat162_rn(f0, f1);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(f2, f3);
-  lo = *reinterpret_cast<const uint32_t*>(&a);
-  hi = *reinterpret_cast<const uint32_t*>(&b);
-}
-
-// The ring's loader: one depth chunk (`width` bytes a row, from byte
-// `byte0` of each row) of the TC rows that start at `first_row` of a
-// row-major corpus of `row_bytes` a row, into the stage at `dst` with
-// `pitch` bytes a row; rows at or past `n_live` become zeros and are never
-// read from the corpus. The tile's first row is an argument, so tiles need
-// not be consecutive (K2 / K3 walk tiles W rows apart). (r0, c0) is this
-// thread's first (row, 16-byte piece) and (step_r, step_c) the step of one
-// pass of the block, worked out once by the caller for `pieces` pieces a
-// full chunk's row.
-struct RingLoader {
-  int r0, c0, step_r, step_c, pieces, passes;
-
-  __device__ __forceinline__ void init(int chunk_bytes) {
-    pieces = chunk_bytes >> 4;
-    r0 = threadIdx.x / pieces;
-    c0 = threadIdx.x % pieces;
-    step_r = THREADS / pieces;
-    step_c = THREADS % pieces;
-    passes = (TC * pieces + THREADS - 1) / THREADS;
-  }
-
-  __device__ __forceinline__ void load(uint32_t dst, int pitch,
-                                       const unsigned char* x, long long row_bytes,
-                                       long long first_row, int n_live, int byte0,
-                                       int width) const {
-    const unsigned char* src = x + first_row * row_bytes + byte0;
-    int r = r0, c = c0;
-    for (int i = 0; i < passes; ++i) {
-      if (r < TC && (c << 4) < width) {
-        const bool live = r < n_live;
-        cp_async16(dst + r * pitch + (c << 4),
-                   live ? src + r * row_bytes + (c << 4) : x, live ? 16 : 0);
-      }
-      r += step_r;
-      c += step_c;
-      if (c >= pieces) {
-        c -= pieces;
-        ++r;
-      }
-    }
-  }
-};
-
 // MODE 0: bf16 rows; 1: int8 rows (widened to bf16 in registers), both with
 // bf16 queries on the tensor cores: warp w multiplies the 16 queries with
 // rows [16 w, 16 w + 16) of each tile (two 8-row mma tiles), then selects
@@ -626,6 +546,208 @@ __global__ void __launch_bounds__(THREADS) sketch_scan_kernel(
     }
 }
 
+// K2 on the ring (the routes of ops/flat_kernels.sketch_route other than
+// "cores"). Block (query tile, 128-class chunk from c0, split s) streams,
+// for each tile jt of its split in ascending order, the rows jt * w + c0 ..
+// + min(TC, w - c0) (fewer past n_rows) through K1's ring, one depth chunk
+// at a time, and multiplies them as exact_scan_kernel does: MODE 0 bf16
+// rows, 1 int8 rows with bf16 queries (mma.sync m16n8k16, fp32 sums), 3
+// int8 rows with int8 queries (m16n8k32, exact int32 sums: the integer dot
+// of the plain version, so this route's scores are bit-equal to it), 2
+// fp32 rows on the CUDA cores (fp32 FMAs in the selection's own layout).
+// Selection is per (query, class): thread (warp w, lane l) keeps the best
+// (score, row) of queries w, w + 8 x classes c0 + l + 32 j in registers, and
+// a strict > over tiles in ascending order keeps the earliest row of a tie.
+// Partials: (S, n_q, W), as sketch_scan_kernel's.
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 2) sketch_ring_kernel(
+    const void* __restrict__ q, const unsigned char* __restrict__ x,
+    const float* __restrict__ sqn, const float* __restrict__ scales,
+    const float* __restrict__ qscales, int n_q, int d, long long n_rows,
+    int n_valid, int metric_sq, int w, long long tiles_per_split, int n_dc,
+    int chunk_bytes, float* __restrict__ part_s, int* __restrict__ part_i) {
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  constexpr bool FP32 = MODE == 2, I8Q = MODE == 3;
+  using Acc = typename std::conditional<I8Q, int, float>::type;
+  constexpr int QS = FP32 ? 4 : I8Q ? 1 : 2;  // bytes of a staged query value
+  const int row_bytes = FP32 ? 4 * d : MODE == 0 ? 2 * d : d;
+  const int pitch = chunk_bytes + 16;
+  const int q_pitch = QS * d + 16;
+  const int stage_bytes = TC * pitch;
+  unsigned char* s_q = ring_smem;                                   // [TQ][q_pitch]
+  float* s_sc = reinterpret_cast<float*>(s_q + TQ * q_pitch);       // [TQ][SCORE_PITCH]
+  unsigned char* s_ring = reinterpret_cast<unsigned char*>(s_sc + (FP32 ? 0 : TQ * SCORE_PITCH));
+  const uint32_t ring_a = smem_u32(s_ring);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * TQ, c0 = blockIdx.y * TC, split = blockIdx.z;
+  const int n_class = min(TC, w - c0);  // this block's classes
+  // the tiles whose first row of this chunk lies before n_rows
+  const long long tiles_all = n_rows > c0 ? (n_rows - c0 + w - 1) / w : 0;
+  const long long j0 = (long long)split * tiles_per_split;
+  const int n_tiles = (int)max(0LL, min(tiles_all, j0 + tiles_per_split) - j0);
+  const int n_chunks = n_tiles * n_dc;
+
+  RingLoader loader;
+  loader.init(chunk_bytes);
+  int ld_tile = 0, ld_dc = 0;  // the next chunk to load
+  auto load_next = [&](int chunk) {
+    if (chunk < n_chunks) {
+      const long long first = (j0 + ld_tile) * w + c0;
+      const int byte0 = ld_dc * chunk_bytes;
+      loader.load(ring_a + (chunk % RING_STAGES) * stage_bytes, pitch, x, row_bytes,
+                  first, (int)min((long long)n_class, n_rows - first), byte0,
+                  min(chunk_bytes, row_bytes - byte0));
+      if (++ld_dc == n_dc) {
+        ld_dc = 0;
+        ++ld_tile;
+      }
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");  // one group a call
+  };
+#pragma unroll
+  for (int c = 0; c < RING_STAGES - 1; ++c) load_next(c);
+  stage_query_tile<MODE>(s_q, q_pitch, q, q0, n_q, d);
+
+  const int mat = lane >> 3;
+  const uint32_t a_lane =
+      smem_u32(s_q) + ((lane & 7) + (mat & 1) * 8) * q_pitch + (mat >> 1) * 16;
+  const uint32_t b_lane =
+      (warp * 16 + (lane & 7) + (mat >> 1) * 8) * pitch + (mat & 1) * 16;
+
+  const float mult = metric_sq ? 2.0f : 1.0f;
+  float qmul[QPT];  // mult x the query's scale (int8 queries), exact
+#pragma unroll
+  for (int i = 0; i < QPT; ++i) {
+    const int qq = q0 + warp + 8 * i;
+    qmul[i] = I8Q && qq < n_q ? mult * qscales[qq] : mult;
+  }
+  float best[QPT][CPT];
+  int best_r[QPT][CPT];
+  Acc acc[2][4];
+#pragma unroll
+  for (int i = 0; i < QPT; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      best[i][j] = neg_inf();
+      best_r[i][j] = -1;
+      acc[i][j] = Acc(0);
+    }
+  float scale[CPT], csq[CPT];
+  int tile = 0, dc = 0;
+
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    asm volatile("cp.async.wait_group %0;" ::"n"(RING_STAGES - 2) : "memory");
+    __syncthreads();  // the chunk has landed; every warp is done with the one before
+    load_next(chunk + RING_STAGES - 1);
+
+    const long long row0 = (j0 + tile) * w + c0;
+    const int n_live = (int)min((long long)n_class, n_rows - row0);
+    if (dc == 0) {
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int r = lane + 32 * j;
+        scale[j] = 1.0f;
+        csq[j] = 0.0f;
+        if (r < n_live) {
+          const long long row = row0 + r;
+          scale[j] = scales[row];
+          const float s = sqn[row];
+          const float pen = row < n_valid ? 0.0f : PAD_PENALTY;
+          csq[j] = metric_sq ? s + pen : pen + fmaxf(s - DELETED_THRESHOLD, 0.0f);
+        }
+      }
+    }
+
+    const int byte0 = dc * chunk_bytes;
+    const int width = min(chunk_bytes, row_bytes - byte0);
+    if constexpr (FP32) {
+      const unsigned char* rows = s_ring + (chunk % RING_STAGES) * stage_bytes + lane * pitch;
+      const unsigned char* qs = s_q + warp * q_pitch + byte0;
+#pragma unroll 2
+      for (int u = 0; u < width; u += 16) {
+        float4 a[QPT], b[CPT];
+#pragma unroll
+        for (int i = 0; i < QPT; ++i)
+          a[i] = *reinterpret_cast<const float4*>(qs + 8 * i * q_pitch + u);
+#pragma unroll
+        for (int j = 0; j < CPT; ++j)
+          b[j] = *reinterpret_cast<const float4*>(rows + 32 * j * pitch + u);
+#pragma unroll
+        for (int i = 0; i < QPT; ++i)
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) {
+            acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+            acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+            acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+            acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+          }
+      }
+    } else {
+      // the chunk's first value in the staged queries: 2 bytes a value for
+      // bf16 queries over int8 rows, as many bytes as the rows otherwise
+      mma_chunk<MODE>(acc, a_lane + (MODE == 1 ? 2 * byte0 : byte0),
+                      ring_a + (chunk % RING_STAGES) * stage_bytes + b_lane,
+                      width >> 5);
+    }
+    if (++dc < n_dc) continue;
+    dc = 0;
+    ++tile;
+
+    if constexpr (!FP32) {
+      // fragments -> shared memory -> (warp = query, lane = row), as in K1
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float* dst = s_sc + (lane >> 2) * SCORE_PITCH + warp * 16 + nt * 8 + (lane & 3) * 2;
+        *reinterpret_cast<float2*>(dst) = make_float2((float)acc[nt][0], (float)acc[nt][1]);
+        *reinterpret_cast<float2*>(dst + 8 * SCORE_PITCH) =
+            make_float2((float)acc[nt][2], (float)acc[nt][3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[nt][j] = Acc(0);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < QPT; ++i) {
+      const bool dead = q0 + warp + 8 * i >= n_q;  // the same for the whole warp
+      if constexpr (!FP32) {
+        if (dead) continue;
+      }
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int r = lane + 32 * j;
+        float dot;
+        if constexpr (FP32) {
+          dot = acc[i][j];
+          acc[i][j] = 0.f;
+          if (dead) continue;
+        } else {
+          dot = s_sc[(warp + 8 * i) * SCORE_PITCH + r];
+        }
+        // int8 queries: every step rounded as the plain version rounds it
+        // (no FMA contraction), so the scores are bit-equal
+        const float v = I8Q ? __fsub_rn(__fmul_rn(qmul[i], __fmul_rn(dot, scale[j])), csq[j])
+                            : mult * (dot * scale[j]) - csq[j];
+        if (r < n_live && v > best[i][j]) {
+          best[i][j] = v;
+          best_r[i][j] = (int)(row0 + r);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < QPT; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int qq = q0 + warp + 8 * i, cl = lane + 32 * j;
+      if (qq < n_q && cl < n_class) {
+        const long long o = ((long long)split * n_q + qq) * w + c0 + cl;
+        part_s[o] = best[i][j];
+        part_i[o] = best_r[i][j];
+      }
+    }
+}
+
 // One block per query: per-class max over splits in split (= row) order with
 // a strict >, then warp 0 takes the top-k of the W class winners in class
 // order (ties keep the lower class, as the TPU kernel's argmax rounds did).
@@ -854,26 +976,63 @@ int flat_exact_topk(int combo, int ring, const void* q, const void* x,
   return (int)cudaGetLastError();
 }
 
-int flat_sketch_topk(int combo, const void* q, const void* x, const float* sqn,
-                     const float* scales, const float* qscales, int n_q, int d,
-                     long long n_rows, int n_valid, int metric_sq, int w, int k,
-                     long long tiles_per_split, int n_splits, float* part_s,
-                     int* part_i, float* out_s, int* out_i, cudaStream_t stream) {
-  if (k < 1 || k > 32 || w < 1 || w > MAX_SKETCH_W)
+// ring = 1 takes sketch_ring_kernel (bf16 and int8 rows of a multiple of 32
+// bytes, with bf16 or int8 queries, and fp32 rows of a multiple of 16 bytes;
+// the corpus 16-byte aligned, two blocks an SM), 0 sketch_scan_kernel.
+int flat_sketch_topk(int combo, int ring, const void* q, const void* x,
+                     const float* sqn, const float* scales, const float* qscales,
+                     int n_q, int d, long long n_rows, int n_valid, int metric_sq,
+                     int w, int k, long long tiles_per_split, int n_splits,
+                     float* part_s, int* part_i, float* out_s, int* out_i,
+                     cudaStream_t stream) {
+  if (k < 1 || k > 32 || w < 1 || w > MAX_SKETCH_W || n_q < 1 || n_rows < 1)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((n_q + TQ - 1) / TQ, (w + TC - 1) / TC, n_splits);
+  if (ring) {
+    const bool fp32 = combo == F32;
+    const int row_bytes = fp32 ? 4 * d : combo == BF16 ? 2 * d : d;
+    if (combo < F32 || combo > I8_I8 || row_bytes % (fp32 ? 16 : 32) != 0 ||
+        (uintptr_t)x % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    const int chunk_bytes = std::min(RING_CHUNK, row_bytes);
+    const int n_dc = (row_bytes + chunk_bytes - 1) / chunk_bytes;
+    const int q_bytes = fp32 ? 4 : combo == I8_I8 ? 1 : 2;
+    // the staged queries, the score tile (tensor-core modes) and the ring
+    const int smem = TQ * (q_bytes * d + 16) +
+                     (fp32 ? 0 : TQ * SCORE_PITCH * (int)sizeof(float)) +
+                     RING_STAGES * TC * (chunk_bytes + 16);
+    if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+#define LAUNCH_SKETCH_RING(MODE)                                             \
+  {                                                                          \
+    static int allowed[MAX_DEVICES] = {};  /* this instance's, by device */  \
+    cudaError_t e = allow_smem(allowed, sketch_ring_kernel<MODE>, smem);     \
+    if (e != cudaSuccess) return (int)e;                                     \
+    sketch_ring_kernel<MODE><<<grid, THREADS, smem, stream>>>(               \
+        q, (const unsigned char*)x, sqn, scales, qscales, n_q, d, n_rows,    \
+        n_valid, metric_sq, w, tiles_per_split, n_dc, chunk_bytes, part_s,   \
+        part_i);                                                             \
+  }
+    switch (combo) {
+      case F32: LAUNCH_SKETCH_RING(2) break;
+      case BF16: LAUNCH_SKETCH_RING(0) break;
+      case I8_BF16: LAUNCH_SKETCH_RING(1) break;
+      default: LAUNCH_SKETCH_RING(3) break;
+    }
+#undef LAUNCH_SKETCH_RING
+  } else {
 #define LAUNCH_SKETCH(QT, XT, I8C)                                           \
   sketch_scan_kernel<QT, XT, I8C><<<grid, THREADS, 0, stream>>>(             \
       (const QT*)q, (const XT*)x, sqn, scales, qscales, n_q, d, n_rows,      \
       n_valid, metric_sq, w, tiles_per_split, part_s, part_i)
-  switch (combo) {
-    case F32: LAUNCH_SKETCH(float, float, false); break;
-    case BF16: LAUNCH_SKETCH(__nv_bfloat16, __nv_bfloat16, false); break;
-    case I8_BF16: LAUNCH_SKETCH(__nv_bfloat16, int8_t, false); break;
-    case I8_I8: LAUNCH_SKETCH(int8_t, int8_t, true); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+    switch (combo) {
+      case F32: LAUNCH_SKETCH(float, float, false); break;
+      case BF16: LAUNCH_SKETCH(__nv_bfloat16, __nv_bfloat16, false); break;
+      case I8_BF16: LAUNCH_SKETCH(__nv_bfloat16, int8_t, false); break;
+      case I8_I8: LAUNCH_SKETCH(int8_t, int8_t, true); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
 #undef LAUNCH_SKETCH
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sketch_merge_kernel<<<n_q, THREADS, 0, stream>>>(part_s, part_i, n_q,

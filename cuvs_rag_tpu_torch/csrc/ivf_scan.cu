@@ -1,7 +1,8 @@
 // Probed sorted-CSR window scans for IVF-Flat on Hopper (sm_90a).
 //
 // Replaces the two Pallas TPU kernels of cuvs_rag_tpu/ops/pallas_ivf.py:
-//   K4  ivf_scan_pallas        (k <= 32)  -> ivf_scan_kernel + merge_partials_kernel
+//   K4  ivf_scan_pallas        (k <= 32)  -> ivf_ring_kernel (or ivf_scan_kernel)
+//                                            + merge_partials_kernel
 //   K5  ivf_scan_pallas_large  (k > 32)   -> ivf_topr_kernel (certified top-R)
 //
 // Both score what `_window_scores` scores over each query's probed windows
@@ -10,9 +11,10 @@
 //   inner product (q.w) - max(sqn - 1e29, 0)  (+ coarse, int8)
 // where q.w is an fp32 sum of exact products (never TF32) and, for int8
 // residual storage, q.w is first multiplied by the row's scale and the
-// probe's coarse inner product is added. Deleted and filtered-out rows are
-// masked only through their sqnorm slot, as on the TPU. Outputs are
-// positions in the sorted layout; the caller maps them to corpus ids.
+// probe's coarse inner product is added (window_score). Deleted and
+// filtered-out rows are masked only through their sqnorm slot, as on the
+// TPU. Outputs are positions in the sorted layout; the caller maps them to
+// corpus ids.
 //
 // The TPU walked (8-query tile x probe x sub-window) in order, scored all
 // 8 queries against each DMA'd window and masked 7 away, and skipped dead
@@ -21,12 +23,18 @@
 //
 // What bounds them on the H100: the bytes of the probed windows (16
 // queries x 20 probes x <= 2,048 rows x 384 x 2 B <= 0.5 GB per batch at
-// the main path's shape, about half that at the usual fill). A warp scores
-// 32 consecutive rows, 4 at a time, its lanes reading 32 consecutive
-// elements of each row (coalesced) against the query held in shared memory
-// as fp32, then reduces each row by shuffles. This first version reads 2-
-// or 4-byte elements per lane; 16-byte loads and cp.async/TMA pipelining
-// are later work, as is L2 reuse across queries probing the same list.
+// the main path's shape, about half that at the usual fill). A window is
+// consecutive rows of the sorted layout, which is what flat_topk.cu's copy
+// ring streams, so K4's main route (ops/ivf_kernels.ivf_route "ring": rows
+// of a multiple of 16 bytes) is that ring: block (query, probe, piece)
+// streams rows [piece start, min(count, window, piece end)) of the window
+// by 16-byte cp.async copies into three stages of 128 rows x 128 bytes,
+// and two threads a row multiply each stage's row with the query (fp32 in
+// shared memory) on the CUDA cores, in fp32, half a chunk each; a warp
+// keeps the top-k of its 16 rows of every tile. Other depths keep
+// ivf_scan_kernel, which reads 2- or 4-byte elements a lane, 32 rows a
+// warp, 4 at a time, each reduced by shuffles (1.5 TB/s at the main path's
+// shape). K5 still scores through that warp loop.
 //
 // Plain C ABI (built with nvcc, loaded with ctypes): every entry point
 // launches on the caller's stream, allocates nothing, and returns
@@ -35,17 +43,40 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <algorithm>
+#include <type_traits>
 
+#include "ring.cuh"
 #include "topk_common.cuh"
 
 namespace {
 
-constexpr int CHUNK = 256;       // window rows per K4 block (8 warps x 32)
+constexpr int CHUNK = 256;       // window rows per ivf_scan_kernel block (8 warps x 32)
 constexpr int K4_THREADS = 256;
 constexpr int CLASSES = 128;     // sub-window columns per K5 block
 constexpr int K5_THREADS = 128;  // one thread per class
 constexpr int RB = 4;            // rows a warp scores at once
-constexpr int MAX_SMEM = 227 * 1024;
+// K4's ring: K1's sizes (flat_topk.cu RING_STAGES, RING_CHUNK)
+constexpr int IVF_STAGES = 3;
+constexpr int IVF_CHUNK = 128;
+// The ring route's products: false multiplies on the CUDA cores in fp32;
+// true (bf16 and int8 rows of a multiple of 32 bytes) takes K1's tensor-core
+// step with the query as the one live row of M = 16 (eval/k4_sweep.py
+// builds and times both).
+constexpr bool K4_TENSOR_CORES = false;
+
+// A window row's score from its dot product with the query, its sqnorm
+// slot and its scale, exactly as `_window_scores_plain` forms it: the row
+// scale by a rounded product and the coarse term added for int8 residual
+// rows, the deletion penalty for inner product.
+__device__ __forceinline__ float window_score(float dot, float aux0, float scale,
+                                              int metric_sq, int scaled,
+                                              float coarse) {
+  const float ip = scaled ? __fmul_rn(dot, scale) : dot;
+  const float del = fmaxf(aux0 - DELETED_THRESHOLD, 0.0f);
+  if (metric_sq) return scaled ? (2.0f * ip - aux0) + coarse : 2.0f * ip - aux0;
+  return scaled ? (ip + coarse) - del : ip - del;
+}
 
 // Scores of the n_rows (<= 32) consecutive layout rows [row0, row0 + n_rows)
 // against the query `qs` (fp32, shared memory); lane l returns row row0 + l,
@@ -75,13 +106,7 @@ __device__ __forceinline__ float warp_rows_score(
       for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
       if (lane == r0 + i && r0 + i < n_rows) {
         const long long row = row0 + r0 + i;
-        const float aux0 = sqn[row];
-        const float ip = scaled ? __fmul_rn(v, scales[row]) : v;
-        const float del = fmaxf(aux0 - DELETED_THRESHOLD, 0.0f);
-        if (metric_sq)
-          mine = scaled ? (2.0f * ip - aux0) + coarse : 2.0f * ip - aux0;
-        else
-          mine = scaled ? (ip + coarse) - del : ip - del;
+        mine = window_score(v, sqn[row], scales[row], metric_sq, scaled, coarse);
       }
     }
   }
@@ -145,6 +170,200 @@ __global__ void __launch_bounds__(K4_THREADS) ivf_scan_kernel(
   best.init();
   for (int w = 0; w < K4_THREADS / 32; ++w)
     best.offer(lane < k ? ws[w][lane] : neg_inf(), lane < k ? wi[w][lane] : -1,
+               k, lane);
+  if (lane < k) {
+    part_s[o + lane] = best.s;
+    part_i[o + lane] = best.id;
+  }
+}
+
+// K4 on the ring. grid (n_q, n_probe, n_pieces): block (q, p, c) streams
+// rows [c * piece, min(count, window, (c + 1) * piece)) of query q's probe p
+// window, tiles of TC consecutive layout rows from off + c * piece, through
+// a ring of IVF_STAGES stages (rows at or past the count are zero-filled,
+// never read). Thread t takes row t / 2 of each tile and half of each
+// chunk's 16-byte pieces (the first or the second half: conflict-free at
+// the ring's pitch), multiplies it with the query held as fp32 in shared
+// memory and adds in fp32; at a tile's end the two halves add up, and warp
+// w offers its 16 rows to its warp-held top-k. Warp 0 merges the 8 warps'.
+// MODE 0: bf16 rows; 1: int8 rows (bf16 queries); 2: fp32 rows. With
+// K4_TENSOR_CORES, MODE 0 / 1 multiply with mma_chunk instead (the query
+// tile is this query and 15 zero rows) and the dots pass through a score
+// tile in shared memory. Partials (n_q, n_probe * n_pieces, k); a piece
+// past the count writes -inf / -1 without reading anything.
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 2) ivf_ring_kernel(
+    const void* __restrict__ q, const unsigned char* __restrict__ x,
+    const float* __restrict__ sqn, const float* __restrict__ scales,
+    const int* __restrict__ offs, const int* __restrict__ cnts,
+    const float* __restrict__ coarse, int n_probe, int d, int window,
+    int metric_sq, int scaled, int k, int piece, int n_dc, int chunk_bytes,
+    float* __restrict__ part_s, int* __restrict__ part_i) {
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  __shared__ float ws[THREADS / 32][32];
+  __shared__ int wi[THREADS / 32][32];
+  constexpr bool TENSOR = K4_TENSOR_CORES && MODE != 2;
+  constexpr int ESIZE = MODE == 2 ? 4 : MODE == 0 ? 2 : 1;  // bytes a row value
+  const int row_bytes = ESIZE * d;
+  const int pitch = chunk_bytes + 16;
+  const int stage_bytes = TC * pitch;
+  // the query: fp32 [d] (CUDA cores) or the staged tile [TQ][2 d + 16] and
+  // its score tile [TQ][SCORE_PITCH] (tensor cores); then the ring
+  const int q_pitch = 2 * d + 16;
+  const int front = TENSOR ? TQ * q_pitch + TQ * SCORE_PITCH * 4 : (4 * d + 127) / 128 * 128;
+  float* s_q = reinterpret_cast<float*>(ring_smem);
+  float* s_sc = reinterpret_cast<float*>(ring_smem + TQ * q_pitch);
+  unsigned char* s_ring = ring_smem + front;
+  const uint32_t ring_a = smem_u32(s_ring);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qq = blockIdx.x, pc = blockIdx.z;
+  const long long pidx = (long long)qq * n_probe + blockIdx.y;
+  const long long o = (pidx * gridDim.z + pc) * k;
+  const int cnt = min(cnts[pidx], window);
+  const int r0 = pc * piece;
+  if (r0 >= cnt) {  // uniform across the block
+    if (tid < k) {
+      part_s[o + tid] = neg_inf();
+      part_i[o + tid] = -1;
+    }
+    return;
+  }
+  const int n_rows = min(piece, cnt - r0);
+  const long long first = offs[pidx] + r0;
+  const int n_chunks = (n_rows + TC - 1) / TC * n_dc;
+
+  RingLoader loader;
+  loader.init(chunk_bytes);
+  int ld_tile = 0, ld_dc = 0;  // the next chunk to load
+  auto load_next = [&](int chunk) {
+    if (chunk < n_chunks) {
+      const int byte0 = ld_dc * chunk_bytes;
+      loader.load(ring_a + (chunk % IVF_STAGES) * stage_bytes, pitch, x, row_bytes,
+                  first + ld_tile * TC, min(TC, n_rows - ld_tile * TC), byte0,
+                  min(chunk_bytes, row_bytes - byte0));
+      if (++ld_dc == n_dc) {
+        ld_dc = 0;
+        ++ld_tile;
+      }
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");  // one group a call
+  };
+#pragma unroll
+  for (int c = 0; c < IVF_STAGES - 1; ++c) load_next(c);
+  if constexpr (TENSOR) {
+    stage_query_tile<MODE>(ring_smem, q_pitch, q, qq, qq + 1, d);
+  } else {
+    using QT = typename std::conditional<MODE == 2, float, __nv_bfloat16>::type;
+    for (int c = tid; c < d; c += THREADS)
+      s_q[c] = load_f(static_cast<const QT*>(q) + (long long)qq * d + c);
+  }
+  const int mat = lane >> 3;
+  const uint32_t a_lane =
+      smem_u32(ring_smem) + ((lane & 7) + (mat & 1) * 8) * q_pitch + (mat >> 1) * 16;
+  const uint32_t b_lane =
+      (warp * 16 + (lane & 7) + (mat >> 1) * 8) * pitch + (mat & 1) * 16;
+
+  const float cf = coarse[pidx];
+  const int r = tid >> 1, half = tid & 1;  // this thread's row of a tile
+  float aux0 = 0.f, rscale = 1.f;          // its sqnorm slot and scale
+  float acc = 0.f;
+  float frag[2][4] = {};
+  WarpTopK top;
+  top.init();
+  int tile = 0, dc = 0;
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    asm volatile("cp.async.wait_group %0;" ::"n"(IVF_STAGES - 2) : "memory");
+    __syncthreads();  // the chunk has landed; every warp is done with the one before
+    load_next(chunk + IVF_STAGES - 1);
+
+    const int row_in = tile * TC + r;  // this thread's row of the piece
+    if (dc == 0 && row_in < n_rows) {
+      // loaded before the tile's products, used after them
+      aux0 = sqn[first + row_in];
+      rscale = scales[first + row_in];
+    }
+    const int byte0 = dc * chunk_bytes;
+    const int width = min(chunk_bytes, row_bytes - byte0);
+    const unsigned char* stage = s_ring + (chunk % IVF_STAGES) * stage_bytes;
+    if constexpr (TENSOR) {
+      mma_chunk<MODE>(frag, a_lane + (MODE == 1 ? 2 * byte0 : byte0),
+                      ring_a + (chunk % IVF_STAGES) * stage_bytes + b_lane,
+                      width >> 5);
+    } else {
+      const int pieces = width >> 4, mid = (pieces + 1) >> 1;
+      const unsigned char* row = stage + r * pitch;
+      const int p1 = half ? pieces : mid;
+      for (int p = half ? mid : 0; p < p1; ++p) {
+        const uint4 v = *reinterpret_cast<const uint4*>(row + p * 16);
+        const float* qv = s_q + (byte0 + p * 16) / ESIZE;
+        const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+        if constexpr (MODE == 2) {
+          const float4 a = *reinterpret_cast<const float4*>(qv);
+          acc = fmaf(a.x, __uint_as_float(v.x), acc);
+          acc = fmaf(a.y, __uint_as_float(v.y), acc);
+          acc = fmaf(a.z, __uint_as_float(v.z), acc);
+          acc = fmaf(a.w, __uint_as_float(v.w), acc);
+        } else if constexpr (MODE == 0) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float4 a = *reinterpret_cast<const float4*>(qv + 4 * h);
+            acc = fmaf(a.x, __uint_as_float(words[2 * h] << 16), acc);
+            acc = fmaf(a.y, __uint_as_float(words[2 * h] & 0xffff0000u), acc);
+            acc = fmaf(a.z, __uint_as_float(words[2 * h + 1] << 16), acc);
+            acc = fmaf(a.w, __uint_as_float(words[2 * h + 1] & 0xffff0000u), acc);
+          }
+        } else {
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const float4 a = *reinterpret_cast<const float4*>(qv + 4 * h);
+            const uint32_t u = words[h] ^ 0x80808080u;
+            acc = fmaf(a.x, int8_lane(u, 0), acc);
+            acc = fmaf(a.y, int8_lane(u, 1), acc);
+            acc = fmaf(a.z, int8_lane(u, 2), acc);
+            acc = fmaf(a.w, int8_lane(u, 3), acc);
+          }
+        }
+      }
+    }
+    if (++dc < n_dc) continue;
+    dc = 0;
+
+    float dot;
+    if constexpr (TENSOR) {
+      // query 0's row of the fragments -> shared memory -> row t / 2
+      if ((lane >> 2) == 0) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          *reinterpret_cast<float2*>(s_sc + warp * 16 + nt * 8 + (lane & 3) * 2) =
+              make_float2(frag[nt][0], frag[nt][1]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) frag[nt][j] = 0.f;
+      __syncthreads();
+      dot = s_sc[r];
+    } else {
+      dot = acc + __shfl_xor_sync(FULL, acc, 1);  // the same sum in both lanes
+      acc = 0.f;
+    }
+    float v = neg_inf();
+    if (half == 0 && row_in < n_rows)
+      v = window_score(dot, aux0, rscale, metric_sq, scaled, cf);
+    top.offer(v, (int)(first + row_in), k, lane);
+    ++tile;
+  }
+  if (lane < k) {
+    ws[warp][lane] = top.s;
+    wi[warp][lane] = top.id;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  WarpTopK best;
+  best.init();
+  for (int wp = 0; wp < THREADS / 32; ++wp)
+    best.offer(lane < k ? ws[wp][lane] : neg_inf(), lane < k ? wi[wp][lane] : -1,
                k, lane);
   if (lane < k) {
     part_s[o + lane] = best.s;
@@ -229,36 +448,70 @@ enum Combo { F32 = 0, BF16 = 1, I8_BF16 = 2 };
 
 extern "C" {
 
-int ivf_scan_topk(int combo, const void* q, const void* x, const float* sqn,
-                  const float* scales, const int* offs, const int* cnts,
-                  const float* coarse, int n_q, int n_probe, int d, int window,
-                  int metric_sq, int scaled, int k, int n_chunks,
-                  float* part_s, int* part_i, float* out_s, int* out_i,
-                  cudaStream_t stream) {
-  const int smem = d * (int)sizeof(float);
+// ring = 1 takes ivf_ring_kernel (rows of a multiple of 16 bytes, the
+// layout 16-byte aligned; `piece` a multiple of TC), 0 ivf_scan_kernel
+// (`piece` = CHUNK); n_pieces * piece must cover the window.
+int ivf_scan_topk(int combo, int ring, const void* q, const void* x,
+                  const float* sqn, const float* scales, const int* offs,
+                  const int* cnts, const float* coarse, int n_q, int n_probe,
+                  int d, int window, int metric_sq, int scaled, int k,
+                  int piece, int n_pieces, float* part_s, int* part_i,
+                  float* out_s, int* out_i, cudaStream_t stream) {
   if (k < 1 || k > 32 || n_q < 1 || n_probe < 1 || n_probe > 65535 ||
-      n_chunks < 1 || n_chunks > 65535 ||
-      (long long)n_chunks * CHUNK < window || smem > MAX_SMEM)
+      n_pieces < 1 || n_pieces > 65535 || piece < 1 ||
+      (long long)n_pieces * piece < window || combo < F32 || combo > I8_BF16)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(n_q, n_probe, n_chunks);
-#define LAUNCH_SCAN(QT, XT)                                                  \
-  cudaFuncSetAttribute(ivf_scan_kernel<QT, XT>,                              \
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);   \
-  ivf_scan_kernel<QT, XT><<<grid, K4_THREADS, smem, stream>>>(               \
-      (const QT*)q, (const XT*)x, sqn, scales, offs, cnts, coarse, n_probe,  \
-      d, window, metric_sq, scaled, k, part_s, part_i)
-  switch (combo) {
-    case F32: LAUNCH_SCAN(float, float); break;
-    case BF16: LAUNCH_SCAN(__nv_bfloat16, __nv_bfloat16); break;
-    case I8_BF16: LAUNCH_SCAN(__nv_bfloat16, int8_t); break;
-    default: return (int)cudaErrorInvalidValue;
+  const dim3 grid(n_q, n_probe, n_pieces);
+  if (ring) {
+    const int mode = combo == F32 ? 2 : combo == BF16 ? 0 : 1;
+    const int row_bytes = (mode == 2 ? 4 : mode == 0 ? 2 : 1) * d;
+    const bool tensor = K4_TENSOR_CORES && mode != 2;
+    if (piece % TC != 0 || row_bytes % (tensor ? 32 : 16) != 0 ||
+        (uintptr_t)x % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    const int chunk_bytes = std::min(IVF_CHUNK, row_bytes);
+    const int n_dc = (row_bytes + chunk_bytes - 1) / chunk_bytes;
+    const int front = tensor ? TQ * (2 * d + 16) + TQ * SCORE_PITCH * 4
+                             : (4 * d + 127) / 128 * 128;
+    const int smem = front + IVF_STAGES * TC * (chunk_bytes + 16);
+    // beside the 2 KB of the warps' top-k in static shared memory
+    if (smem > MAX_SMEM - 2 * 1024) return (int)cudaErrorInvalidValue;
+#define LAUNCH_IVF_RING(MODE)                                                \
+  {                                                                          \
+    static int allowed[MAX_DEVICES] = {};  /* this instance's, by device */  \
+    cudaError_t e = allow_smem(allowed, ivf_ring_kernel<MODE>, smem);        \
+    if (e != cudaSuccess) return (int)e;                                     \
+    ivf_ring_kernel<MODE><<<grid, THREADS, smem, stream>>>(                  \
+        q, (const unsigned char*)x, sqn, scales, offs, cnts, coarse,         \
+        n_probe, d, window, metric_sq, scaled, k, piece, n_dc, chunk_bytes,  \
+        part_s, part_i);                                                     \
   }
+    if (mode == 2) LAUNCH_IVF_RING(2) else if (mode == 0) LAUNCH_IVF_RING(0) else LAUNCH_IVF_RING(1)
+#undef LAUNCH_IVF_RING
+  } else {
+    const int smem = d * (int)sizeof(float);
+    if (piece != CHUNK || smem > MAX_SMEM - 2 * 1024) return (int)cudaErrorInvalidValue;
+#define LAUNCH_SCAN(QT, XT)                                                  \
+  {                                                                          \
+    static int allowed[MAX_DEVICES] = {};  /* this instance's, by device */  \
+    cudaError_t e = allow_smem(allowed, ivf_scan_kernel<QT, XT>, smem);      \
+    if (e != cudaSuccess) return (int)e;                                     \
+    ivf_scan_kernel<QT, XT><<<grid, K4_THREADS, smem, stream>>>(             \
+        (const QT*)q, (const XT*)x, sqn, scales, offs, cnts, coarse,         \
+        n_probe, d, window, metric_sq, scaled, k, part_s, part_i);           \
+  }
+    switch (combo) {
+      case F32: LAUNCH_SCAN(float, float) break;
+      case BF16: LAUNCH_SCAN(__nv_bfloat16, __nv_bfloat16) break;
+      default: LAUNCH_SCAN(__nv_bfloat16, int8_t) break;
+    }
 #undef LAUNCH_SCAN
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int warps = 8;
   merge_partials_kernel<<<(n_q + warps - 1) / warps, 32 * warps, 0, stream>>>(
-      part_s, part_i, n_q, n_probe * n_chunks, k, out_s, out_i);
+      part_s, part_i, n_q, n_probe * n_pieces, k, out_s, out_i);
   return (int)cudaGetLastError();
 }
 

@@ -69,6 +69,30 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, names, calls: int = 50, warmup: int = 3) -> dict:
+    """Device ms a call of the kernels whose names contain each of `names`
+    ({name: ms}), over `calls` back-to-back fn() under torch.profiler: the
+    kernels' own time, apart from the host's time to launch them (which
+    CUDA events around a loop of calls measure where it is the longer)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for name in names:
+                if name in e.key:
+                    out[name] += e.self_device_time_total / 1e3 / calls
+    return out
+
+
 def host_us(fn, iters: int = 300, warmup: int = 30) -> float:
     """Mean host time of one fn() call in microseconds: what the caller's
     thread spends before the call returns, the launch still in flight (the

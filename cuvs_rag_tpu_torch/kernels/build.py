@@ -43,7 +43,7 @@ SIGNATURES = {
             _P, _P, _P, _P, _P,
         ],
         "flat_sketch_topk": [
-            _I, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _L, _I,
+            _I, _I, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _L, _I,
             _P, _P, _P, _P, _P,
         ],
         "flat_topr": [
@@ -53,8 +53,8 @@ SIGNATURES = {
     },
     "ivf_scan.cu": {
         "ivf_scan_topk": [
-            _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-            _P, _P, _P, _P, _P,
+            _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+            _I, _I, _P, _P, _P, _P, _P,
         ],
         "ivf_scan_topr": [
             _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

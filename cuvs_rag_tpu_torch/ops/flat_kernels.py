@@ -46,15 +46,15 @@ _PAD_PENALTY = 1e30
 _VALID_MIN = -dist_ops.DELETED_THRESHOLD
 # Tile shape of csrc/flat_topk.cu (TQ, TC): used only to size the splits.
 _TQ, _TC = 16, 128
-# Blocks per SM the split count aims for. The CUDA-core kernels (K2, K3 and
-# K1's "cores" route) hide memory latency with 4 blocks of a 19 KB stage;
-# K1's ring routes run two blocks of a three-stage ring an SM (one block's
-# products under the other's copies), all in one wave.
+# Blocks per SM the split count aims for. The CUDA-core kernels (K3 and
+# K1's and K2's "cores" routes) hide memory latency with 4 blocks of a 19 KB
+# stage; K1's and K2's ring routes run two blocks of a three-stage ring an
+# SM (one block's products under the other's copies), all in one wave.
 _BLOCKS_PER_SM = 4
 _RING_BLOCKS_PER_SM = 2
-# K1's ring routes stage the 16 x d query tile beside the ring: at d = 2048
+# The ring routes stage the 16 x d query tile beside the ring: at d = 2048
 # that is 66 KB of bf16 (131 KB of fp32) and a block already has its SM to
-# itself; deeper rows stay with the older CUDA-core kernel.
+# itself; deeper rows stay with the older CUDA-core kernels.
 _RING_MAX_DIM = 2048
 _SOURCE = "flat_topk.cu"
 _COMBO = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -186,12 +186,33 @@ def _exact_splits(n_rows: int, n_q: int, sm_count: int,
     return per, -(-n_rows // per)
 
 
-def _class_splits(n_rows: int, n_q: int, tile_c: int, sm_count: int):
+def sketch_route(dtype, d: int, int8_compute: bool = False) -> str:
+    """Which of K2's kernels takes rows of `dtype` and depth `d`. "ring":
+    bf16 rows, or int8 rows with bf16 queries, on the tensor cores fed by
+    K1's copy ring (a row a whole number of 32-byte units); "ring_int8":
+    int8 rows with int8 queries (`int8_compute`) on the same ring through
+    the int8 tensor-core product (exact int32 sums), the same rule;
+    "ring_fp32": fp32 rows of a multiple of 16 bytes through the ring, fp32
+    multiply-adds on the CUDA cores; "cores": the older CUDA-core kernel,
+    for every other depth. A pure function of its arguments; all four are
+    kernels of csrc/flat_topk.cu."""
+    if int8_compute and dtype != torch.int8:
+        raise ValueError("int8_compute requires an int8 corpus")
+    route = exact_route(dtype, d)
+    return "ring_int8" if int8_compute and route == "ring" else route
+
+
+def _class_splits(n_rows: int, n_q: int, tile_c: int, sm_count: int,
+                  blocks_per_sm: int = _BLOCKS_PER_SM):
     """(tiles_per_split, n_splits) for K2/K3, whose blocks cover (query tile
-    x class chunk x split of the corpus tiles)."""
+    x class chunk x split of the corpus tiles): at most `blocks_per_sm`
+    blocks an SM, so K2's ring routes run in one wave (at W = 2,048, 16
+    class chunks x 16 splits = 256 blocks of the H100's 2 x 132), and
+    splits as even as whole tiles allow; split s covers tiles [s * per,
+    min(n_tiles, (s + 1) * per)) in ascending order."""
     blocks = -(-n_q // _TQ) * -(-tile_c // _TC)
     n_tiles = -(-n_rows // tile_c)
-    want = max(1, -(-_BLOCKS_PER_SM * sm_count // blocks))
+    want = max(1, blocks_per_sm * sm_count // blocks)
     per = -(-n_tiles // max(1, min(want, n_tiles)))
     return per, -(-n_tiles // per)
 
@@ -373,14 +394,20 @@ def flat_topk_sketch(corpus, corpus_sqnorms, queries, n_valid,
     are quantized per row and the dot runs int8 x int8 -> int32.
 
     Replaces cuvs_rag_tpu/ops/pallas_flat.py flat_topk_pallas(mode="sketch")
-    (`_sketch_kernel`, `_quantize_query_rows`). Bound like K1's CUDA-core
-    route, by the multiply-add loop of the score tile they share (int8 x
-    int8 runs as int32 multiply-adds), at about a sixth of the read floor;
-    K1's tensor-core tile is not used here yet. Blocks over (query tile x
-    128-class chunk x split of the corpus
-    tiles) keep each (query, class) winner in registers with a strict > so
-    the earliest row wins a tie; the merge pass takes the per-class max
-    across splits in row order, then the top-k of the winners.
+    (`_sketch_kernel`, `_quantize_query_rows`). Like K1 it is bound by one
+    HBM read of the corpus, and its ring routes (`sketch_route`) read it as
+    K1 does: blocks over (16-query tile x 128-class chunk x split of the
+    corpus tiles), two an SM in one wave, stream each tile's 128 rows of
+    their classes (W rows apart from one tile to the next) through K1's
+    three-stage cp.async ring and multiply on the tensor cores (bf16 rows;
+    int8 rows widened to bf16; int8 x int8 by the int8 product, whose exact
+    int32 sums make this route's scores bit-equal to the plain version's)
+    or, for fp32 rows, with fp32 FMAs on the CUDA cores. Other depths keep
+    the older CUDA-core kernel (score_tile's scalar loop). Each (query,
+    class) winner stays in registers with a strict > over tiles in
+    ascending order, so the earliest row wins a tie; the merge pass takes
+    the per-class max across splits in row order, then the top-k of the
+    winners, the lower class first on ties.
     """
     if not 1 <= k <= MAX_KERNEL_K:
         raise ValueError(f"k must be in [1, {MAX_KERNEL_K}], got {k}")
@@ -399,9 +426,12 @@ def flat_topk_sketch(corpus, corpus_sqnorms, queries, n_valid,
     dev = corpus.device
     n, d = corpus.shape
     n_q = queries.shape[0]
-    per, n_splits = _class_splits(n, n_q, tile_c, _sm_count(dev))
+    ring = sketch_route(corpus.dtype, d, int8_compute) != "cores"
+    per, n_splits = _class_splits(
+        n, n_q, tile_c, _sm_count(dev),
+        _RING_BLOCKS_PER_SM if ring else _BLOCKS_PER_SM)
     queries = queries.contiguous()
-    corpus = corpus.contiguous()
+    corpus = _aligned(corpus.contiguous())
     part_s = torch.empty((n_splits, n_q, tile_c), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_splits, n_q, tile_c), dtype=torch.int32, device=dev)
     out_s = torch.empty((n_q, k), dtype=torch.float32, device=dev)
@@ -409,7 +439,7 @@ def flat_topk_sketch(corpus, corpus_sqnorms, queries, n_valid,
     combo = _INT8_X_INT8 if int8_compute else _COMBO[corpus.dtype]
     with build.device_guard(dev):
         err = build.load(_SOURCE).flat_sketch_topk(
-            combo, _ptr(queries), _ptr(corpus),
+            combo, int(ring), _ptr(queries), _ptr(corpus),
             _ptr(corpus_sqnorms.contiguous()), _ptr(scales.contiguous()),
             _ptr(qscales), n_q, d, n, int(n_valid),
             int(metric == Metric.SQEUCLIDEAN), tile_c, k, per, n_splits,

@@ -35,12 +35,21 @@ from cuvs_rag_tpu_torch.utils.config import Metric
 MAX_KERNEL_K = 32  # K4 keeps a warp-held top-k: one lane per slot
 MAX_LARGE_K = 8192
 MAX_R_PLANES = 64  # past this the insertion chain rivals the window read
-_K4_CHUNK = 256  # window rows per K4 block (csrc/ivf_scan.cu CHUNK)
+_K4_CHUNK = 256  # window rows per block of K4's "cores" route (csrc CHUNK)
+# Window rows per block of K4's ring route (`k4_pieces`): the largest of
+# _K4_PIECES that still gives _K4_BLOCKS_PER_SM blocks an SM over a call's
+# (query, probe) pairs. _K4_PIECE fixes one instead (0: the whole window),
+# as eval/k4_sweep.py does to time each.
+_K4_PIECES = (1024, 512, 256)
+_K4_BLOCKS_PER_SM = 4
+_K4_PIECE = None
+_K4_TILE = 128  # the ring's tile (csrc/ring.cuh TC)
 _K5_CLASSES = 128  # classes per K5 block (csrc/ivf_scan.cu CLASSES)
 # Shared memory a K5 block may take (query + planes): two blocks per SM.
 _K5_SMEM = 96 * 1024
 _SOURCE = "ivf_scan.cu"
 _COMBO = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 # Elements of the gathered (queries, probes, window, D) block per chunk of
 # queries in the plain versions: bounds the fp32 temporary at 1 GiB.
 _PLAIN_ELEMS = 1 << 28
@@ -120,6 +129,54 @@ def _require_cuda(t):
         raise ValueError(f"no kernel for tensors on {t.device}")
 
 
+def ivf_route(dtype, d: int) -> str:
+    """Which of K4's kernels takes layout rows of `dtype` and depth `d`.
+    "ring": rows of a multiple of 16 bytes (any window start is then a
+    16-byte boundary of the layout), streamed by K1's copy ring and
+    multiplied in fp32 on the CUDA cores, the query held in shared memory
+    (up to the ring routes' depth of 2,048); "cores": the older kernel,
+    2- or 4-byte loads a lane. A pure function of its arguments."""
+    if dtype not in _COMBO:
+        raise ValueError(f"unsupported storage dtype {dtype}")
+    if d > flat_kernels._RING_MAX_DIM or d * _ELEMENT_BYTES[dtype] % 16:
+        return "cores"
+    return "ring"
+
+
+def k4_pieces(window: int, route: str, pairs: int = 1, sm_count: int = 132,
+              piece: int = None):
+    """(rows a block, blocks a probe) of K4 for this window and a call of
+    `pairs` (query, probe) pairs on `sm_count` SMs. The cores route takes
+    256 rows a block. The ring takes `piece` rows (default _K4_PIECE; 0 =
+    the whole window, rounded up to the ring's tile) or, where neither is
+    set, the largest of _K4_PIECES that still gives _K4_BLOCKS_PER_SM
+    blocks an SM (the smallest where none does): a block's copies stream at
+    a rate its ring depth bounds, so few pairs want short pieces, while
+    many pairs fill the card either way and long pieces start fewer blocks
+    (eval/k4_sweep.py on the H100: 1,024 rows best at 16 queries x 20
+    probes, 256 at one query). Block c of a probe with `count` rows scans
+    window rows [c * rows, min(count, window, (c + 1) * rows)) and none at
+    all past the count (`k4_piece_rows`)."""
+    if route == "cores":
+        per = _K4_CHUNK
+    else:
+        piece = _K4_PIECE if piece is None else piece
+        if piece is None:
+            want = _K4_BLOCKS_PER_SM * sm_count
+            piece = next((p for p in _K4_PIECES if pairs * -(-window // p) >= want),
+                         _K4_PIECES[-1])
+        per = topk_ops.round_up(piece if piece > 0 else window, _K4_TILE)
+    return per, -(-window // per)
+
+
+def k4_piece_rows(count: int, window: int, per: int, c: int):
+    """Window rows [start, stop) that block c of a probe scans, as the
+    kernels bound them; start == stop where it reads nothing."""
+    live = min(count, window)
+    start = min(c * per, live)
+    return start, min(live, start + per) if c * per < live else start
+
+
 # ------------------------------------------------------------------- K4 ---
 
 
@@ -138,6 +195,74 @@ def ivf_scan_plain(sorted_vectors, sorted_sqnorms, sorted_scales, queries,
     return topk_ops.merge_topk(s.reshape(q_n, -1), pos.reshape(q_n, -1), k)
 
 
+def ivf_rounding_bound(sorted_vectors, sorted_sqnorms, sorted_scales,
+                       queries, probe_offsets, probe_counts, *, window: int,
+                       metric: str, coarse_ip=None, positions=None):
+    """What K4's scores may differ by from exact arithmetic, elementwise:
+    (want, allowed), fp64. The counterpart of
+    `flat_kernels.flat_rounding_bound` over the probed windows: `want` is
+    the score of the same stored values (queries cast to the scoring dtype,
+    as the kernel casts them) computed in fp64, with the row scale and the
+    probe's coarse term of int8 residual rows; `allowed` is what the
+    kernel's roundings can add up to,
+
+        mult * |scale| * c * D * 2^-24 * sum_i |q_i| |x_i|   the D fp32 adds
+        + 2^-24 * |mult * scale * (q . x)|                   the scale product
+        + 2^-24 * |first sum|                                the first add
+        + 2^-24 * |want|                                     the last one
+
+    with c = 2 (any order and grouping of the adds, truncating or not; the
+    products of bf16 or int8 values with bf16 queries are exact, those of
+    fp32 rows round, which c = 2 covers) and the first sum 2 (q . x) scale -
+    sqnorm (sqeuclidean) or (q . x) scale + coarse (inner product).
+
+    Without `positions`: (Q, P, window), every slot of every probed window
+    scored (slots past a count too; the caller masks them). With
+    `positions` (Q, k) layout positions: only those, each with the coarse
+    term of the probe whose window holds it; positions < 0 or in no window
+    read row 0 and are the caller's to skip.
+    """
+    q, offs, cnts, coarse = _prepare(
+        sorted_vectors, sorted_sqnorms, sorted_scales, queries, probe_offsets,
+        probe_counts, coarse_ip, window, metric)
+    cap, d = sorted_vectors.shape
+    scaled = sorted_vectors.dtype == torch.int8
+    qd = q.double()
+    if positions is None:
+        col = torch.arange(window, device=q.device)
+        idx = torch.clamp(offs.long()[:, :, None] + col, max=cap - 1)
+        x = sorted_vectors[idx].double()  # (Q, P, window, D)
+        ip = torch.einsum("qpwd,qd->qpw", x, qd)
+        mag = torch.einsum("qpwd,qd->qpw", x.abs(), qd.abs())
+        cf = coarse.double()[:, :, None]
+    else:
+        idx = positions.long().clamp(min=0)
+        x = sorted_vectors[idx].double()  # (Q, k, D)
+        ip = torch.einsum("qkd,qd->qk", x, qd)
+        mag = torch.einsum("qkd,qd->qk", x.abs(), qd.abs())
+        live = torch.clamp(cnts.long(), max=window)
+        start = offs.long()
+        inside = ((idx[:, :, None] >= start[:, None, :])
+                  & (idx[:, :, None] < (start + live)[:, None, :]))
+        cf = torch.gather(coarse.double(), 1, inside.int().argmax(dim=2))
+    scale = sorted_scales[idx].double() if scaled else torch.ones_like(ip)
+    aux0 = sorted_sqnorms[idx].double()
+    if not scaled:
+        cf = torch.zeros_like(ip)
+    mult = 2.0 if metric == Metric.SQEUCLIDEAN else 1.0
+    term = mult * scale * ip
+    if metric == Metric.SQEUCLIDEAN:
+        first = term - aux0
+        want = first + cf
+    else:
+        first = term + cf
+        want = first - dist_ops.deletion_penalty(aux0)
+    u = flat_kernels._FP32_HALF_ULP
+    allowed = (mult * scale.abs() * flat_kernels._TRUNCATION_ULPS * d * u * mag
+               + u * term.abs() + u * first.abs() + u * want.abs())
+    return want, allowed
+
+
 def ivf_scan(sorted_vectors, sorted_sqnorms, sorted_scales, queries,
              probe_offsets, probe_counts, *, k: int, window: int,
              metric: str, coarse_ip=None):
@@ -147,12 +272,17 @@ def ivf_scan(sorted_vectors, sorted_sqnorms, sorted_scales, queries,
     Replaces cuvs_rag_tpu/ops/pallas_ivf.py ivf_scan_pallas (`_kernel`,
     `_window_scores`). It is bound by reading the probed windows' bytes
     (<= 0.5 GB per batch of 16 at 20 probes of 2,048 x 384 bf16 rows).
-    Blocks over (query x probe x 256-row chunk of the window) put more than
-    nprobe blocks on the card even for one query, take the list count as
-    their loop bound (no dead tail is read; chunks past the count exit at
-    once), score 32 rows per warp with coalesced row reads, and keep a
-    warp-held top-k behind a k-th-best threshold; a merge pass reduces the
-    (query, probe, chunk) partials to (Q, k). Scores stay exact fp32.
+    Blocks over (query x probe x piece of the window: `k4_pieces`) put more
+    than nprobe blocks on the card even for one query and take the list
+    count as their loop bound (no row past it is read; pieces past it exit
+    at once). On the ring route (`ivf_route`: rows of a multiple of 16
+    bytes) a block streams its rows by 16-byte cp.async copies through K1's
+    three-stage ring and two threads a row multiply them with the query in
+    fp32 on the CUDA cores; other depths keep the older kernel, 32 rows a
+    warp with 2- or 4-byte loads. Each warp keeps a warp-held top-k behind
+    a k-th-best threshold; a merge pass reduces the (query, probe, piece)
+    partials to (Q, k). Scores stay fp32 sums of exact products (bf16 and
+    int8 rows), within `ivf_rounding_bound` of exact arithmetic.
     """
     if not 1 <= k <= MAX_KERNEL_K:
         raise ValueError(f"k must be in [1, {MAX_KERNEL_K}], got {k}")
@@ -169,22 +299,25 @@ def ivf_scan(sorted_vectors, sorted_sqnorms, sorted_scales, queries,
 
     dev = sorted_vectors.device
     q_n, p_n = offs.shape
-    n_chunks = -(-window // _K4_CHUNK)
-    part_s = torch.empty((q_n, p_n * n_chunks, k), dtype=torch.float32,
+    d = sorted_vectors.shape[1]
+    route = ivf_route(sorted_vectors.dtype, d)
+    per, n_pieces = k4_pieces(window, route, q_n * p_n,
+                              flat_kernels._sm_count(dev))
+    part_s = torch.empty((q_n, p_n * n_pieces, k), dtype=torch.float32,
                          device=dev)
-    part_i = torch.empty((q_n, p_n * n_chunks, k), dtype=torch.int32,
+    part_i = torch.empty((q_n, p_n * n_pieces, k), dtype=torch.int32,
                          device=dev)
     out_s = torch.empty((q_n, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((q_n, k), dtype=torch.int32, device=dev)
-    args = [q, sorted_vectors, sorted_sqnorms, sorted_scales, offs, cnts,
-            coarse]
+    args = [q, flat_kernels._aligned(sorted_vectors.contiguous()),
+            sorted_sqnorms, sorted_scales, offs, cnts, coarse]
     args = [t.contiguous() for t in args]  # held until the call returns
     with build.device_guard(dev):
         err = build.load(_SOURCE).ivf_scan_topk(
-            _COMBO[sorted_vectors.dtype], *(t.data_ptr() for t in args),
-            q_n, p_n, sorted_vectors.shape[1], window,
+            _COMBO[sorted_vectors.dtype], int(route == "ring"),
+            *(t.data_ptr() for t in args), q_n, p_n, d, window,
             int(metric == Metric.SQEUCLIDEAN),
-            int(sorted_vectors.dtype == torch.int8), k, n_chunks,
+            int(sorted_vectors.dtype == torch.int8), k, per, n_pieces,
             part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
             out_i.data_ptr(),
             build.raw_stream(dev),

@@ -23,17 +23,22 @@ def cuda_device():
 
 def test_kernels_match_plain_versions(cuda_device):
     """K1 (3 dtypes x 2 metrics x k in {1, 10, 32} at 16 queries, k = 10 at
-    1 and 40), K2 (bf16, int8 x int8) and K3 (3 dtypes, k = 600 and the
-    few-planes certificate case) on a tile-aligned and a ragged corpus with
-    tombstones: scores within rtol 1e-5 / atol 1e-3, ids equal up to
-    k-th-score ties; K1 also within its rounding bound."""
+    1 and 40), K2 (fp32, bf16, int8 with bf16 queries, int8 x int8) and K3
+    (3 dtypes, k = 600 and the few-planes certificate case) on a
+    tile-aligned and a ragged corpus with tombstones: scores within rtol
+    1e-5 / atol 1e-3, ids equal up to k-th-score ties; K1 and K2 also
+    within their rounding bound, K2's int8 x int8 bit for bit."""
     import chip_smoke
 
     out = chip_smoke.parity_phase(50_000, 40_003, seed=0, device=cuda_device,
                                   k_large=600)
-    assert out["cases"] == 92 and out["exact_over_allowed"] <= 1.0
+    assert out["cases"] == 100 and out["exact_over_allowed"] <= 1.0
+    assert out["sketch_over_allowed"] <= 1.0
+    assert out["sketch_int8_bit_equal"] == 4
     assert out["exact_route"] == {"float32": "ring_fp32", "bfloat16": "ring",
                                   "int8": "ring"}
+    assert out["sketch_route"] == {"float32": "ring_fp32", "bfloat16": "ring",
+                                   "int8": "ring", "int8 x int8": "ring_int8"}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
@@ -116,17 +121,154 @@ def test_exact_kernel_on_short_corpora(cuda_device, n):
     assert int((got[1] >= 0).sum()) == 3 * min(n, 10)
 
 
+@pytest.mark.parametrize("dtype,int8c", [("float32", False),
+                                         ("bfloat16", False),
+                                         ("int8", False), ("int8", True)])
+@pytest.mark.parametrize("d", [16, 40, 42, 64, 384, 1024, 1056])
+def test_sketch_kernel_routes_match_plain(cuda_device, d, dtype, int8c):
+    """K2 by every route (the ring on the tensor cores for bf16 and int8
+    rows of whole 32-byte units, int8 x int8 on the int8 product, fp32 rows
+    of whole 16-byte pieces on the ring with fp32 FMAs, the older kernel
+    elsewhere: d = 42 for every type) on a ragged 50,003-row corpus with
+    pad rows and 1% tombstones, W in {100, 128, 2048} (class chunks of 100
+    and 128 classes, the last one short) x n_q in {1, 16, 17, 40}, both
+    metrics: int8 x int8 bit-equal to the plain version (ties included,
+    also past D = 1040 where the plain dot is taken in fp64), the others
+    within rtol 1e-5 / atol 1e-3 (ids up to ties) and flat_rounding_bound."""
+    import chip_smoke
+    from cuvs_rag_tpu_torch.index import flat
+    from cuvs_rag_tpu_torch.ops import flat_kernels as fk
+    from cuvs_rag_tpu_torch.utils.config import FlatParams
+
+    n = 50_003
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    x = torch.randn((n, d), generator=g, device=cuda_device)
+    ix = flat.build(FlatParams(dtype=dtype, tile_n=2048), x)
+    ix = flat.delete(ix, torch.arange(3, n, 100, device=cuda_device))
+    storage = min(ix.size, n + 1000)
+    before = fk.flat_topk_sketch.launches
+    for n_q in (1, 16, 17, 40):
+        q = torch.cat([x[:n_q // 2] + 0.05, torch.randn(
+            (n_q - n_q // 2, d), generator=g, device=cuda_device)])
+        args = (ix.vectors[:storage], ix.sqnorms[:storage], q, ix.n_valid,
+                ix.scales[:storage])
+        for w in (100, 128, 2048):
+            for metric in ("sqeuclidean", "inner_product"):
+                kw = dict(k=10, metric=metric, tile_c=w, int8_compute=int8c)
+                got = fk.flat_topk_sketch(*args, **kw)
+                torch.cuda.synchronize()
+                assert chip_smoke.sketch_hold(got, args, kw)[1] <= 1.0
+    assert fk.flat_topk_sketch.launches == before + 24
+
+
+@pytest.mark.parametrize("dtype,int8c", [("float32", False),
+                                         ("bfloat16", False),
+                                         ("int8", False), ("int8", True)])
+def test_sketch_kernel_tie_order(cuda_device, dtype, int8c):
+    """Small-integer rows make every score exact whatever the order of the
+    adds, and rows stored three times tie heavily: by every ring route K2
+    must equal its plain version bit for bit (the earliest row of a class,
+    the lower class of a tie), across tiles and splits."""
+    from cuvs_rag_tpu_torch.ops import flat_kernels as fk
+
+    n, d = 50_000, 384
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randint(-2, 3, (n, d), generator=g, device=cuda_device).float()
+    x[1000:2000] = x[:1000]
+    x[30_000:31_000] = x[:1000]
+    q = torch.cat([x[:8], torch.randint(-2, 3, (8, d), generator=g,
+                                        device=cuda_device).float()])
+    v, sq = x.to(getattr(torch, dtype)), (x * x).sum(1)
+    for w in (128, 1000):
+        for metric in ("sqeuclidean", "inner_product"):
+            kw = dict(k=32, metric=metric, tile_c=w, int8_compute=int8c)
+            got = fk.flat_topk_sketch(v, sq, q, n, None, **kw)
+            want = fk.flat_topk_sketch_plain(v, sq, q, n, None, **kw)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _ivf_windows(dtype, d, g, dev, window=2048):
+    """A sorted layout of 10 lists (counts 0, 1, 31, 32, 127, 128, 129,
+    2,047, the window and more than the window) starting at arbitrary
+    rows, residual int8 rows with scales and coarse terms, and queries
+    that probe all 10 lists in their own order: (vectors, sqnorms, scales,
+    queries (17, d), offsets (17, 10), counts (17, 10), coarse or None)."""
+    from cuvs_rag_tpu_torch.ops import distance as dist_ops
+
+    counts = torch.tensor([0, 1, 31, 32, 127, 128, 129, 2047, window,
+                           window + 52], device=dev)
+    gaps = torch.randint(0, 40, (10,), generator=g, device=dev)
+    starts = torch.cumsum(gaps + torch.cat([counts.new_zeros(1), counts[:-1]]), 0)
+    cap = int(starts[-1] + counts[-1]) + 7
+    x = torch.randn((cap, d), generator=g, device=dev) / d ** 0.5
+    coarse = None
+    if dtype == "int8":
+        vectors, scales = dist_ops.quantize_rows(0.3 * x)
+        sq = ((vectors.float() * scales[:, None]) ** 2).sum(1)
+        coarse = 0.3 * torch.randn((17, 10), generator=g, device=dev)
+    else:
+        vectors = x.to(getattr(torch, dtype))
+        scales = torch.ones(cap, device=dev)
+        sq = (vectors.float() ** 2).sum(1)
+    sq[::97] += 2e30  # tombstones
+    order = torch.stack([torch.randperm(10, generator=g, device=dev)
+                         for _ in range(17)])
+    queries = x[starts[order[:, 7]] + 5] * 3 + 0.01
+    return (vectors, sq, scales, queries, starts[order].int(),
+            counts[order].int(), coarse)
+
+
+@pytest.mark.parametrize("piece", [None, 256, 0])
+@pytest.mark.parametrize("d", [40, 42, 384])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_ivf_kernel_routes_match_plain(cuda_device, dtype, d, piece):
+    """K4 by both routes (the ring where rows are whole 16-byte pieces:
+    d = 40 for fp32 and bf16, 384 for all; the older kernel at d = 42 and
+    for int8 at d = 40) and, on the ring, at the shipped window piece, 256
+    rows and the whole window, over windows that start at arbitrary rows
+    with counts 0, 1, 31, 32, 127, 128, 129, 2,047, the window and past it,
+    1% tombstones, n_q in {1, 16, 17} x k in {1, 10, 32}, both metrics:
+    within rtol 1e-5 / atol 1e-3 of the plain version (ids up to ties) and
+    within ivf_rounding_bound."""
+    from unittest import mock
+
+    import chip_smoke
+    from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
+    from cuvs_rag_tpu_torch.utils.compare import compare_topk
+
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    vectors, sq, scales, queries, offs, cnts, coarse = _ivf_windows(
+        dtype, d, g, cuda_device)
+    before = ik.ivf_scan.launches
+    with mock.patch.object(ik, "_K4_PIECE",
+                           ik._K4_PIECE if piece is None else piece):
+        for n_q in (1, 16, 17):
+            args = (vectors, sq, scales, queries[:n_q], offs[:n_q], cnts[:n_q])
+            for metric in ("sqeuclidean", "inner_product"):
+                kw = dict(window=2048, metric=metric,
+                          coarse_ip=None if coarse is None else coarse[:n_q])
+                for k in (1, 10, 32):
+                    got = ik.ivf_scan(*args, k=k, **kw)
+                    torch.cuda.synchronize()
+                    want = ik.ivf_scan_plain(*args, k=k, **kw)
+                    compare_topk(*got, *want, **chip_smoke.TOL)
+                    assert chip_smoke.ivf_hold(got, args, kw) <= 1.0
+    assert ik.ivf_scan.launches == before + 18
+
+
 def test_ivf_kernels_match_plain_versions(cuda_device):
     """K4 (k in {1, 10, 32}) and K5 (k = 600, and the few-planes
     certificate case) on fp32, bf16 and int8 IVF-Flat indexes of a
     clustered corpus with deletions, and on an index with empty and short
     lists, both metrics: scores within rtol 1e-5 / atol 1e-3, ids equal up
-    to k-th-score ties, certificate flags equal to the plain K5's."""
+    to k-th-score ties, certificate flags equal to the plain K5's; K4 also
+    within ivf_rounding_bound."""
     import chip_smoke
 
     out = chip_smoke.ivf_parity_phase(60_000, seed=0, device=cuda_device,
                                       k_large=600)
-    assert out["cases"] == 40
+    assert out["cases"] == 40 and out["k4_over_allowed"] <= 1.0
+    assert set(out["k4_route"].values()) == {"ring"}
 
 
 def test_search_launches_each_kernel(cuda_device):

@@ -398,3 +398,79 @@ def test_ring_sweep_variants_apply_to_the_source():
     assert len(set(texts)) == len(texts)
     with pytest.raises(RuntimeError):
         ring_sweep.variants(source.replace("RING_STAGES", "STAGES"))
+
+
+# ---------------------------------------------- K2's routes and splits ----
+
+
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 40, 42, 64, 96, 384, 1024,
+                               1056, 2048, 2080])
+@pytest.mark.parametrize("dtype,int8_compute", [
+    (torch.float32, False), (torch.bfloat16, False), (torch.int8, False),
+    (torch.int8, True)])
+def test_sketch_route_table(dtype, int8_compute, d):
+    """K2 takes K1's ring where K1 does (tensor cores for bf16 and int8 rows
+    of whole 32-byte units, fp32 FMAs for fp32 rows of whole 16-byte
+    pieces, a query tile that fits), int8 x int8 under the same rule on
+    the int8 product; every other depth keeps the older kernel."""
+    row_bytes = d * {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[dtype]
+    if d > 2048:
+        want = "cores"
+    elif dtype == torch.float32:
+        want = "ring_fp32" if row_bytes % 16 == 0 else "cores"
+    elif row_bytes % 32:
+        want = "cores"
+    else:
+        want = "ring_int8" if int8_compute else "ring"
+    assert fk.sketch_route(dtype, d, int8_compute) == want
+    with pytest.raises(ValueError):
+        fk.sketch_route(torch.bfloat16, d, True)  # int8 queries need int8 rows
+
+
+def _sketch_walk(n, w, per, n_splits):
+    """sketch_ring_kernel's row walk, as its index arithmetic forms it:
+    {(class chunk c0, split): [(first row, live rows) of each tile, in the
+    order the block streams them]}."""
+    out = {}
+    for c0 in range(0, w, fk._TC):
+        n_class = min(fk._TC, w - c0)
+        tiles_all = -(-(n - c0) // w) if n > c0 else 0
+        for s in range(n_splits):
+            j0 = s * per
+            tiles = range(j0, max(j0, min(tiles_all, j0 + per)))
+            out[(c0, s)] = [(j * w + c0, min(n_class, n - (j * w + c0)))
+                            for j in tiles]
+    return out
+
+
+@pytest.mark.parametrize("sm_count", [1, 132])
+@pytest.mark.parametrize("n_q", [1, 16, 40])
+@pytest.mark.parametrize("w", [1, 100, 128, 130, 2048])
+@pytest.mark.parametrize("n", [1, 127, 2049, 100_003, 6_290_000])
+def test_class_splits_cover_every_class_tile_once(n, w, n_q, sm_count):
+    """K2's split plan, by both routes: every row of the corpus is streamed
+    by exactly one block of each query tile, each block walks its tiles in
+    ascending row order (the strict > of its running best then keeps the
+    earliest row of a tie), the splits of a class chunk follow each other
+    in row order (the merge reads them so), and the ring routes run in one
+    wave of two blocks an SM."""
+    for blocks_per_sm in (fk._RING_BLOCKS_PER_SM, fk._BLOCKS_PER_SM):
+        per, n_splits = fk._class_splits(n, n_q, w, sm_count, blocks_per_sm)
+        n_tiles = -(-n // w)
+        assert per >= 1 and (n_splits - 1) * per < n_tiles <= n_splits * per
+        blocks = -(-n_q // fk._TQ) * -(-w // fk._TC)
+        assert n_splits == 1 or n_splits * blocks <= blocks_per_sm * sm_count
+        if n > 200_000:
+            continue  # the walk below is for corpora small enough to list
+        walk = _sketch_walk(n, w, per, n_splits)
+        rows = []
+        for c0 in range(0, w, fk._TC):
+            last = -1
+            for s in range(n_splits):
+                for row0, live in walk[(c0, s)]:
+                    assert row0 > last and live >= 1  # ascending, never empty
+                    last = row0
+                    rows.append(np.arange(row0, row0 + live))
+        rows = np.concatenate(rows)
+        assert rows.size == n
+        assert np.array_equal(np.sort(rows), np.arange(n))

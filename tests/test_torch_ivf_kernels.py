@@ -221,3 +221,257 @@ def test_wrappers_reject_bad_inputs(ragged_layout):
         ik.ivf_scan_large(*tlay, q, o, c, k=2000, window=384,
                           metric="sqeuclidean", n_sub=3, r_planes=2)
     assert ik.ivf_scan.launches == 0 and ik.ivf_scan_large.launches == 0
+
+
+# ------------------------------------------ K4's route and piece plan ----
+
+
+@pytest.mark.parametrize("d", [4, 8, 12, 16, 40, 42, 64, 100, 384, 2048, 2064])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_ivf_route_table(dtype, d):
+    """K4 streams windows through the ring where every window start is a
+    16-byte boundary of the layout (rows of a multiple of 16 bytes) and the
+    query fits beside the ring; other depths keep the older kernel."""
+    row_bytes = d * {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[dtype]
+    want = "ring" if row_bytes % 16 == 0 and d <= 2048 else "cores"
+    assert ik.ivf_route(dtype, d) == want
+    with pytest.raises(ValueError):
+        ik.ivf_route(torch.float16, d)
+
+
+@pytest.mark.parametrize("pairs", [1, 20, 320, 5000])
+@pytest.mark.parametrize("window", [1, 100, 128, 129, 1024, 2048, 2049])
+@pytest.mark.parametrize("route,piece", [
+    ("cores", None), ("ring", None), ("ring", 256), ("ring", 512),
+    ("ring", 1024), ("ring", 0)])
+def test_k4_pieces_cover_each_window_once(window, route, piece, pairs):
+    """Every (query, probe) scans window rows [0, min(count, window)) once
+    over its blocks, counts 0 and past the window included; blocks past the
+    count read nothing; the ring's pieces are whole 128-row tiles."""
+    per, n_pieces = ik.k4_pieces(window, route, pairs, 132, piece)
+    assert n_pieces * per >= window > (n_pieces - 1) * per
+    if route == "ring":
+        assert per % 128 == 0
+    for count in (0, 1, 31, 32, 127, 128, 129, 2047, window - 1, window,
+                  window + 1, 5000):
+        count = max(count, 0)
+        seen = np.zeros(window, np.int64)
+        for c in range(n_pieces):
+            start, stop = ik.k4_piece_rows(count, window, per, c)
+            assert start <= stop
+            if c * per >= min(count, window):
+                assert start == stop  # a block past the count reads nothing
+            seen[start:stop] += 1
+        live = min(count, window)
+        assert (seen[:live] == 1).all() and (seen[live:] == 0).all()
+
+
+def test_k4_piece_rule():
+    """The ring's piece: the largest that still gives 4 blocks an SM over
+    the call's pairs, the smallest where none does; the main path's 16
+    queries x 20 probes over a 2,048-row window take 1,024 rows, one query
+    256."""
+    assert ik.k4_pieces(2048, "ring", 320, 132) == (1024, 2)
+    assert ik.k4_pieces(2048, "ring", 20, 132) == (256, 8)
+    assert ik.k4_pieces(2048, "ring", 80, 132) == (256, 8)
+    assert ik.k4_pieces(2048, "ring", 150, 132) == (512, 4)
+    assert ik.k4_pieces(2048, "ring", 5000, 132) == (1024, 2)
+    assert ik.k4_pieces(100, "ring", 5000, 132) == (1024, 1)
+    for pairs in (1, 20, 320, 5000):
+        per, n = ik.k4_pieces(2048, "ring", pairs, 132)
+        assert per in ik._K4_PIECES
+        bigger = [p for p in ik._K4_PIECES if p > per]
+        assert all(pairs * -(-2048 // p) < 4 * 132 for p in bigger)
+    assert ik.k4_pieces(2048, "cores", 320, 132) == (256, 8)
+
+
+# ------------------------------------------- K4's rounding bound ----------
+# The card's K4 ring route sums each row's products in fp32 with FMAs, two
+# threads a row taking the first and the second half of every 128-byte
+# chunk's 16-byte pieces, and adds the halves at the end; then the
+# epilogue of `_window_scores_plain`. The CPU cannot run it, so what is held
+# here is the bound the card holds it to (`ivf_rounding_bound`).
+
+
+def _layout(dtype, seed, d=96, q_n=5, p_n=4, window=160):
+    """A synthetic sorted layout of unit-scale rows (int8: residuals with
+    row scales and coarse terms), queries, and disjoint probe windows
+    starting at any row, with counts 0, short, full and past the window."""
+    rng = np.random.default_rng(seed)
+    lists = p_n + 3
+    cap = lists * (window + 60)
+    x = rng.standard_normal((cap, d)).astype(np.float32) / np.sqrt(d)
+    queries = rng.standard_normal((q_n, d)).astype(np.float32) / np.sqrt(d)
+    if dtype == "int8":
+        from cuvs_rag_tpu_torch.ops import distance as dist_ops
+
+        v, scales = dist_ops.quantize_rows(torch.from_numpy(0.3 * x))
+        sq = ((v.float() * scales[:, None]) ** 2).sum(1)
+        coarse = torch.from_numpy(
+            0.3 * rng.standard_normal((q_n, p_n)).astype(np.float32))
+    else:
+        v = torch.from_numpy(x).to(getattr(torch, dtype))
+        scales, coarse = torch.ones(cap), None
+        sq = (v.float() ** 2).sum(1)
+    offs = np.stack([rng.permutation(lists)[:p_n] for _ in range(q_n)])
+    offs = (offs * (window + 60) + rng.integers(0, 50, (q_n, p_n))).astype(
+        np.int32)
+    cnts = rng.integers(1, window, (q_n, p_n)).astype(np.int32)
+    cnts[0, 0], cnts[1, 1], cnts[2, 2] = 0, window, window + 50
+    return (v, sq, scales, torch.from_numpy(queries), torch.from_numpy(offs),
+            torch.from_numpy(cnts), coarse, window)
+
+
+def _fp32_sum(acc, part):
+    """fp32 acc + an exact fp64 part, rounded once (an FMA's rounding)."""
+    return (acc.astype(np.float64) + part).astype(np.float32)
+
+
+def _emulate_k4(v, sq, scales, queries, offs, cnts, coarse, window, metric,
+                *, drop_piece=None, scale=True, add_coarse=True):
+    """K4's ring route in numpy, on every live window slot: (Q, P, window)
+    fp32 scores, -inf past each count."""
+    from cuvs_rag_tpu_torch.ops import topk as topk_ops
+
+    cap, d = v.shape
+    esize = v.element_size()
+    qv = queries.to(topk_ops.query_dtype(v.dtype)).double().numpy()
+    xv = v.double().numpy()
+    sv, sqv = scales.numpy(), sq.numpy()
+    cf = (coarse.numpy() if coarse is not None
+          else np.zeros(offs.shape, np.float32))
+    scaled = v.dtype == torch.int8
+    per_piece = 16 // esize
+    n_pieces = d // per_piece
+    out = np.full(offs.shape + (window,), -np.inf, np.float32)
+    for qi in range(offs.shape[0]):
+        for pi in range(offs.shape[1]):
+            live = min(int(cnts[qi, pi]), window)
+            rows = int(offs[qi, pi]) + np.arange(live)
+            halves = [np.zeros(live, np.float32), np.zeros(live, np.float32)]
+            for c0 in range(0, n_pieces, 8):  # 128-byte chunks
+                pieces = min(8, n_pieces - c0)
+                mid = (pieces + 1) // 2
+                for p in range(pieces):
+                    if c0 + p == drop_piece:
+                        continue
+                    h = 0 if p < mid else 1
+                    for e in range((c0 + p) * per_piece,
+                                   (c0 + p + 1) * per_piece):
+                        halves[h] = _fp32_sum(halves[h], xv[rows, e] * qv[qi, e])
+            dot = _fp32_sum(halves[0], halves[1].astype(np.float64))
+            ip = (dot * sv[rows]).astype(np.float32) if scaled and scale else dot
+            c = np.float32(cf[qi, pi]) if scaled and add_coarse else np.float32(0)
+            aux0 = sqv[rows]
+            if metric == "sqeuclidean":
+                s = (np.float32(2) * ip - aux0).astype(np.float32) + c
+            else:
+                s = (ip + c) - np.maximum(aux0 - np.float32(1e29), 0)
+            out[qi, pi, :live] = s
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+def test_ivf_rounding_bound_matches_fp64_reference(dtype, metric):
+    from cuvs_rag_tpu_torch.ops import topk as topk_ops
+
+    v, sq, scales, queries, offs, cnts, coarse, window = _layout(dtype, 31)
+    want, allowed = ik.ivf_rounding_bound(
+        v, sq, scales, queries, offs, cnts, window=window, metric=metric,
+        coarse_ip=coarse)
+    q_n, p_n = offs.shape
+    cap, d = v.shape
+    qv = queries.to(topk_ops.query_dtype(v.dtype)).double().numpy()
+    xv, sv, sqv = v.double().numpy(), scales.double().numpy(), \
+        sq.double().numpy()
+    scaled = dtype == "int8"
+    mult = 2.0 if metric == "sqeuclidean" else 1.0
+    u = 2.0 ** -24
+    for qi in range(q_n):
+        for pi in range(p_n):
+            rows = np.minimum(int(offs[qi, pi]) + np.arange(window), cap - 1)
+            ip = xv[rows] @ qv[qi]
+            mag = np.abs(xv[rows]) @ np.abs(qv[qi])
+            s = sv[rows] if scaled else np.ones(window)
+            cf = float(coarse[qi, pi]) if scaled else 0.0
+            term = mult * s * ip
+            first = term - sqv[rows] if metric == "sqeuclidean" else term + cf
+            ref = first + cf if metric == "sqeuclidean" else first
+            ref_allowed = (mult * np.abs(s) * 2 * d * u * mag + u * np.abs(term)
+                           + u * np.abs(first) + u * np.abs(ref))
+            np.testing.assert_allclose(want[qi, pi].numpy(), ref, rtol=1e-12,
+                                       atol=1e-12)
+            np.testing.assert_allclose(allowed[qi, pi].numpy(), ref_allowed,
+                                       rtol=1e-12)
+    assert want.dtype == torch.float64 and want.shape == (q_n, p_n, window)
+    # tight enough to hold something: far below the outer atol of 1e-3
+    assert float(allowed.max()) < 1e-4
+    # at chosen positions: the same numbers, each with its own probe's coarse
+    s, pos = ik.ivf_scan(v, sq, scales, queries, offs, cnts, k=10,
+                         window=window, metric=metric, coarse_ip=coarse)
+    w, a = ik.ivf_rounding_bound(v, sq, scales, queries, offs, cnts,
+                                 window=window, metric=metric,
+                                 coarse_ip=coarse, positions=pos)
+    full_pos = offs.long()[:, :, None] + torch.arange(window)
+    for qi in range(q_n):
+        for j in range(10):
+            if pos[qi, j] < 0:
+                continue
+            live = full_pos[qi] < (offs.long()[qi, :, None]
+                                   + cnts.long().clamp(max=window)[qi, :, None])
+            pi, col = (full_pos[qi] == pos[qi, j]).logical_and(live).nonzero()[0]
+            assert w[qi, j] == want[qi, pi, col] and a[qi, j] == allowed[qi, pi, col]
+    # the plain version is inside its own bound
+    assert bool(((s.double() - w).abs() <= a)[pos >= 0].all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+def test_k4_order_emulation_stays_within_bound(dtype, metric):
+    lay = _layout(dtype, 32)
+    v, sq, scales, queries, offs, cnts, coarse, window = lay
+    want, allowed = ik.ivf_rounding_bound(
+        v, sq, scales, queries, offs, cnts, window=window, metric=metric,
+        coarse_ip=coarse)
+    got = _emulate_k4(*lay, metric)
+    live = np.isfinite(got)
+    ratio = np.abs(got - want.numpy())[live] / allowed.numpy()[live]
+    assert live.sum() > 1000 and ratio.max() <= 1.0
+    if dtype == "float32":  # rounded products and sums: the bound is used
+        assert ratio.max() > 1e-3
+
+
+@pytest.mark.parametrize("fault", ["dropped_piece", "missing_scale",
+                                   "missing_coarse"])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+def test_k4_planted_faults_break_the_bound(fault, metric):
+    """Each would be a kernel that reads or adds one thing fewer; none stays
+    within ten times the rounding bound."""
+    lay = _layout("int8", 33)
+    v, sq, scales, queries, offs, cnts, coarse, window = lay
+    want, allowed = ik.ivf_rounding_bound(
+        v, sq, scales, queries, offs, cnts, window=window, metric=metric,
+        coarse_ip=coarse)
+    kw = {"dropped_piece": dict(drop_piece=3),
+          "missing_scale": dict(scale=False),
+          "missing_coarse": dict(add_coarse=False)}[fault]
+    got = _emulate_k4(*lay, metric, **kw)
+    live = np.isfinite(got)
+    ratio = np.abs(got - want.numpy())[live] / allowed.numpy()[live]
+    assert ratio.min() > 10.0
+
+
+def test_k4_sweep_variant_applies_to_the_source():
+    """eval/k4_sweep.py builds K4's tensor-core variant by replacing one
+    constant of csrc/ivf_scan.cu: the text must still be there, and the
+    pieces the wrapper chooses from must be among those it times."""
+    from cuvs_rag_tpu_torch.eval import k4_sweep
+    from cuvs_rag_tpu_torch.kernels import build
+
+    source = (build.CSRC / "ivf_scan.cu").read_text()
+    made = k4_sweep.tensor_variant(source)
+    assert made != source and k4_sweep.TENSOR[1] in made
+    with pytest.raises(RuntimeError):
+        k4_sweep.tensor_variant(made)
+    assert set(ik._K4_PIECES) <= set(k4_sweep.PIECES.values())
