@@ -1461,15 +1461,24 @@ def flat_bound(vectors, sqnorms, q, n_valid, scales, *, k, **_):
 
 
 def ivf_bound(vectors, sqnorms, scales, q, offs, cnts, *, k, window, **_):
-    """A probed scan reads this run's live window rows (each with its
-    sqnorm and scale), the queries and the (Q, P) offsets and counts, and
-    writes (Q, k) scores and positions; 2·D operations per live row."""
-    live = int(cnts.clamp(max=window).sum())
+    """A probed scan reads each live window row of this run once (with its
+    sqnorm and scale), however many queries probe its list, the queries
+    and the (Q, P) offsets and counts, and writes (Q, k) scores and
+    positions; 2·D operations per live row of each (query, probe) pair.
+    "pair_rows" counts a list once for every pair that probes it."""
+    import torch
+
+    live = cnts.clamp(max=window)
+    pair_rows = int(live.sum())
+    # lists are disjoint runs of the layout: a list is its (offset, count)
+    hit = live > 0
+    rows = int(torch.unique(torch.stack([offs[hit], live[hit]]), dim=1)[1].sum())
     d = vectors.shape[1]
     kind = {2: "bf16", 1: "int8", 4: "fp32"}[vectors.element_size()]
-    return bound(live * (d * vectors.element_size() + 8)
-                 + nbytes(q, offs, cnts) + q.shape[0] * k * 8,
-                 2.0 * live * d, kind)
+    return {**bound(rows * (d * vectors.element_size() + 8)
+                    + nbytes(q, offs, cnts) + q.shape[0] * k * 8,
+                    2.0 * pair_rows * d, kind),
+            "rows": rows, "pair_rows": pair_rows}
 
 
 def pq_bound(codes, row_ids, corr, luts, offs, cnts, coarse, *, window):
@@ -1663,9 +1672,9 @@ def timing_phase(flat_r, ivf_r, pq_r, ooc_r, enc, texts, launches: dict):
                 for n, qs in ((BATCH, q), (1, q1))]
         elif name == "ivf_scan":
             extra["max_err_over_allowed"] = ivf_hold(got, args, kw)
-            extra["device_ms"] = ivf_scan_times(args, kw)["device_ms"]
             e2e["ivf_scan_shapes"] = [ivf_shape_row(
                 f"{BATCH} x {N_PROBES} probes, window {kw['window']}", args, kw)]
+            extra["device_ms"] = e2e["ivf_scan_shapes"][0]["device_ms"]
             p1 = ivf_flat.probe(iv, q1, N_PROBES)[0].long()
             e2e["ivf_scan_shapes"].append(ivf_shape_row(
                 f"1 x {N_PROBES} probes, window {kw['window']}",

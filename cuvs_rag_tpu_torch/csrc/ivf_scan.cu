@@ -59,11 +59,6 @@ constexpr int RB = 4;            // rows a warp scores at once
 // K4's ring: K1's sizes (flat_topk.cu RING_STAGES, RING_CHUNK)
 constexpr int IVF_STAGES = 3;
 constexpr int IVF_CHUNK = 128;
-// The ring route's products: false multiplies on the CUDA cores in fp32;
-// true (bf16 and int8 rows of a multiple of 32 bytes) takes K1's tensor-core
-// step with the query as the one live row of M = 16 (eval/k4_sweep.py
-// builds and times both).
-constexpr bool K4_TENSOR_CORES = false;
 
 // A window row's score from its dot product with the query, its sqnorm
 // slot and its scale, exactly as `_window_scores_plain` forms it: the row
@@ -186,11 +181,11 @@ __global__ void __launch_bounds__(K4_THREADS) ivf_scan_kernel(
 // the ring's pitch), multiplies it with the query held as fp32 in shared
 // memory and adds in fp32; at a tile's end the two halves add up, and warp
 // w offers its 16 rows to its warp-held top-k. Warp 0 merges the 8 warps'.
-// MODE 0: bf16 rows; 1: int8 rows (bf16 queries); 2: fp32 rows. With
-// K4_TENSOR_CORES, MODE 0 / 1 multiply with mma_chunk instead (the query
-// tile is this query and 15 zero rows) and the dots pass through a score
-// tile in shared memory. Partials (n_q, n_probe * n_pieces, k); a piece
-// past the count writes -inf / -1 without reading anything.
+// MODE 0: bf16 rows; 1: int8 rows (bf16 queries); 2: fp32 rows. (K1's
+// tensor-core step with the query as the one live row of M = 16 was
+// measured slower at every piece size: PERF.md.) Partials (n_q, n_probe *
+// n_pieces, k); a piece past the count writes -inf / -1 without reading
+// anything.
 template <int MODE>
 __global__ void __launch_bounds__(THREADS, 2) ivf_ring_kernel(
     const void* __restrict__ q, const unsigned char* __restrict__ x,
@@ -202,18 +197,12 @@ __global__ void __launch_bounds__(THREADS, 2) ivf_ring_kernel(
   extern __shared__ __align__(128) unsigned char ring_smem[];
   __shared__ float ws[THREADS / 32][32];
   __shared__ int wi[THREADS / 32][32];
-  constexpr bool TENSOR = K4_TENSOR_CORES && MODE != 2;
   constexpr int ESIZE = MODE == 2 ? 4 : MODE == 0 ? 2 : 1;  // bytes a row value
   const int row_bytes = ESIZE * d;
   const int pitch = chunk_bytes + 16;
   const int stage_bytes = TC * pitch;
-  // the query: fp32 [d] (CUDA cores) or the staged tile [TQ][2 d + 16] and
-  // its score tile [TQ][SCORE_PITCH] (tensor cores); then the ring
-  const int q_pitch = 2 * d + 16;
-  const int front = TENSOR ? TQ * q_pitch + TQ * SCORE_PITCH * 4 : (4 * d + 127) / 128 * 128;
-  float* s_q = reinterpret_cast<float*>(ring_smem);
-  float* s_sc = reinterpret_cast<float*>(ring_smem + TQ * q_pitch);
-  unsigned char* s_ring = ring_smem + front;
+  float* s_q = reinterpret_cast<float*>(ring_smem);  // the query, fp32 [d]
+  unsigned char* s_ring = ring_smem + (4 * d + 127) / 128 * 128;
   const uint32_t ring_a = smem_u32(s_ring);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -251,24 +240,14 @@ __global__ void __launch_bounds__(THREADS, 2) ivf_ring_kernel(
   };
 #pragma unroll
   for (int c = 0; c < IVF_STAGES - 1; ++c) load_next(c);
-  if constexpr (TENSOR) {
-    stage_query_tile<MODE>(ring_smem, q_pitch, q, qq, qq + 1, d);
-  } else {
-    using QT = typename std::conditional<MODE == 2, float, __nv_bfloat16>::type;
-    for (int c = tid; c < d; c += THREADS)
-      s_q[c] = load_f(static_cast<const QT*>(q) + (long long)qq * d + c);
-  }
-  const int mat = lane >> 3;
-  const uint32_t a_lane =
-      smem_u32(ring_smem) + ((lane & 7) + (mat & 1) * 8) * q_pitch + (mat >> 1) * 16;
-  const uint32_t b_lane =
-      (warp * 16 + (lane & 7) + (mat >> 1) * 8) * pitch + (mat & 1) * 16;
+  using QT = typename std::conditional<MODE == 2, float, __nv_bfloat16>::type;
+  for (int c = tid; c < d; c += THREADS)
+    s_q[c] = load_f(static_cast<const QT*>(q) + (long long)qq * d + c);
 
   const float cf = coarse[pidx];
   const int r = tid >> 1, half = tid & 1;  // this thread's row of a tile
   float aux0 = 0.f, rscale = 1.f;          // its sqnorm slot and scale
   float acc = 0.f;
-  float frag[2][4] = {};
   WarpTopK top;
   top.init();
   int tile = 0, dc = 0;
@@ -285,26 +264,21 @@ __global__ void __launch_bounds__(THREADS, 2) ivf_ring_kernel(
     }
     const int byte0 = dc * chunk_bytes;
     const int width = min(chunk_bytes, row_bytes - byte0);
-    const unsigned char* stage = s_ring + (chunk % IVF_STAGES) * stage_bytes;
-    if constexpr (TENSOR) {
-      mma_chunk<MODE>(frag, a_lane + (MODE == 1 ? 2 * byte0 : byte0),
-                      ring_a + (chunk % IVF_STAGES) * stage_bytes + b_lane,
-                      width >> 5);
-    } else {
-      const int pieces = width >> 4, mid = (pieces + 1) >> 1;
-      const unsigned char* row = stage + r * pitch;
-      const int p1 = half ? pieces : mid;
-      for (int p = half ? mid : 0; p < p1; ++p) {
-        const uint4 v = *reinterpret_cast<const uint4*>(row + p * 16);
-        const float* qv = s_q + (byte0 + p * 16) / ESIZE;
+    const int pieces = width >> 4, mid = (pieces + 1) >> 1;
+    const unsigned char* row = s_ring + (chunk % IVF_STAGES) * stage_bytes + r * pitch;
+    const int p1 = half ? pieces : mid;
+    for (int p = half ? mid : 0; p < p1; ++p) {
+      const uint4 v = *reinterpret_cast<const uint4*>(row + p * 16);
+      const float* qv = s_q + (byte0 + p * 16) / ESIZE;
+      if constexpr (MODE == 2) {
+        const float4 a = *reinterpret_cast<const float4*>(qv);
+        acc = fmaf(a.x, __uint_as_float(v.x), acc);
+        acc = fmaf(a.y, __uint_as_float(v.y), acc);
+        acc = fmaf(a.z, __uint_as_float(v.z), acc);
+        acc = fmaf(a.w, __uint_as_float(v.w), acc);
+      } else {
         const uint32_t words[4] = {v.x, v.y, v.z, v.w};
-        if constexpr (MODE == 2) {
-          const float4 a = *reinterpret_cast<const float4*>(qv);
-          acc = fmaf(a.x, __uint_as_float(v.x), acc);
-          acc = fmaf(a.y, __uint_as_float(v.y), acc);
-          acc = fmaf(a.z, __uint_as_float(v.z), acc);
-          acc = fmaf(a.w, __uint_as_float(v.w), acc);
-        } else if constexpr (MODE == 0) {
+        if constexpr (MODE == 0) {  // two bf16 a word
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const float4 a = *reinterpret_cast<const float4*>(qv + 4 * h);
@@ -313,7 +287,7 @@ __global__ void __launch_bounds__(THREADS, 2) ivf_ring_kernel(
             acc = fmaf(a.z, __uint_as_float(words[2 * h + 1] << 16), acc);
             acc = fmaf(a.w, __uint_as_float(words[2 * h + 1] & 0xffff0000u), acc);
           }
-        } else {
+        } else {  // four int8 a word
 #pragma unroll
           for (int h = 0; h < 4; ++h) {
             const float4 a = *reinterpret_cast<const float4*>(qv + 4 * h);
@@ -329,25 +303,8 @@ __global__ void __launch_bounds__(THREADS, 2) ivf_ring_kernel(
     if (++dc < n_dc) continue;
     dc = 0;
 
-    float dot;
-    if constexpr (TENSOR) {
-      // query 0's row of the fragments -> shared memory -> row t / 2
-      if ((lane >> 2) == 0) {
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-          *reinterpret_cast<float2*>(s_sc + warp * 16 + nt * 8 + (lane & 3) * 2) =
-              make_float2(frag[nt][0], frag[nt][1]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) frag[nt][j] = 0.f;
-      __syncthreads();
-      dot = s_sc[r];
-    } else {
-      dot = acc + __shfl_xor_sync(FULL, acc, 1);  // the same sum in both lanes
-      acc = 0.f;
-    }
+    const float dot = acc + __shfl_xor_sync(FULL, acc, 1);  // the same sum in both lanes
+    acc = 0.f;
     float v = neg_inf();
     if (half == 0 && row_in < n_rows)
       v = window_score(dot, aux0, rscale, metric_sq, scaled, cf);
@@ -465,15 +422,12 @@ int ivf_scan_topk(int combo, int ring, const void* q, const void* x,
   if (ring) {
     const int mode = combo == F32 ? 2 : combo == BF16 ? 0 : 1;
     const int row_bytes = (mode == 2 ? 4 : mode == 0 ? 2 : 1) * d;
-    const bool tensor = K4_TENSOR_CORES && mode != 2;
-    if (piece % TC != 0 || row_bytes % (tensor ? 32 : 16) != 0 ||
-        (uintptr_t)x % 16 != 0)
+    if (piece % TC != 0 || row_bytes % 16 != 0 || (uintptr_t)x % 16 != 0)
       return (int)cudaErrorInvalidValue;
     const int chunk_bytes = std::min(IVF_CHUNK, row_bytes);
     const int n_dc = (row_bytes + chunk_bytes - 1) / chunk_bytes;
-    const int front = tensor ? TQ * (2 * d + 16) + TQ * SCORE_PITCH * 4
-                             : (4 * d + 127) / 128 * 128;
-    const int smem = front + IVF_STAGES * TC * (chunk_bytes + 16);
+    // the fp32 query, then the ring
+    const int smem = (4 * d + 127) / 128 * 128 + IVF_STAGES * TC * (chunk_bytes + 16);
     // beside the 2 KB of the warps' top-k in static shared memory
     if (smem > MAX_SMEM - 2 * 1024) return (int)cudaErrorInvalidValue;
 #define LAUNCH_IVF_RING(MODE)                                                \

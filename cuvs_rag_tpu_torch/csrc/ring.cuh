@@ -1,4 +1,4 @@
-// The copy ring and tensor-core helpers shared by the ring-fed kernels of
+// The copy ring and tensor-core helpers of the ring-fed kernels of
 // flat_topk.cu (K1, K2) and ivf_scan.cu (K4): a block of THREADS threads
 // streams tiles of TC consecutive corpus rows, one depth chunk at a time,
 // by 16-byte cp.async copies into stages of dynamic shared memory, and
@@ -118,78 +118,6 @@ struct RingLoader {
     }
   }
 };
-
-// The products of one ring chunk on the tensor cores: warp w multiplies the
-// TQ staged queries (A, from `a_addr`) with rows [16 w, 16 w + 16) of the
-// stage (B, from `b_addr`: two 8-row mma tiles) over `units` 32-byte units
-// of the rows. MODE 0: bf16 rows and queries; 1: int8 rows widened to bf16
-// in registers, the queries staged in the matching depth order (see
-// stage_query_tile; 64 bytes of queries a unit); 3: int8 rows and int8
-// queries, exact int32 sums.
-template <int MODE, typename Acc>
-__device__ __forceinline__ void mma_chunk(Acc (&acc)[2][4], uint32_t a_addr,
-                                          uint32_t b_addr, int units) {
-#pragma unroll 4
-  for (int u = 0; u < units; ++u) {
-    uint32_t b[4];
-    ldmatrix_x4(b, b_addr + u * 32);
-    if constexpr (MODE == 1) {
-      uint32_t a0[4], a1[4], lo, hi;
-      ldmatrix_x4(a0, a_addr + u * 64);
-      ldmatrix_x4(a1, a_addr + u * 64 + 32);
-      widen_int8(b[0], lo, hi);
-      mma_16x8x16(acc[0], a0, lo, hi);
-      widen_int8(b[2], lo, hi);
-      mma_16x8x16(acc[1], a0, lo, hi);
-      widen_int8(b[1], lo, hi);
-      mma_16x8x16(acc[0], a1, lo, hi);
-      widen_int8(b[3], lo, hi);
-      mma_16x8x16(acc[1], a1, lo, hi);
-    } else {
-      uint32_t a[4];
-      ldmatrix_x4(a, a_addr + u * 32);
-      if constexpr (MODE == 3) {
-        mma_16x8x32_s8(acc[0], a, b[0], b[1]);
-        mma_16x8x32_s8(acc[1], a, b[2], b[3]);
-      } else {
-        mma_16x8x16(acc[0], a, b[0], b[1]);
-        mma_16x8x16(acc[1], a, b[2], b[3]);
-      }
-    }
-  }
-}
-
-// Stage the query tile [q0, q0 + TQ) (zeros past n_q) at `s_q`, `q_pitch`
-// bytes a query, in the layout mma_chunk<MODE> reads: MODE 0 bf16, 2 fp32
-// and 3 int8 as they are; MODE 1 bf16 with each 16-step's depths permuted,
-// since an ldmatrix register of int8 rows holds depths 4t .. 4t + 3 of a
-// 16-step (t = lane % 4) where the bf16 mma wants 2t, 2t + 1, 8 + 2t,
-// 9 + 2t (a dot product does not mind the order).
-template <int MODE>
-__device__ __forceinline__ void stage_query_tile(unsigned char* s_q, int q_pitch,
-                                                 const void* q, int q0, int n_q,
-                                                 int d) {
-  for (int e = threadIdx.x; e < TQ * d; e += THREADS) {
-    const int r = e / d, c = e % d;
-    const bool live = q0 + r < n_q;
-    const long long src = (long long)(q0 + r) * d + c;
-    if constexpr (MODE == 2) {
-      reinterpret_cast<float*>(s_q + r * q_pitch)[c] =
-          live ? static_cast<const float*>(q)[src] : 0.f;
-    } else if constexpr (MODE == 3) {
-      reinterpret_cast<int8_t*>(s_q + r * q_pitch)[c] =
-          live ? static_cast<const int8_t*>(q)[src] : (int8_t)0;
-    } else {
-      int col = c;
-      if (MODE == 1) {
-        const int t = (c & 15) >> 2, j = c & 3;
-        col = (c & ~15) | (j < 2 ? 2 * t + j : 8 + 2 * t + (j - 2));
-      }
-      reinterpret_cast<__nv_bfloat16*>(s_q + r * q_pitch)[col] =
-          live ? static_cast<const __nv_bfloat16*>(q)[src] : __float2bfloat16(0.f);
-    }
-  }
-}
 
 constexpr int MAX_DEVICES = 64;
 

@@ -1,14 +1,12 @@
-"""K4's ring route (`csrc/ivf_scan.cu`, `ivf_ring_kernel`) at other window
-pieces and with the other product design, beside the older kernel, to show
-why it ships what it ships:
+"""K4's ring route (`csrc/ivf_scan.cu`, `ivf_ring_kernel`) at each window
+piece, beside the older kernel, to show why it takes the pieces it takes:
 
     python cuvs_rag_tpu_torch/eval/k4_sweep.py [--seed 0]
 
 Variants: the older kernel (`ivf_scan_kernel`, 256-row chunks, the "cores"
-route); the ring with fp32 FMAs on the CUDA cores (the source as it is)
-and, rebuilt with `K4_TENSOR_CORES = true`, with K1's tensor-core step
-(the query as one live row of M = 16), each at window pieces of 256, 512,
-1,024 rows and the whole window. Called through `ops/ivf_kernels.ivf_scan`
+route); the ring at window pieces of 256, 512, 1,024 rows and the whole
+window (`ops/ivf_kernels._K4_PIECE` set), and as it ships ("ring_rule":
+`k4_pieces` chooses from the call's pairs). Called through `ops/ivf_kernels.ivf_scan`
 in two rounds over an IVF-Flat index of 6,290,000 x 384 bf16 clustered
 rows (default params: 6,290 lists, window <= 2,048) at 20 probes, k = 10,
 for 16 queries and one: the device ms of the scan and its merge a call
@@ -34,17 +32,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 PIECES = {"256": 256, "512": 512, "1024": 1024, "whole": 0}
-TENSOR = ("constexpr bool K4_TENSOR_CORES = false;",
-          "constexpr bool K4_TENSOR_CORES = true;")
 # K4's kernels as the profiler names them: either scan, and the merge
 KERNELS = ("ivf_ring_kernel", "ivf_scan_kernel", "merge_partials_kernel")
-
-
-def tensor_variant(source: str) -> str:
-    """csrc/ivf_scan.cu with the tensor-core products."""
-    if TENSOR[0] not in source:
-        raise RuntimeError(f"the source has no {TENSOR[0]!r}")
-    return source.replace(*TENSOR)
 
 
 def main() -> int:
@@ -55,7 +44,6 @@ def main() -> int:
 
     import torch
 
-    from cuvs_rag_tpu_torch.eval.ring_sweep import build_variants
     from cuvs_rag_tpu_torch.eval.roofline import cuda_ms, device_ms, gpu_line
     from cuvs_rag_tpu_torch.index import ivf_flat
     from cuvs_rag_tpu_torch.kernels import build
@@ -68,9 +56,6 @@ def main() -> int:
         return 1
     print(gpu_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    source = "ivf_scan.cu"
-    paths = build_variants(source, "k4_sweep", {
-        "tensor": tensor_variant((build.CSRC / source).read_text())})
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     unit = torch.nn.functional.normalize
@@ -86,12 +71,10 @@ def main() -> int:
     def cores(dtype, d):
         return "cores"
 
-    variants = {"cores_256": [mock.patch.object(ik, "ivf_route", cores)]}
+    variants = {"cores_256": [mock.patch.object(ik, "ivf_route", cores)],
+                "ring_rule": []}
     for name, piece in PIECES.items():
-        variants[f"ring_fma_{name}"] = [mock.patch.object(ik, "_K4_PIECE", piece)]
-        variants[f"ring_mma_{name}"] = [
-            mock.patch.object(ik, "_K4_PIECE", piece),
-            mock.patch.object(ik, "_SOURCE", paths["tensor"])]
+        variants[f"ring_{name}"] = [mock.patch.object(ik, "_K4_PIECE", piece)]
     out = {name: {f"{n}q_{t}": [] for n in (16, 1) for t in ("device_ms", "ms")}
            for name in variants}
     for row in out.values():
@@ -123,12 +106,9 @@ def main() -> int:
                 finally:
                     for patch in patches:
                         patch.stop()
-    registers = {
-        "source": {n: r["registers"] for n, r in build.resources(source).items()
-                   if n.startswith("ivf_ring_kernel")},
-        "tensor": {n: r["registers"]
-                   for n, r in build.resources(paths["tensor"]).items()
-                   if n.startswith("ivf_ring_kernel")}}
+    registers = {n: r["registers"]
+                 for n, r in build.resources("ivf_scan.cu").items()
+                 if n.startswith("ivf_ring_kernel")}
     print(json.dumps({"k4_sweep": out, "window": window, "live_rows": live,
                       "bytes": {n: rows * (384 * 2 + 8) for n, rows in live.items()},
                       "registers": registers}), flush=True)

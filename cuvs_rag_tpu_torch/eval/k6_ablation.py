@@ -71,10 +71,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from cuvs_rag_tpu_torch.eval.ring_sweep import build_variants
-    from cuvs_rag_tpu_torch.eval.roofline import gpu_line
+    from cuvs_rag_tpu_torch.eval.roofline import device_ms, gpu_line
     from cuvs_rag_tpu_torch.kernels import build
     from cuvs_rag_tpu_torch.ops import pq_kernels as pk
 
@@ -101,15 +100,9 @@ def main() -> int:
             with mock.patch.object(pk, "_SOURCE", path):
                 pk.pq_adc_scores(*call, window=WINDOW)
                 torch.cuda.synchronize()
-                out[shape][name] = []
-                for _ in range(2):
-                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                        for _ in range(50):
-                            pk.pq_adc_scores(*call, window=WINDOW)
-                        torch.cuda.synchronize()
-                    out[shape][name].append(sum(
-                        e.self_device_time_total for e in prof.key_averages()
-                        if "pq_adc_kernel" in e.key) / 50)
+                out[shape][name] = [1e3 * device_ms(
+                    lambda: pk.pq_adc_scores(*call, window=WINDOW),
+                    ("pq_adc_kernel",), 50)["pq_adc_kernel"] for _ in range(2)]
     print(json.dumps({"k6_ablation": out}), flush=True)
     return 0
 

@@ -156,7 +156,7 @@ def k4_pieces(window: int, route: str, pairs: int = 1, sm_count: int = 132,
     (eval/k4_sweep.py on the H100: 1,024 rows best at 16 queries x 20
     probes, 256 at one query). Block c of a probe with `count` rows scans
     window rows [c * rows, min(count, window, (c + 1) * rows)) and none at
-    all past the count (`k4_piece_rows`)."""
+    all past the count."""
     if route == "cores":
         per = _K4_CHUNK
     else:
@@ -167,14 +167,6 @@ def k4_pieces(window: int, route: str, pairs: int = 1, sm_count: int = 132,
                          _K4_PIECES[-1])
         per = topk_ops.round_up(piece if piece > 0 else window, _K4_TILE)
     return per, -(-window // per)
-
-
-def k4_piece_rows(count: int, window: int, per: int, c: int):
-    """Window rows [start, stop) that block c of a probe scans, as the
-    kernels bound them; start == stop where it reads nothing."""
-    live = min(count, window)
-    start = min(c * per, live)
-    return start, min(live, start + per) if c * per < live else start
 
 
 # ------------------------------------------------------------------- K4 ---
