@@ -5,7 +5,8 @@
 //                                           + merge_partials_kernel
 //   K2  flat_topk_pallas(mode="sketch")  -> sketch_ring_kernel (or sketch_scan_kernel)
 //                                           + sketch_merge_kernel
-//   K3  flat_topk_large                  -> topr_scan_kernel + topr_merge_kernel
+//   K3  flat_topk_large                  -> topr_ring_kernel (or topr_scan_kernel)
+//                                           + topr_merge_kernel (topk_common.cuh)
 //
 // The TPU walked the corpus axis in order and kept its running selection in
 // VMEM from one grid step to the next. Hopper blocks run in parallel and in no
@@ -71,8 +72,8 @@
 // - every other depth: exact_scan_cores_kernel, which multiplies on the
 //   CUDA cores in fp32 through score_tile (scalar loads, 6 shared-memory
 //   loads per 8 FMAs, two barriers a 32-deep chunk) and is bound by that
-//   inner loop, at about a sixth of the read floor. K3 still uses
-//   score_tile too.
+//   inner loop, at about a sixth of the read floor. So do the "cores"
+//   routes of K2 and K3.
 //
 // K2 (ops/flat_kernels.sketch_route) streams the same ring with its own row
 // walk (a block's tiles are W rows apart) and its own selection (a running
@@ -80,7 +81,19 @@
 // cores as K1's, int8 rows with int8 queries through mma.sync m16n8k32
 // (exact int32 sums, so bit-equal to the plain version), fp32 rows with fp32
 // FMAs; other depths keep sketch_scan_kernel on score_tile. The ring
-// helpers live in ring.cuh, which ivf_scan.cu's K4 shares.
+// helpers live in ring.cuh, which ivf_scan.cu's K4 and K5 share.
+//
+// K3 (ops/flat_kernels.topr_plan) walks the ring exactly as K2 does
+// (class_ring_walk is the one body of both) and differs only in what it
+// keeps of each score: each (query, class) keeps its R best rows in planes
+// in the block's shared memory behind the ring, plane R-1 and rej in
+// registers, and runs the insertion chain only for a score above plane R-1
+// (about R (1 + ln(T / R)) of a class's T tiles: 87 of 6,143 at R = 12), so
+// the selection hides under the copies as K2's does. The planes decide the
+// occupancy: one query's (9 KB at R = 12 with 16-bit tile numbers as ids)
+// leave two blocks an SM, 16 queries' (144 KB) one, and the plan takes
+// whichever reads the corpus fewer times. The splits' planes are merged by
+// topr_merge_kernel, which ivf_scan.cu's K5 shares.
 //
 // Plain C ABI (built with nvcc, loaded with ctypes): every entry point
 // launches on the caller's stream, allocates nothing, and returns
@@ -586,7 +599,7 @@ __device__ __forceinline__ void mma_chunk(Acc (&acc)[2][4], uint32_t a_addr,
   }
 }
 
-// Stage the query tile [q0, q0 + TQ) (zeros past n_q) at `s_q`, `q_pitch`
+// Stage the query tile [q0, q0 + TQ) (zeros from q_end) at `s_q`, `q_pitch`
 // bytes a query, in the layout mma_chunk<MODE> reads: MODE 0 bf16, 2 fp32
 // and 3 int8 as they are; MODE 1 bf16 with each 16-step's depths permuted,
 // since an ldmatrix register of int8 rows holds depths 4t .. 4t + 3 of a
@@ -594,11 +607,11 @@ __device__ __forceinline__ void mma_chunk(Acc (&acc)[2][4], uint32_t a_addr,
 // 9 + 2t (a dot product does not mind the order).
 template <int MODE>
 __device__ __forceinline__ void stage_query_tile(unsigned char* s_q, int q_pitch,
-                                                 const void* q, int q0, int n_q,
+                                                 const void* q, int q0, int q_end,
                                                  int d) {
   for (int e = threadIdx.x; e < TQ * d; e += THREADS) {
     const int r = e / d, c = e % d;
-    const bool live = q0 + r < n_q;
+    const bool live = q0 + r < q_end;
     const long long src = (long long)(q0 + r) * d + c;
     if constexpr (MODE == 2) {
       reinterpret_cast<float*>(s_q + r * q_pitch)[c] =
@@ -618,27 +631,29 @@ __device__ __forceinline__ void stage_query_tile(unsigned char* s_q, int q_pitch
   }
 }
 
-// K2 on the ring (the routes of ops/flat_kernels.sketch_route other than
-// "cores"). Block (query tile, 128-class chunk from c0, split s) streams,
-// for each tile jt of its split in ascending order, the rows jt * w + c0 ..
-// + min(TC, w - c0) (fewer past n_rows) through K1's ring, one depth chunk
-// at a time, and multiplies them as exact_scan_kernel does: MODE 0 bf16
-// rows, 1 int8 rows with bf16 queries (mma.sync m16n8k16, fp32 sums), 3
-// int8 rows with int8 queries (m16n8k32, exact int32 sums: the integer dot
-// of the plain version, so this route's scores are bit-equal to it), 2
-// fp32 rows on the CUDA cores (fp32 FMAs in the selection's own layout).
-// Selection is per (query, class): thread (warp w, lane l) keeps the best
-// (score, row) of queries w, w + 8 x classes c0 + l + 32 j in registers, and
-// a strict > over tiles in ascending order keeps the earliest row of a tie.
-// Partials: (S, n_q, W), as sketch_scan_kernel's.
-template <int MODE>
-__global__ void __launch_bounds__(THREADS, 2) sketch_ring_kernel(
-    const void* __restrict__ q, const unsigned char* __restrict__ x,
-    const float* __restrict__ sqn, const float* __restrict__ scales,
-    const float* __restrict__ qscales, int n_q, int d, long long n_rows,
-    int n_valid, int metric_sq, int w, long long tiles_per_split, int n_dc,
-    int chunk_bytes, float* __restrict__ part_s, int* __restrict__ part_i) {
-  extern __shared__ __align__(128) unsigned char ring_smem[];
+// K2's and K3's walk of the ring (the routes of ops/flat_kernels.sketch_route
+// and topr_plan other than "cores"). Block (query block, 128-class chunk
+// from c0, split s) takes queries [q0, q_end), q0 = blockIdx.x * qpb (qpb <=
+// TQ; the staged tile's other rows are zeros), and streams, for each tile
+// jt of its split in ascending order, the rows jt * w + c0 .. + min(TC, w -
+// c0) (fewer past n_rows) through K1's ring of STAGES stages (K1's
+// RING_STAGES but where K3 runs one block an SM), one depth chunk at a time, and
+// multiplies them as exact_scan_kernel does: MODE 0 bf16 rows, 1 int8 rows
+// with bf16 queries (mma.sync m16n8k16, fp32 sums), 3 int8 rows with int8
+// queries (m16n8k32, exact int32 sums: the integer dot of the plain
+// version, so this route's scores are bit-equal to it), 2 fp32 rows on the
+// CUDA cores (fp32 FMAs in the selection's own layout). At a tile's end
+// thread (warp w, lane l) hands the selection `sel` the score of each live
+// (query q0 + w + 8 i < q_end, row jt * w + c0 + l + 32 j) as
+// sel.offer(i, j, score, jt, row): the selection is the one thing K2 and K3
+// do differently.
+template <int MODE, int STAGES, typename Sel>
+__device__ __forceinline__ void class_ring_walk(
+    unsigned char* ring_smem, const void* __restrict__ q,
+    const unsigned char* __restrict__ x, const float* __restrict__ sqn,
+    const float* __restrict__ scales, const float* __restrict__ qscales,
+    int n_q, int qpb, int d, long long n_rows, int n_valid, int metric_sq,
+    int w, long long tiles_per_split, int n_dc, int chunk_bytes, Sel& sel) {
   constexpr bool FP32 = MODE == 2, I8Q = MODE == 3;
   using Acc = typename std::conditional<I8Q, int, float>::type;
   constexpr int QS = FP32 ? 4 : I8Q ? 1 : 2;  // bytes of a staged query value
@@ -652,7 +667,8 @@ __global__ void __launch_bounds__(THREADS, 2) sketch_ring_kernel(
   const uint32_t ring_a = smem_u32(s_ring);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * TQ, c0 = blockIdx.y * TC, split = blockIdx.z;
+  const int q0 = blockIdx.x * qpb, c0 = blockIdx.y * TC, split = blockIdx.z;
+  const int q_end = min(n_q, q0 + qpb);
   const int n_class = min(TC, w - c0);  // this block's classes
   // the tiles whose first row of this chunk lies before n_rows
   const long long tiles_all = n_rows > c0 ? (n_rows - c0 + w - 1) / w : 0;
@@ -667,7 +683,7 @@ __global__ void __launch_bounds__(THREADS, 2) sketch_ring_kernel(
     if (chunk < n_chunks) {
       const long long first = (j0 + ld_tile) * w + c0;
       const int byte0 = ld_dc * chunk_bytes;
-      loader.load(ring_a + (chunk % RING_STAGES) * stage_bytes, pitch, x, row_bytes,
+      loader.load(ring_a + (chunk % STAGES) * stage_bytes, pitch, x, row_bytes,
                   first, (int)min((long long)n_class, n_rows - first), byte0,
                   min(chunk_bytes, row_bytes - byte0));
       if (++ld_dc == n_dc) {
@@ -678,8 +694,8 @@ __global__ void __launch_bounds__(THREADS, 2) sketch_ring_kernel(
     asm volatile("cp.async.commit_group;" ::: "memory");  // one group a call
   };
 #pragma unroll
-  for (int c = 0; c < RING_STAGES - 1; ++c) load_next(c);
-  stage_query_tile<MODE>(s_q, q_pitch, q, q0, n_q, d);
+  for (int c = 0; c < STAGES - 1; ++c) load_next(c);
+  stage_query_tile<MODE>(s_q, q_pitch, q, q0, q_end, d);
 
   const int mat = lane >> 3;
   const uint32_t a_lane =
@@ -692,28 +708,23 @@ __global__ void __launch_bounds__(THREADS, 2) sketch_ring_kernel(
 #pragma unroll
   for (int i = 0; i < QPT; ++i) {
     const int qq = q0 + warp + 8 * i;
-    qmul[i] = I8Q && qq < n_q ? mult * qscales[qq] : mult;
+    qmul[i] = I8Q && qq < q_end ? mult * qscales[qq] : mult;
   }
-  float best[QPT][CPT];
-  int best_r[QPT][CPT];
   Acc acc[2][4];
 #pragma unroll
-  for (int i = 0; i < QPT; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      best[i][j] = neg_inf();
-      best_r[i][j] = -1;
-      acc[i][j] = Acc(0);
-    }
+    for (int j = 0; j < 4; ++j) acc[i][j] = Acc(0);
   float scale[CPT], csq[CPT];
   int tile = 0, dc = 0;
 
   for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    asm volatile("cp.async.wait_group %0;" ::"n"(RING_STAGES - 2) : "memory");
+    asm volatile("cp.async.wait_group %0;" ::"n"(STAGES - 2) : "memory");
     __syncthreads();  // the chunk has landed; every warp is done with the one before
-    load_next(chunk + RING_STAGES - 1);
+    load_next(chunk + STAGES - 1);
 
-    const long long row0 = (j0 + tile) * w + c0;
+    const long long jt = j0 + tile;
+    const long long row0 = jt * w + c0;
     const int n_live = (int)min((long long)n_class, n_rows - row0);
     if (dc == 0) {
 #pragma unroll
@@ -734,7 +745,7 @@ __global__ void __launch_bounds__(THREADS, 2) sketch_ring_kernel(
     const int byte0 = dc * chunk_bytes;
     const int width = min(chunk_bytes, row_bytes - byte0);
     if constexpr (FP32) {
-      const unsigned char* rows = s_ring + (chunk % RING_STAGES) * stage_bytes + lane * pitch;
+      const unsigned char* rows = s_ring + (chunk % STAGES) * stage_bytes + lane * pitch;
       const unsigned char* qs = s_q + warp * q_pitch + byte0;
 #pragma unroll 2
       for (int u = 0; u < width; u += 16) {
@@ -759,7 +770,7 @@ __global__ void __launch_bounds__(THREADS, 2) sketch_ring_kernel(
       // the chunk's first value in the staged queries: 2 bytes a value for
       // bf16 queries over int8 rows, as many bytes as the rows otherwise
       mma_chunk<MODE>(acc, a_lane + (MODE == 1 ? 2 * byte0 : byte0),
-                      ring_a + (chunk % RING_STAGES) * stage_bytes + b_lane,
+                      ring_a + (chunk % STAGES) * stage_bytes + b_lane,
                       width >> 5);
     }
     if (++dc < n_dc) continue;
@@ -781,7 +792,7 @@ __global__ void __launch_bounds__(THREADS, 2) sketch_ring_kernel(
     }
 #pragma unroll
     for (int i = 0; i < QPT; ++i) {
-      const bool dead = q0 + warp + 8 * i >= n_q;  // the same for the whole warp
+      const bool dead = q0 + warp + 8 * i >= q_end;  // the same for the whole warp
       if constexpr (!FP32) {
         if (dead) continue;
       }
@@ -800,13 +811,56 @@ __global__ void __launch_bounds__(THREADS, 2) sketch_ring_kernel(
         // (no FMA contraction), so the scores are bit-equal
         const float v = I8Q ? __fsub_rn(__fmul_rn(qmul[i], __fmul_rn(dot, scale[j])), csq[j])
                             : mult * (dot * scale[j]) - csq[j];
-        if (r < n_live && v > best[i][j]) {
-          best[i][j] = v;
-          best_r[i][j] = (int)(row0 + r);
-        }
+        if (r < n_live) sel.offer(i, j, v, jt, row0 + r);
       }
     }
   }
+}
+
+// K2's selection: the best (score, row) of each of the thread's (query,
+// class) in registers; a strict > over tiles in ascending order keeps the
+// earliest row of a tie.
+struct ClassBest {
+  float best[QPT][CPT];
+  int best_r[QPT][CPT];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int i = 0; i < QPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        best[i][j] = neg_inf();
+        best_r[i][j] = -1;
+      }
+  }
+
+  __device__ __forceinline__ void offer(int i, int j, float v, long long,
+                                        long long row) {
+    if (v > best[i][j]) {
+      best[i][j] = v;
+      best_r[i][j] = (int)row;
+    }
+  }
+};
+
+// K2 on the ring: class_ring_walk with a block of TQ queries and ClassBest.
+// Partials: (S, n_q, W), as sketch_scan_kernel's.
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 2) sketch_ring_kernel(
+    const void* __restrict__ q, const unsigned char* __restrict__ x,
+    const float* __restrict__ sqn, const float* __restrict__ scales,
+    const float* __restrict__ qscales, int n_q, int d, long long n_rows,
+    int n_valid, int metric_sq, int w, long long tiles_per_split, int n_dc,
+    int chunk_bytes, float* __restrict__ part_s, int* __restrict__ part_i) {
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  ClassBest sel;
+  sel.init();
+  class_ring_walk<MODE, RING_STAGES>(ring_smem, q, x, sqn, scales, qscales, n_q, TQ, d,
+                        n_rows, n_valid, metric_sq, w, tiles_per_split, n_dc,
+                        chunk_bytes, sel);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q0 = blockIdx.x * TQ, c0 = blockIdx.y * TC, split = blockIdx.z;
+  const int n_class = min(TC, w - c0);
 #pragma unroll
   for (int i = 0; i < QPT; ++i)
 #pragma unroll
@@ -814,8 +868,8 @@ __global__ void __launch_bounds__(THREADS, 2) sketch_ring_kernel(
       const int qq = q0 + warp + 8 * i, cl = lane + 32 * j;
       if (qq < n_q && cl < n_class) {
         const long long o = ((long long)split * n_q + qq) * w + c0 + cl;
-        part_s[o] = best[i][j];
-        part_i[o] = best_r[i][j];
+        part_s[o] = sel.best[i][j];
+        part_i[o] = sel.best_r[i][j];
       }
     }
 }
@@ -868,7 +922,10 @@ __global__ void __launch_bounds__(THREADS) sketch_merge_kernel(
 // unused). Plane R-1 and rej stay in registers, and the chain runs only for
 // a candidate that beats plane R-1. At the end each thread copies its own
 // planes out. Partials: planes (S, n_q, R, W), rej (S, n_q, W).
-constexpr int PLANE_SMEM = 88 * 1024;  // leaves room for two blocks per SM
+//
+// topr_scan_kernel is the "cores" route of ops/flat_kernels.topr_plan
+// (depths the ring does not take, and planes that do not fit beside it):
+// score_tile's CUDA-core loop.
 
 template <typename QT, typename XT>
 __global__ void __launch_bounds__(THREADS) topr_scan_kernel(
@@ -936,50 +993,128 @@ __global__ void __launch_bounds__(THREADS) topr_scan_kernel(
     }
 }
 
-// One thread per (query, class): each class keeps the R best of the union of
-// the splits' planes, and its rej becomes the max of the splits' rej values
-// and of every value the merge displaced — so max(rej) < tau still proves
-// the collected top-k exact. Each split's planes are sorted, so the first
-// value that cannot enter ends that split (it is the best of the rest).
-// Output planes (n_q, R, W) with the validity rule applied; rej (n_q, W).
-__global__ void topr_merge_kernel(const float* __restrict__ part_s,
-                                  const int* __restrict__ part_i,
-                                  const float* __restrict__ part_rej, int n_q,
-                                  int n_splits, int w, int r_planes,
-                                  float* __restrict__ out_s,
-                                  int* __restrict__ out_i,
-                                  float* __restrict__ out_rej) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)n_q * w) return;
-  const int qq = (int)(e / w), c = (int)(e % w);
-  const int plane_stride = w;
-  float* ps = out_s + (long long)qq * r_planes * w + c;
-  int* pi = out_i + (long long)qq * r_planes * w + c;
-  for (int r = 0; r < r_planes; ++r) {
-    ps[r * plane_stride] = neg_inf();
-    pi[r * plane_stride] = -1;
-  }
-  float last = neg_inf(), rej = neg_inf();
-  for (int s = 0; s < n_splits; ++s) {
-    rej = fmaxf(rej, part_rej[((long long)s * n_q + qq) * w + c]);
-    const long long o = ((long long)s * n_q + qq) * r_planes * w + c;
-    for (int r = 0; r < r_planes; ++r) {
-      const float v = part_s[o + r * plane_stride];
-      if (!(v > last)) {
-        rej = fmaxf(rej, v);
-        break;
+// K3 on the ring: the same planes and chain, fed by class_ring_walk. Each
+// thread keeps plane R-1 of its (query, class) pairs (`last`, with its id)
+// and rej in registers; a score that beats `last` is pushed through planes
+// 0 .. R-2 in shared memory, behind the ring ([qpb][R-1][TC] scores, then
+// [qpb][R-1][TC] ids), and what falls off their end meets plane R-1. Ids are
+// rows (ID_BYTES 4) or, while the corpus has at most 65,535 tiles, the
+// 16-bit tile number jt of row jt * w + c (ID_BYTES 2): 6 bytes an entry, so
+// the planes of all 16 queries at R = 12 fit beside the ring at D = 384
+// (ops/flat_kernels.topr_plan), with a fourth stage where one block has the
+// SM. Each candidate is offered in ascending row order, as topr_scan_kernel
+// offers it, and the chain is the same. Partials (S, n_q, R, W) and (S, n_q,
+// W); with one split (gridDim.z = 1) they are the outputs, and the validity
+// rule is applied here instead of in the merge.
+template <typename IDT>
+struct ClassPlanes {
+  float last[QPT][CPT], rej[QPT][CPT];
+  IDT last_id[QPT][CPT];
+  float* ps;
+  IDT* pi;
+  int n_smem;  // planes in shared memory: R - 1
+
+  __device__ __forceinline__ void init(float* ps_, IDT* pi_, int r_planes, int qpb) {
+    ps = ps_;
+    pi = pi_;
+    n_smem = r_planes - 1;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int i = 0; i < QPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        last[i][j] = neg_inf();
+        rej[i][j] = neg_inf();
+        last_id[i][j] = IDT(-1);
+        const int qi = warp + 8 * i;
+        if (qi >= qpb) continue;
+        // this thread's own planes: nobody else reads or writes them
+        for (int rr = 0; rr < n_smem; ++rr) {
+          const int o = (qi * n_smem + rr) * TC + lane + 32 * j;
+          ps[o] = neg_inf();
+          pi[o] = IDT(-1);
+        }
       }
-      rej = fmaxf(rej, chain_insert(ps, pi, plane_stride, r_planes, v,
-                                    part_i[o + r * plane_stride], last));
+  }
+
+  __device__ __forceinline__ void offer(int i, int j, float v, long long jt,
+                                        long long row) {
+    if (!(v > last[i][j])) {
+      rej[i][j] = fmaxf(rej[i][j], v);
+      return;
+    }
+    const int qi = (threadIdx.x >> 5) + 8 * i, cl = (threadIdx.x & 31) + 32 * j;
+    const int o = qi * n_smem * TC + cl;
+    IDT id = (IDT)(sizeof(IDT) == 2 ? jt : row);
+    chain_push(ps + o, pi + o, TC, n_smem, v, id);
+    // what fell off plane R-2 (v itself if it entered none) meets plane R-1
+    if (v > last[i][j]) {
+      rej[i][j] = fmaxf(rej[i][j], last[i][j]);
+      last[i][j] = v;
+      last_id[i][j] = id;
+    } else {
+      rej[i][j] = fmaxf(rej[i][j], v);
     }
   }
-  for (int r = 0; r < r_planes; ++r) {
-    if (!(ps[r * plane_stride] > VALID_MIN)) {
-      ps[r * plane_stride] = neg_inf();
-      pi[r * plane_stride] = -1;
+};
+
+// Bytes of class_ring_walk's shared memory (query tile, score tile, ring of
+// `stages`) before whatever its selection keeps behind it; a multiple of 16.
+__host__ __device__ inline int class_ring_bytes(int q_bytes, bool score_tile,
+                                                int d, int chunk_bytes,
+                                                int stages) {
+  return TQ * (q_bytes * d + 16) + (score_tile ? TQ * SCORE_PITCH * 4 : 0) +
+         stages * TC * (chunk_bytes + 16);
+}
+
+// STAGES: RING_STAGES at two blocks an SM, one more where a block has the SM
+// to itself (the ring then keeps as many bytes in flight as it can).
+template <int MODE, int ID_BYTES, int STAGES>
+__global__ void __launch_bounds__(THREADS, STAGES == RING_STAGES ? 2 : 1) topr_ring_kernel(
+    const void* __restrict__ q, const unsigned char* __restrict__ x,
+    const float* __restrict__ sqn, const float* __restrict__ scales, int n_q,
+    int qpb, int d, long long n_rows, int n_valid, int metric_sq, int w,
+    int r_planes, long long tiles_per_split, int n_dc, int chunk_bytes,
+    float* __restrict__ part_s, int* __restrict__ part_i,
+    float* __restrict__ part_rej) {
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  using IDT = typename std::conditional<ID_BYTES == 2, uint16_t, int>::type;
+  constexpr bool FP32 = MODE == 2;
+  const int n_smem = r_planes - 1;
+  float* ps = reinterpret_cast<float*>(
+      ring_smem + class_ring_bytes(FP32 ? 4 : 2, !FP32, d, chunk_bytes, STAGES));
+  IDT* pi = reinterpret_cast<IDT*>(ps + qpb * n_smem * TC);
+  ClassPlanes<IDT> sel;
+  sel.init(ps, pi, r_planes, qpb);
+  class_ring_walk<MODE, STAGES>(ring_smem, q, x, sqn, scales, nullptr, n_q, qpb,
+                                d, n_rows, n_valid, metric_sq, w,
+                                tiles_per_split, n_dc, chunk_bytes, sel);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q0 = blockIdx.x * qpb, c0 = blockIdx.y * TC, split = blockIdx.z;
+  const int n_class = min(TC, w - c0);
+  const bool single = gridDim.z == 1;
+#pragma unroll
+  for (int i = 0; i < QPT; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int qi = warp + 8 * i, cl = lane + 32 * j, qq = q0 + qi;
+      if (qi >= qpb || qq >= n_q || cl >= n_class) continue;
+      const long long o = ((long long)split * n_q + qq) * r_planes * w + c0 + cl;
+      for (int r = 0; r < r_planes; ++r) {
+        const int e = (qi * n_smem + r) * TC + cl;
+        float s = r < n_smem ? ps[e] : sel.last[i][j];
+        const IDT id = r < n_smem ? pi[e] : sel.last_id[i][j];
+        int row = id == IDT(-1) ? -1
+                  : ID_BYTES == 2 ? (int)((long long)id * w + c0 + cl) : (int)id;
+        if (single && !(s > VALID_MIN)) {
+          s = neg_inf();
+          row = -1;
+        }
+        part_s[o + (long long)r * w] = s;
+        part_i[o + (long long)r * w] = row;
+      }
+      part_rej[((long long)split * n_q + qq) * w + c0 + cl] = sel.rej[i][j];
     }
-  }
-  out_rej[e] = rej;
 }
 
 // Storage/query type combinations: 0 fp32/fp32, 1 bf16/bf16, 2 bf16 queries
@@ -1112,38 +1247,93 @@ int flat_sketch_topk(int combo, int ring, const void* q, const void* x,
   return (int)cudaGetLastError();
 }
 
-int flat_topr(int combo, const void* q, const void* x, const float* sqn,
-              const float* scales, int n_q, int d, long long n_rows,
-              int n_valid, int metric_sq, int w, int r_planes,
-              long long tiles_per_split, int n_splits, float* part_s,
-              int* part_i, float* part_rej, float* out_s, int* out_i,
-              float* out_rej, cudaStream_t stream) {
-  if (r_planes < 1 || w < 1) return (int)cudaErrorInvalidValue;
-  // queries per block: as many as the plane budget holds, at most TQ
-  const int qpb = std::min(std::min(TQ, n_q), PLANE_SMEM / (r_planes * TC * 8));
-  if (qpb < 1) return (int)cudaErrorInvalidValue;
-  const int smem = 2 * qpb * r_planes * TC * 4;
+// ring = 1 takes topr_ring_kernel (bf16 and int8 rows of a multiple of 32
+// bytes, fp32 rows of a multiple of 16; the corpus 16-byte aligned), 0
+// topr_scan_kernel; `qpb` queries a block, `id_bytes` (2: tile numbers,
+// ring only; 4: rows) and the ring's `stages` (ring only: RING_STAGES or
+// one more) as ops/flat_kernels.topr_plan chose them. With one split the
+// ring kernel writes the outputs itself and no merge runs.
+int flat_topr(int combo, int ring, int qpb, int id_bytes, int stages,
+              const void* q, const void* x, const float* sqn,
+              const float* scales, int n_q,
+              int d, long long n_rows, int n_valid, int metric_sq, int w,
+              int r_planes, long long tiles_per_split, int n_splits,
+              float* part_s, int* part_i, float* part_rej, float* out_s,
+              int* out_i, float* out_rej, cudaStream_t stream) {
+  if (r_planes < 1 || w < 1 || n_q < 1 || n_rows < 1 || qpb < 1 || qpb > TQ ||
+      n_splits < 1 || combo < F32 || combo > I8_BF16 ||
+      (id_bytes != 4 && !(ring && id_bytes == 2 && (n_rows + w - 1) / w <= 65535)))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((n_q + qpb - 1) / qpb, (w + TC - 1) / TC, n_splits);
-#define LAUNCH_TOPR(QT, XT)                                                  \
-  cudaFuncSetAttribute(topr_scan_kernel<QT, XT>,                             \
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);   \
-  topr_scan_kernel<QT, XT><<<grid, THREADS, smem, stream>>>(                 \
-      (const QT*)q, (const XT*)x, sqn, scales, n_q, d, n_rows, n_valid,      \
-      metric_sq, w, r_planes, qpb, tiles_per_split, part_s, part_i, part_rej)
-  switch (combo) {
-    case F32: LAUNCH_TOPR(float, float); break;
-    case BF16: LAUNCH_TOPR(__nv_bfloat16, __nv_bfloat16); break;
-    case I8_BF16: LAUNCH_TOPR(__nv_bfloat16, int8_t); break;
-    default: return (int)cudaErrorInvalidValue;
+  if (ring) {
+    if (stages != RING_STAGES && stages != RING_STAGES + 1)
+      return (int)cudaErrorInvalidValue;
+    const bool fp32 = combo == F32;
+    const int row_bytes = fp32 ? 4 * d : combo == I8_BF16 ? d : 2 * d;
+    if (row_bytes % (fp32 ? 16 : 32) != 0 || (uintptr_t)x % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    const int chunk_bytes = std::min(RING_CHUNK, row_bytes);
+    const int n_dc = (row_bytes + chunk_bytes - 1) / chunk_bytes;
+    // the ring, then planes 0 .. R-2 (plane R-1 stays in registers)
+    const long long smem = class_ring_bytes(fp32 ? 4 : 2, !fp32, d, chunk_bytes, stages) +
+                           (long long)qpb * (r_planes - 1) * TC * (4 + id_bytes);
+    if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+    if (n_splits == 1) {  // the kernel's partials are the outputs
+      part_s = out_s;
+      part_i = out_i;
+      part_rej = out_rej;
+    }
+#define LAUNCH_TOPR_RING(MODE, IDB, ST)                                      \
+  {                                                                          \
+    static int allowed[MAX_DEVICES] = {};  /* this instance's, by device */  \
+    cudaError_t e = allow_smem(allowed, topr_ring_kernel<MODE, IDB, ST>, (int)smem); \
+    if (e != cudaSuccess) return (int)e;                                     \
+    topr_ring_kernel<MODE, IDB, ST><<<grid, THREADS, (int)smem, stream>>>(   \
+        q, (const unsigned char*)x, sqn, scales, n_q, qpb, d, n_rows,        \
+        n_valid, metric_sq, w, r_planes, tiles_per_split, n_dc, chunk_bytes, \
+        part_s, part_i, part_rej);                                           \
   }
+#define LAUNCH_TOPR_MODES(IDB, ST)                                           \
+  if (mode == 2) LAUNCH_TOPR_RING(2, IDB, ST)                                \
+  else if (mode == 1) LAUNCH_TOPR_RING(1, IDB, ST)                           \
+  else LAUNCH_TOPR_RING(0, IDB, ST)
+    const int mode = fp32 ? 2 : combo == I8_BF16 ? 1 : 0;
+    const bool more = stages != RING_STAGES;
+    if (id_bytes == 2) {
+      if (more) { LAUNCH_TOPR_MODES(2, RING_STAGES + 1) } else { LAUNCH_TOPR_MODES(2, RING_STAGES) }
+    } else {
+      if (more) { LAUNCH_TOPR_MODES(4, RING_STAGES + 1) } else { LAUNCH_TOPR_MODES(4, RING_STAGES) }
+    }
+#undef LAUNCH_TOPR_MODES
+#undef LAUNCH_TOPR_RING
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || n_splits == 1) return (int)err;
+  } else {
+    const long long planes = (long long)qpb * r_planes * TC * (4 + id_bytes);
+    // beside score_tile's stage in static shared memory
+    if (planes + (long long)sizeof(Stage<false>) > MAX_SMEM) return (int)cudaErrorInvalidValue;
+    const int smem = (int)planes;
+#define LAUNCH_TOPR(QT, XT)                                                  \
+  {                                                                          \
+    static int allowed[MAX_DEVICES] = {};  /* this instance's, by device */  \
+    cudaError_t e = allow_smem(allowed, topr_scan_kernel<QT, XT>, smem);     \
+    if (e != cudaSuccess) return (int)e;                                     \
+    topr_scan_kernel<QT, XT><<<grid, THREADS, smem, stream>>>(               \
+        (const QT*)q, (const XT*)x, sqn, scales, n_q, d, n_rows, n_valid,    \
+        metric_sq, w, r_planes, qpb, tiles_per_split, part_s, part_i,        \
+        part_rej);                                                           \
+  }
+    switch (combo) {
+      case F32: LAUNCH_TOPR(float, float) break;
+      case BF16: LAUNCH_TOPR(__nv_bfloat16, __nv_bfloat16) break;
+      default: LAUNCH_TOPR(__nv_bfloat16, int8_t) break;
+    }
 #undef LAUNCH_TOPR
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long n = (long long)n_q * w;
-  topr_merge_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0,
-                      stream>>>(part_s, part_i, part_rej, n_q, n_splits, w,
-                                r_planes, out_s, out_i, out_rej);
-  return (int)cudaGetLastError();
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)launch_topr_merge(part_s, part_i, part_rej, n_q, n_splits, w,
+                                r_planes, out_s, out_i, out_rej, stream);
 }
 
 }  // extern "C"

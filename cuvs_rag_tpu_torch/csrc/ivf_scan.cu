@@ -3,7 +3,9 @@
 // Replaces the two Pallas TPU kernels of cuvs_rag_tpu/ops/pallas_ivf.py:
 //   K4  ivf_scan_pallas        (k <= 32)  -> ivf_ring_kernel (or ivf_scan_kernel)
 //                                            + merge_partials_kernel
-//   K5  ivf_scan_pallas_large  (k > 32)   -> ivf_topr_kernel (certified top-R)
+//   K5  ivf_scan_pallas_large  (k > 32)   -> ivf_topr_ring_kernel (or
+//                                            ivf_topr_kernel), certified top-R,
+//                                            + topr_merge_kernel (topk_common.cuh)
 //
 // Both score what `_window_scores` scores over each query's probed windows
 // [offset, offset + count) of the sorted layout, larger is better:
@@ -34,7 +36,17 @@
 // keeps the top-k of its 16 rows of every tile. Other depths keep
 // ivf_scan_kernel, which reads 2- or 4-byte elements a lane, 32 rows a
 // warp, 4 at a time, each reduced by shuffles (1.5 TB/s at the main path's
-// shape). K5 still scores through that warp loop.
+// shape).
+//
+// K5's class is a column of the window, so a 128-class chunk of one probed
+// window is 128 consecutive layout rows: one tile of the same ring. Its
+// ring route (ops/ivf_kernels.k5_plan) streams one tile a probe through K4's
+// ring and product, keeps each class's R best in shared memory through K3's
+// plane selection, and splits the probes across blocks so that even one
+// query fills the card (16 chunks x 10 splits at window 2,048 and 20
+// probes, where one block a chunk gave 16 blocks on 132 SMs); K3's merge
+// folds the splits together. Other depths keep ivf_topr_kernel on the warp
+// loop, one block a (query, chunk) walking every probe.
 //
 // Plain C ABI (built with nvcc, loaded with ctypes): every entry point
 // launches on the caller's stream, allocates nothing, and returns
@@ -172,6 +184,55 @@ __global__ void __launch_bounds__(K4_THREADS) ivf_scan_kernel(
   }
 }
 
+// K4's and K5's product of one ring chunk: the stage row `row` (`width`
+// bytes from byte `byte0` of the layout row) times the query `s_q` (fp32,
+// shared memory), added into `acc` in fp32, by one of the row's two threads:
+// `half` 0 takes the first half of the chunk's 16-byte pieces, 1 the second
+// (conflict-free at the ring's pitch). MODE 0: bf16 rows; 1: int8 rows; 2:
+// fp32 rows.
+template <int MODE>
+__device__ __forceinline__ float row_chunk_dot(const unsigned char* row,
+                                               const float* s_q, int byte0,
+                                               int width, int half, float acc) {
+  constexpr int ESIZE = MODE == 2 ? 4 : MODE == 0 ? 2 : 1;  // bytes a row value
+  const int pieces = width >> 4, mid = (pieces + 1) >> 1;
+  const int p1 = half ? pieces : mid;
+  for (int p = half ? mid : 0; p < p1; ++p) {
+    const uint4 v = *reinterpret_cast<const uint4*>(row + p * 16);
+    const float* qv = s_q + (byte0 + p * 16) / ESIZE;
+    if constexpr (MODE == 2) {
+      const float4 a = *reinterpret_cast<const float4*>(qv);
+      acc = fmaf(a.x, __uint_as_float(v.x), acc);
+      acc = fmaf(a.y, __uint_as_float(v.y), acc);
+      acc = fmaf(a.z, __uint_as_float(v.z), acc);
+      acc = fmaf(a.w, __uint_as_float(v.w), acc);
+    } else {
+      const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+      if constexpr (MODE == 0) {  // two bf16 a word
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float4 a = *reinterpret_cast<const float4*>(qv + 4 * h);
+          acc = fmaf(a.x, __uint_as_float(words[2 * h] << 16), acc);
+          acc = fmaf(a.y, __uint_as_float(words[2 * h] & 0xffff0000u), acc);
+          acc = fmaf(a.z, __uint_as_float(words[2 * h + 1] << 16), acc);
+          acc = fmaf(a.w, __uint_as_float(words[2 * h + 1] & 0xffff0000u), acc);
+        }
+      } else {  // four int8 a word
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const float4 a = *reinterpret_cast<const float4*>(qv + 4 * h);
+          const uint32_t u = words[h] ^ 0x80808080u;
+          acc = fmaf(a.x, int8_lane(u, 0), acc);
+          acc = fmaf(a.y, int8_lane(u, 1), acc);
+          acc = fmaf(a.z, int8_lane(u, 2), acc);
+          acc = fmaf(a.w, int8_lane(u, 3), acc);
+        }
+      }
+    }
+  }
+  return acc;
+}
+
 // K4 on the ring. grid (n_q, n_probe, n_pieces): block (q, p, c) streams
 // rows [c * piece, min(count, window, (c + 1) * piece)) of query q's probe p
 // window, tiles of TC consecutive layout rows from off + c * piece, through
@@ -263,43 +324,9 @@ __global__ void __launch_bounds__(THREADS, 2) ivf_ring_kernel(
       rscale = scales[first + row_in];
     }
     const int byte0 = dc * chunk_bytes;
-    const int width = min(chunk_bytes, row_bytes - byte0);
-    const int pieces = width >> 4, mid = (pieces + 1) >> 1;
-    const unsigned char* row = s_ring + (chunk % IVF_STAGES) * stage_bytes + r * pitch;
-    const int p1 = half ? pieces : mid;
-    for (int p = half ? mid : 0; p < p1; ++p) {
-      const uint4 v = *reinterpret_cast<const uint4*>(row + p * 16);
-      const float* qv = s_q + (byte0 + p * 16) / ESIZE;
-      if constexpr (MODE == 2) {
-        const float4 a = *reinterpret_cast<const float4*>(qv);
-        acc = fmaf(a.x, __uint_as_float(v.x), acc);
-        acc = fmaf(a.y, __uint_as_float(v.y), acc);
-        acc = fmaf(a.z, __uint_as_float(v.z), acc);
-        acc = fmaf(a.w, __uint_as_float(v.w), acc);
-      } else {
-        const uint32_t words[4] = {v.x, v.y, v.z, v.w};
-        if constexpr (MODE == 0) {  // two bf16 a word
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float4 a = *reinterpret_cast<const float4*>(qv + 4 * h);
-            acc = fmaf(a.x, __uint_as_float(words[2 * h] << 16), acc);
-            acc = fmaf(a.y, __uint_as_float(words[2 * h] & 0xffff0000u), acc);
-            acc = fmaf(a.z, __uint_as_float(words[2 * h + 1] << 16), acc);
-            acc = fmaf(a.w, __uint_as_float(words[2 * h + 1] & 0xffff0000u), acc);
-          }
-        } else {  // four int8 a word
-#pragma unroll
-          for (int h = 0; h < 4; ++h) {
-            const float4 a = *reinterpret_cast<const float4*>(qv + 4 * h);
-            const uint32_t u = words[h] ^ 0x80808080u;
-            acc = fmaf(a.x, int8_lane(u, 0), acc);
-            acc = fmaf(a.y, int8_lane(u, 1), acc);
-            acc = fmaf(a.z, int8_lane(u, 2), acc);
-            acc = fmaf(a.w, int8_lane(u, 3), acc);
-          }
-        }
-      }
-    }
+    acc = row_chunk_dot<MODE>(
+        s_ring + (chunk % IVF_STAGES) * stage_bytes + r * pitch, s_q, byte0,
+        min(chunk_bytes, row_bytes - byte0), half, acc);
     if (++dc < n_dc) continue;
     dc = 0;
 
@@ -397,6 +424,146 @@ __global__ void __launch_bounds__(K5_THREADS) ivf_topr_kernel(
   out_rej[(long long)qq * subwin + col] = rej;
 }
 
+// K5 on K4's ring (ops/ivf_kernels.k5_plan "ring": rows of a multiple of 16
+// bytes). A class is (query, column c of the sub-window); a 128-class chunk
+// [c0, c0 + 128) of one probed sub-window is 128 consecutive layout rows,
+// one tile of the ring. The tiles of a query are t = probe * n_sub + u for
+// each probe and sub-window u, rows off + u * subwin + c0 + [0, live) with
+// live = min(128, subwin - c0, count - u * subwin - c0); a tile with no live
+// row is skipped and issues no copy, and rows at or past the count are
+// zero-filled and never read. grid (n_q, ceil(subwin / TC), n_splits):
+// block (q, b, s) streams tiles [s * tiles_per_split, (s + 1) *
+// tiles_per_split) of query q's chunk b through IVF_STAGES stages, and two
+// threads a row multiply as ivf_ring_kernel does. The even thread of row r
+// keeps class c0 + r: plane R-1 (`last`) and rej in registers, the planes in
+// shared memory behind the ring ([R][TC] scores, then [R][TC] positions),
+// and runs the chain only for a score that beats `last`. Partials (S, n_q,
+// R, subwin) and (S, n_q, subwin), merged by topr_merge_kernel; with one
+// split they are the outputs, with the validity rule applied here.
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 2) ivf_topr_ring_kernel(
+    const void* __restrict__ q, const unsigned char* __restrict__ x,
+    const float* __restrict__ sqn, const float* __restrict__ scales,
+    const int* __restrict__ offs, const int* __restrict__ cnts,
+    const float* __restrict__ coarse, int n_probe, int d, int window,
+    int n_sub, int metric_sq, int scaled, int r_planes, int tiles_per_split,
+    int n_dc, int chunk_bytes, float* __restrict__ part_s,
+    int* __restrict__ part_i, float* __restrict__ part_rej) {
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  constexpr int ESIZE = MODE == 2 ? 4 : MODE == 0 ? 2 : 1;  // bytes a row value
+  const int row_bytes = ESIZE * d;
+  const int pitch = chunk_bytes + 16;
+  const int stage_bytes = TC * pitch;
+  float* s_q = reinterpret_cast<float*>(ring_smem);  // the query, fp32 [d]
+  unsigned char* s_ring = ring_smem + (4 * d + 127) / 128 * 128;
+  float* ps = reinterpret_cast<float*>(s_ring + IVF_STAGES * stage_bytes);  // [R][TC]
+  int* pi = reinterpret_cast<int*>(ps + r_planes * TC);                      // [R][TC]
+  const uint32_t ring_a = smem_u32(s_ring);
+
+  const int tid = threadIdx.x;
+  const int qq = blockIdx.x, n_q = gridDim.x, c0 = blockIdx.y * TC, split = blockIdx.z;
+  const int subwin = window / n_sub;
+  const int n_class = min(TC, subwin - c0);
+  const int t0 = split * tiles_per_split;
+  const int t1 = min(n_probe * n_sub, t0 + tiles_per_split);
+  const int* q_offs = offs + (long long)qq * n_probe;
+  const int* q_cnts = cnts + (long long)qq * n_probe;
+  // live rows of tile t (<= 0: none) and its first layout row
+  auto tile_live = [&](int t) {
+    const int p = t / n_sub;
+    return min(n_class, min(q_cnts[p], window) - (t - p * n_sub) * subwin - c0);
+  };
+  auto tile_first = [&](int t) {
+    const int p = t / n_sub;
+    return (long long)q_offs[p] + (t - p * n_sub) * subwin + c0;
+  };
+  int n_tiles = 0;  // the live ones
+  for (int t = t0; t < t1; ++t) n_tiles += tile_live(t) > 0;
+  const int n_chunks = n_tiles * n_dc;
+
+  RingLoader loader;
+  loader.init(chunk_bytes);
+  int ld_t = t0 - 1, ld_dc = 0, ld_live = 0;  // the tile of the next chunk to load
+  long long ld_first = 0;
+  auto load_next = [&](int chunk) {
+    if (chunk < n_chunks) {
+      if (ld_dc == 0) {
+        do ld_live = tile_live(++ld_t); while (ld_live <= 0);
+        ld_first = tile_first(ld_t);
+      }
+      const int byte0 = ld_dc * chunk_bytes;
+      loader.load(ring_a + (chunk % IVF_STAGES) * stage_bytes, pitch, x, row_bytes,
+                  ld_first, ld_live, byte0, min(chunk_bytes, row_bytes - byte0));
+      if (++ld_dc == n_dc) ld_dc = 0;
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");  // one group a call
+  };
+#pragma unroll
+  for (int c = 0; c < IVF_STAGES - 1; ++c) load_next(c);
+  using QT = typename std::conditional<MODE == 2, float, __nv_bfloat16>::type;
+  for (int c = tid; c < d; c += THREADS)
+    s_q[c] = load_f(static_cast<const QT*>(q) + (long long)qq * d + c);
+
+  const int r = tid >> 1, half = tid & 1;  // this thread's row of a tile
+  const bool keeper = half == 0;           // the thread that keeps class c0 + r
+  if (keeper)
+    for (int rr = 0; rr < r_planes; ++rr) {
+      ps[rr * TC + r] = neg_inf();
+      pi[rr * TC + r] = -1;
+    }
+  float last = neg_inf(), rej = neg_inf();
+  float aux0 = 0.f, rscale = 1.f, cf = 0.f;  // this row's sqnorm slot, scale, coarse
+  float acc = 0.f;
+  int t = t0 - 1, live = 0, dc = 0;
+  long long first = 0;
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    asm volatile("cp.async.wait_group %0;" ::"n"(IVF_STAGES - 2) : "memory");
+    __syncthreads();  // the chunk has landed; every warp is done with the one before
+    load_next(chunk + IVF_STAGES - 1);
+
+    if (dc == 0) {
+      // the next live tile; its row's terms are loaded before the
+      // products and used after them
+      do live = tile_live(++t); while (live <= 0);
+      first = tile_first(t);
+      cf = coarse[(long long)qq * n_probe + t / n_sub];
+      if (r < live) {
+        aux0 = sqn[first + r];
+        rscale = scales[first + r];
+      }
+    }
+    const int byte0 = dc * chunk_bytes;
+    acc = row_chunk_dot<MODE>(
+        s_ring + (chunk % IVF_STAGES) * stage_bytes + r * pitch, s_q, byte0,
+        min(chunk_bytes, row_bytes - byte0), half, acc);
+    if (++dc < n_dc) continue;
+    dc = 0;
+
+    const float dot = acc + __shfl_xor_sync(FULL, acc, 1);  // the same sum in both lanes
+    acc = 0.f;
+    if (keeper && r < live) {
+      float out = window_score(dot, aux0, rscale, metric_sq, scaled, cf);
+      if (out > last)
+        out = chain_insert(ps + r, pi + r, TC, r_planes, out, (int)(first + r), last);
+      rej = fmaxf(rej, out);
+    }
+  }
+  if (!keeper || r >= n_class) return;
+  const bool single = gridDim.z == 1;
+  const long long o = ((long long)split * n_q + qq) * r_planes * subwin + c0 + r;
+  for (int rr = 0; rr < r_planes; ++rr) {
+    float s = ps[rr * TC + r];
+    int id = pi[rr * TC + r];
+    if (single && !(s > VALID_MIN)) {
+      s = neg_inf();
+      id = -1;
+    }
+    part_s[o + (long long)rr * subwin] = s;
+    part_i[o + (long long)rr * subwin] = id;
+  }
+  part_rej[((long long)split * n_q + qq) * subwin + c0 + r] = rej;
+}
+
 // Storage/query type combinations: 0 fp32/fp32, 1 bf16/bf16, 2 bf16
 // queries over int8 residual rows.
 enum Combo { F32 = 0, BF16 = 1, I8_BF16 = 2 };
@@ -469,31 +636,78 @@ int ivf_scan_topk(int combo, int ring, const void* q, const void* x,
   return (int)cudaGetLastError();
 }
 
-int ivf_scan_topr(int combo, const void* q, const void* x, const float* sqn,
-                  const float* scales, const int* offs, const int* cnts,
-                  const float* coarse, int n_q, int n_probe, int d, int window,
-                  int n_sub, int metric_sq, int scaled, int r_planes,
+// ring = 1 takes ivf_topr_ring_kernel (rows of a multiple of 16 bytes, the
+// layout 16-byte aligned) over n_splits splits of tiles_per_split tiles
+// each, merged by topr_merge_kernel into the outputs (with one split the
+// kernel writes them itself); 0 takes ivf_topr_kernel, which writes the
+// outputs (n_splits must be 1).
+int ivf_scan_topr(int combo, int ring, const void* q, const void* x,
+                  const float* sqn, const float* scales, const int* offs,
+                  const int* cnts, const float* coarse, int n_q, int n_probe,
+                  int d, int window, int n_sub, int metric_sq, int scaled,
+                  int r_planes, int tiles_per_split, int n_splits,
+                  float* part_s, int* part_i, float* part_rej,
                   float* planes_s, int* planes_i, float* out_rej,
                   cudaStream_t stream) {
-  const long long smem = (long long)d * 4 + (long long)r_planes * CLASSES * 8;
   if (n_q < 1 || n_probe < 1 || n_sub < 1 || window % n_sub != 0 ||
-      r_planes < 1 || smem > MAX_SMEM)
+      r_planes < 1 || n_splits < 1 || n_splits > 65535 || tiles_per_split < 1 ||
+      (long long)tiles_per_split * n_splits < (long long)n_probe * n_sub ||
+      combo < F32 || combo > I8_BF16)
     return (int)cudaErrorInvalidValue;
   const int subwin = window / n_sub;
+  if (ring) {
+    const int mode = combo == F32 ? 2 : combo == BF16 ? 0 : 1;
+    const int row_bytes = (mode == 2 ? 4 : mode == 0 ? 2 : 1) * d;
+    if (row_bytes % 16 != 0 || (uintptr_t)x % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    const int chunk_bytes = std::min(IVF_CHUNK, row_bytes);
+    const int n_dc = (row_bytes + chunk_bytes - 1) / chunk_bytes;
+    // the fp32 query, the ring, then the planes
+    const long long smem = (4 * d + 127) / 128 * 128 +
+                           IVF_STAGES * TC * (chunk_bytes + 16) +
+                           (long long)r_planes * TC * 8;
+    if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+    if (n_splits == 1) {  // the kernel's partials are the outputs
+      part_s = planes_s;
+      part_i = planes_i;
+      part_rej = out_rej;
+    }
+    const dim3 grid(n_q, (subwin + TC - 1) / TC, n_splits);
+#define LAUNCH_TOPR_RING(MODE)                                               \
+  {                                                                          \
+    static int allowed[MAX_DEVICES] = {};  /* this instance's, by device */  \
+    cudaError_t e = allow_smem(allowed, ivf_topr_ring_kernel<MODE>, (int)smem); \
+    if (e != cudaSuccess) return (int)e;                                     \
+    ivf_topr_ring_kernel<MODE><<<grid, THREADS, (int)smem, stream>>>(        \
+        q, (const unsigned char*)x, sqn, scales, offs, cnts, coarse,         \
+        n_probe, d, window, n_sub, metric_sq, scaled, r_planes,              \
+        tiles_per_split, n_dc, chunk_bytes, part_s, part_i, part_rej);       \
+  }
+    if (mode == 2) LAUNCH_TOPR_RING(2) else if (mode == 0) LAUNCH_TOPR_RING(0) else LAUNCH_TOPR_RING(1)
+#undef LAUNCH_TOPR_RING
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || n_splits == 1) return (int)err;
+    return (int)launch_topr_merge(part_s, part_i, part_rej, n_q, n_splits,
+                                  subwin, r_planes, planes_s, planes_i,
+                                  out_rej, stream);
+  }
+  const long long smem = (long long)d * 4 + (long long)r_planes * CLASSES * 8;
+  if (n_splits != 1 || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   const dim3 grid(n_q, (subwin + CLASSES - 1) / CLASSES);
 #define LAUNCH_TOPR(QT, XT)                                                  \
-  cudaFuncSetAttribute(ivf_topr_kernel<QT, XT>,                              \
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,          \
-                       (int)smem);                                           \
-  ivf_topr_kernel<QT, XT><<<grid, K5_THREADS, (int)smem, stream>>>(          \
-      (const QT*)q, (const XT*)x, sqn, scales, offs, cnts, coarse, n_probe,  \
-      d, window, n_sub, metric_sq, scaled, r_planes, planes_s, planes_i,     \
-      out_rej)
+  {                                                                          \
+    static int allowed[MAX_DEVICES] = {};  /* this instance's, by device */  \
+    cudaError_t e = allow_smem(allowed, ivf_topr_kernel<QT, XT>, (int)smem); \
+    if (e != cudaSuccess) return (int)e;                                     \
+    ivf_topr_kernel<QT, XT><<<grid, K5_THREADS, (int)smem, stream>>>(        \
+        (const QT*)q, (const XT*)x, sqn, scales, offs, cnts, coarse,         \
+        n_probe, d, window, n_sub, metric_sq, scaled, r_planes, planes_s,    \
+        planes_i, out_rej);                                                  \
+  }
   switch (combo) {
-    case F32: LAUNCH_TOPR(float, float); break;
-    case BF16: LAUNCH_TOPR(__nv_bfloat16, __nv_bfloat16); break;
-    case I8_BF16: LAUNCH_TOPR(__nv_bfloat16, int8_t); break;
-    default: return (int)cudaErrorInvalidValue;
+    case F32: LAUNCH_TOPR(float, float) break;
+    case BF16: LAUNCH_TOPR(__nv_bfloat16, __nv_bfloat16) break;
+    default: LAUNCH_TOPR(__nv_bfloat16, int8_t) break;
   }
 #undef LAUNCH_TOPR
   return (int)cudaGetLastError();

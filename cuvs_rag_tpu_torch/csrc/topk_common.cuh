@@ -1,7 +1,8 @@
 // Device code shared by the top-k kernels of flat_topk.cu and ivf_scan.cu:
 // element loads as fp32, the warp-held sorted top-k (k <= 32), the per-class
-// top-R insertion chain of the certified large-k kernels, and the merge pass
-// that reduces per-block partials to one sorted top-k per query.
+// top-R insertion chain of the certified large-k kernels (K3, K5) and the
+// merge of their splits, and the merge pass that reduces per-block partials
+// to one sorted top-k per query.
 // Everything has internal linkage: each .cu file compiles its own copy.
 
 #pragma once
@@ -9,6 +10,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "ring.cuh"
 
 namespace {
 
@@ -64,19 +67,29 @@ struct WarpTopK {
 // `stride` apart in memory), as in the TPU kernel: a strict > lets the
 // candidate in after every plane >= it. Returns the value that fell off the
 // end (the candidate itself if it entered nowhere); `last` becomes plane R-1.
-__device__ __forceinline__ float chain_insert(float* ps, int* pi, int stride,
-                                              int r_planes, float cand, int cid,
-                                              float& last) {
-  for (int r = 0; r < r_planes; ++r) {
+// IDT is the planes' id type (int rows or positions; uint16_t tile numbers).
+// chain_push is the chain over n planes alone: (cand, cid) becomes what fell
+// off the end.
+template <typename IDT>
+__device__ __forceinline__ void chain_push(float* ps, IDT* pi, int stride,
+                                           int n, float& cand, IDT& cid) {
+  for (int r = 0; r < n; ++r) {
     const float b = ps[r * stride];
     if (cand > b) {
-      const int bi = pi[r * stride];
+      const IDT bi = pi[r * stride];
       ps[r * stride] = cand;
       pi[r * stride] = cid;
       cand = b;
       cid = bi;
     }
   }
+}
+
+template <typename IDT>
+__device__ __forceinline__ float chain_insert(float* ps, IDT* pi, int stride,
+                                              int r_planes, float cand, IDT cid,
+                                              float& last) {
+  chain_push(ps, pi, stride, r_planes, cand, cid);
   last = ps[(r_planes - 1) * stride];
   return cand;
 }
@@ -105,6 +118,90 @@ __global__ void merge_partials_kernel(const float* __restrict__ part_s,
     out_s[(long long)qq * k + lane] = ok ? top.s : neg_inf();
     out_i[(long long)qq * k + lane] = ok ? top.id : -1;
   }
+}
+
+// K3's and K5's merge of their splits. One thread per (query, class): each
+// class keeps the R best of the union of the splits' planes, and its rej
+// becomes the max of the splits' rej values and of every value the merge
+// displaced, so max(rej) < tau still proves the collected top-k exact. Each
+// split's planes are sorted, so the first value that cannot enter ends that
+// split (it is the best of the rest). The class's planes stay in shared
+// memory ([R][MERGE_THREADS] scores, then ids) and a split's planes are read
+// four at a time, so neither the chain nor the next value waits on a round
+// trip to device memory. Partials (S, n_q, R, W) and (S, n_q, W); output
+// planes (n_q, R, W) with the validity rule applied, rej (n_q, W).
+constexpr int MERGE_THREADS = 128;
+
+__global__ void __launch_bounds__(MERGE_THREADS) topr_merge_kernel(
+    const float* __restrict__ part_s, const int* __restrict__ part_i,
+    const float* __restrict__ part_rej, int n_q, int n_splits, int w,
+    int r_planes, float* __restrict__ out_s, int* __restrict__ out_i,
+    float* __restrict__ out_rej) {
+  extern __shared__ float merge_smem[];
+  const long long e = (long long)blockIdx.x * MERGE_THREADS + threadIdx.x;
+  if (e >= (long long)n_q * w) return;  // a thread touches only its own class
+  const int qq = (int)(e / w), c = (int)(e % w);
+  float* ps = merge_smem + threadIdx.x;
+  int* pi = reinterpret_cast<int*>(merge_smem + r_planes * MERGE_THREADS) + threadIdx.x;
+  for (int r = 0; r < r_planes; ++r) {
+    ps[r * MERGE_THREADS] = neg_inf();
+    pi[r * MERGE_THREADS] = -1;
+  }
+  float last = neg_inf(), rej = neg_inf();
+  for (int s = 0; s < n_splits; ++s) {
+    rej = fmaxf(rej, part_rej[((long long)s * n_q + qq) * w + c]);
+    const long long o = ((long long)s * n_q + qq) * r_planes * w + c;
+    bool done = false;
+    for (int r0 = 0; r0 < r_planes && !done; r0 += 4) {
+      float v[4];
+      int id[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const bool in = r0 + u < r_planes;
+        v[u] = in ? part_s[o + (long long)(r0 + u) * w] : neg_inf();
+        id[u] = in ? part_i[o + (long long)(r0 + u) * w] : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (done) continue;
+        if (!(v[u] > last)) {
+          rej = fmaxf(rej, v[u]);
+          done = true;
+        } else {
+          rej = fmaxf(rej, chain_insert(ps, pi, MERGE_THREADS, r_planes, v[u],
+                                        id[u], last));
+        }
+      }
+    }
+  }
+  const long long o = (long long)qq * r_planes * w + c;
+  for (int r = 0; r < r_planes; ++r) {
+    const float s = ps[r * MERGE_THREADS];
+    const bool ok = s > VALID_MIN;
+    out_s[o + (long long)r * w] = ok ? s : neg_inf();
+    out_i[o + (long long)r * w] = ok ? pi[r * MERGE_THREADS] : -1;
+  }
+  out_rej[e] = rej;
+}
+
+// Launches topr_merge_kernel over the n_q x w classes, with the shared
+// memory its planes take; returns the launch's error.
+inline cudaError_t launch_topr_merge(const float* part_s, const int* part_i,
+                                     const float* part_rej, int n_q,
+                                     int n_splits, int w, int r_planes,
+                                     float* out_s, int* out_i, float* out_rej,
+                                     cudaStream_t stream) {
+  const int smem = r_planes * MERGE_THREADS * 8;
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  static int allowed[MAX_DEVICES] = {};  // this source's, by device
+  const cudaError_t e = allow_smem(allowed, topr_merge_kernel, smem);
+  if (e != cudaSuccess) return e;
+  const long long n = (long long)n_q * w;
+  topr_merge_kernel<<<(unsigned)((n + MERGE_THREADS - 1) / MERGE_THREADS),
+                      MERGE_THREADS, smem, stream>>>(
+      part_s, part_i, part_rej, n_q, n_splits, w, r_planes, out_s, out_i,
+      out_rej);
+  return cudaGetLastError();
 }
 
 }  // namespace

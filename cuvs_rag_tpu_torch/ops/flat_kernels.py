@@ -40,18 +40,33 @@ from cuvs_rag_tpu_torch.utils.config import Metric
 MAX_KERNEL_K = 32  # K1/K2 keep a warp-held top-k: one lane per slot
 MAX_LARGE_K = 8192
 MAX_SKETCH_CLASSES = 2048  # K2's merge stages the class winners in shared memory
-MAX_R_PLANES = 88  # K3 keeps a query's planes in 88 KB of shared memory
+MAX_R_PLANES = 88  # K3's "cores" route keeps a query's planes in 88 KB
 NEG_INF = -float("inf")
 _PAD_PENALTY = 1e30
 _VALID_MIN = -dist_ops.DELETED_THRESHOLD
 # Tile shape of csrc/flat_topk.cu (TQ, TC): used only to size the splits.
 _TQ, _TC = 16, 128
-# Blocks per SM the split count aims for. The CUDA-core kernels (K3 and
-# K1's and K2's "cores" routes) hide memory latency with 4 blocks of a 19 KB
-# stage; K1's and K2's ring routes run two blocks of a three-stage ring an
-# SM (one block's products under the other's copies), all in one wave.
+# Blocks per SM the split count aims for. The CUDA-core kernels (the "cores"
+# routes of K1-K3) hide memory latency with 4 blocks of a 19 KB stage; the
+# ring routes run two blocks of a three-stage ring an SM (one block's
+# products under the other's copies), all in one wave, or one where K3's
+# planes need the SM's shared memory (`topr_plan`).
 _BLOCKS_PER_SM = 4
 _RING_BLOCKS_PER_SM = 2
+# Shared memory of an H100 SM, what a block may take of it, and what the
+# card keeps back for each resident block (bytes).
+_SM_SMEM = 228 * 1024
+_MAX_SMEM = 227 * 1024
+_BLOCK_RESERVED = 1024
+# K1's ring (csrc/flat_topk.cu RING_STAGES, RING_CHUNK) and score tile row
+_RING_STAGES, _RING_CHUNK, _SCORE_PITCH = 3, 128, 128 + 8
+# K3's "cores" route: the planes of the queries of a block (csrc topr_scan_kernel)
+_PLANE_SMEM = 88 * 1024
+# K3's ring route by blocks an SM (1 or 2) and by the ring's stages (3 or
+# 4), or None for `topr_plan`'s rule; eval/large_k_times.py sets them to time
+# each.
+_TOPR_BLOCKS_PER_SM = None
+_TOPR_STAGES = None
 # The ring routes stage the 16 x d query tile beside the ring: at d = 2048
 # that is 66 KB of bf16 (131 KB of fp32) and a block already has its SM to
 # itself; deeper rows stay with the older CUDA-core kernels.
@@ -203,14 +218,14 @@ def sketch_route(dtype, d: int, int8_compute: bool = False) -> str:
 
 
 def _class_splits(n_rows: int, n_q: int, tile_c: int, sm_count: int,
-                  blocks_per_sm: int = _BLOCKS_PER_SM):
-    """(tiles_per_split, n_splits) for K2/K3, whose blocks cover (query tile
-    x class chunk x split of the corpus tiles): at most `blocks_per_sm`
-    blocks an SM, so K2's ring routes run in one wave (at W = 2,048, 16
-    class chunks x 16 splits = 256 blocks of the H100's 2 x 132), and
-    splits as even as whole tiles allow; split s covers tiles [s * per,
-    min(n_tiles, (s + 1) * per)) in ascending order."""
-    blocks = -(-n_q // _TQ) * -(-tile_c // _TC)
+                  blocks_per_sm: int = _BLOCKS_PER_SM, qpb: int = _TQ):
+    """(tiles_per_split, n_splits) for K2/K3, whose blocks cover (block of
+    `qpb` queries x class chunk x split of the corpus tiles): at most
+    `blocks_per_sm` blocks an SM, so the ring routes run in one wave (at
+    W = 2,048, 16 class chunks x 16 splits = 256 blocks of the H100's 2 x
+    132), and splits as even as whole tiles allow; split s covers tiles
+    [s * per, min(n_tiles, (s + 1) * per)) in ascending order."""
+    blocks = -(-n_q // qpb) * -(-tile_c // _TC)
     n_tiles = -(-n_rows // tile_c)
     want = max(1, blocks_per_sm * sm_count // blocks)
     per = -(-n_tiles // max(1, min(want, n_tiles)))
@@ -487,59 +502,168 @@ def finish_large(planes_s, planes_i, rej, k):
     return top_s, top_i, certified
 
 
+def _topr_select_plain(vals, ids, r_planes: int):
+    """Each class's R best of (Q, T, W) scores `vals` (ids `ids`) over the
+    T tiles: planes (Q, R, W) scores and ids, descending, and rej (Q, W),
+    the (R+1)-th best value (-inf where a class has no more)."""
+    q, nt, w = vals.shape
+    if nt <= r_planes:  # fewer tiles than planes: empty planes, nothing rejected
+        fill = r_planes + 1 - nt
+        vals = torch.cat([vals, torch.full((q, fill, w), NEG_INF,
+                                           device=vals.device)], dim=1)
+        ids = torch.cat([ids, torch.full((q, fill, w), -1, dtype=ids.dtype,
+                                         device=ids.device)], dim=1)
+    v, arg = torch.topk(vals, r_planes + 1, dim=1)
+    return v[:, :r_planes], torch.gather(ids, 1, arg[:, :r_planes]), v[:, r_planes]
+
+
+def topr_merge_plain(part_s, part_i, part_rej):
+    """Plain version of the merge of K3's and K5's splits
+    (`topr_merge_kernel`): planes (S, Q, R, W) and rej (S, Q, W) of S
+    splits -> each class's R best of the union of the splits' planes (Q,
+    R, W) and its rej (Q, W), the max of the splits' rej values and of the
+    (R+1)-th best of the union: every value the union holds beyond its R
+    best, so max(rej) < tau proves as much as it does unsplit."""
+    s, q, r, w = part_s.shape
+    union_s = part_s.permute(1, 0, 2, 3).reshape(q, s * r, w)
+    union_i = part_i.permute(1, 0, 2, 3).reshape(q, s * r, w)
+    planes_s, planes_i, rej = _topr_select_plain(union_s, union_i, r)
+    return planes_s, planes_i, torch.maximum(part_rej.amax(dim=0), rej)
+
+
+def topr_planes_plain(vals, ids, r_planes: int, n_splits: int = 1):
+    """The planes (Q, R, W) and rej (Q, W) of (Q, T, W) tile scores, as the
+    kernels form them: the T tiles cut into `n_splits` runs of ceil(T / S)
+    (the card's split of the tiles or probes), each run selected on its
+    own and the runs merged by `topr_merge_plain`; n_splits = 1 selects
+    once. Any split gives the same planes, up to the order of ties, and
+    the same rej. The validity rule is applied to the planes."""
+    nt = vals.shape[1]
+    per = max(1, -(-nt // n_splits))
+    parts = [_topr_select_plain(vals[:, t0:t0 + per], ids[:, t0:t0 + per],
+                                r_planes)
+             for t0 in range(0, max(nt, 1), per)]
+    if len(parts) == 1:
+        planes_s, planes_i, rej = parts[0]
+    else:
+        planes_s, planes_i, rej = topr_merge_plain(
+            *(torch.stack(t) for t in zip(*parts)))
+    planes_s, planes_i = _mask_invalid(planes_s, planes_i)
+    return planes_s, planes_i, rej
+
+
 def flat_topk_large_plain(corpus, corpus_sqnorms, queries, n_valid,
                           corpus_scales=None, *, k: int, metric: str,
-                          tile_c: int = 1024, r_planes: int = 0):
+                          tile_c: int = 1024, r_planes: int = 0,
+                          planes: bool = False, n_splits: int = 1):
     """Plain PyTorch version of K3: each class's R best rows and its
-    (R+1)-th best value (`rej`), then the top-k and the certificate."""
+    (R+1)-th best value (`rej`), then the top-k and the certificate; with
+    `planes`, the planes (Q, R, W) scores and ids and rej (Q, W) instead.
+    `n_splits` selects over that many runs of tiles and merges them, as
+    the card does (`topr_planes_plain`)."""
     r_planes = _large_args(k, tile_c, r_planes)
     queries, _, scales = _prepare(corpus, corpus_sqnorms, queries, n_valid,
                                   corpus_scales, metric)
     s = _scores_plain(corpus, corpus_sqnorms, queries, n_valid, scales, metric)
     by_class = _by_class(s, tile_c)
     q, nt, _ = by_class.shape
-    vals, tile = torch.topk(by_class, min(r_planes + 1, nt), dim=1)
-    if nt <= r_planes:  # fewer tiles than planes: empty planes, nothing rejected
-        fill = r_planes + 1 - nt
-        vals = torch.cat([vals, torch.full((q, fill, tile_c), NEG_INF,
-                                           device=s.device)], dim=1)
-        tile = torch.cat([tile, torch.zeros((q, fill, tile_c),
-                                            dtype=tile.dtype,
-                                            device=s.device)], dim=1)
-    cls = torch.arange(tile_c, device=s.device)
-    rows = (tile[:, :r_planes] * tile_c + cls).to(torch.int32)
-    planes_s, planes_i = _mask_invalid(vals[:, :r_planes], rows)
-    return finish_large(planes_s, planes_i, vals[:, r_planes], k)
+    rows = torch.arange(nt * tile_c, dtype=torch.int32, device=s.device)
+    out = topr_planes_plain(by_class, rows.view(1, nt, tile_c).expand(q, -1, -1),
+                            r_planes, n_splits)
+    return out if planes else finish_large(*out, k)
+
+
+def _ring_bytes(dtype, d: int, stages: int = _RING_STAGES) -> int:
+    """Shared memory of K3's ring walk before its planes (csrc/flat_topk.cu
+    class_ring_bytes): the staged 16-query tile (bf16, or fp32 for fp32
+    rows), the score tile (not for fp32 rows) and the ring's stages."""
+    fp32 = dtype == torch.float32
+    row_bytes = d * {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[dtype]
+    chunk = min(_RING_CHUNK, row_bytes)
+    return (_TQ * ((4 if fp32 else 2) * d + 16)
+            + (0 if fp32 else _TQ * _SCORE_PITCH * 4)
+            + stages * _TC * (chunk + 16))
+
+
+def topr_plan(n_q: int, r_planes: int, d: int, dtype, n_tiles: int,
+              blocks_per_sm: int = None, stages: int = None):
+    """(route, queries a block, bytes of a plane id, blocks an SM, ring
+    stages) of K3 for n_q queries, R planes, rows of `dtype` and depth d
+    over n_tiles class tiles. The ring routes are K1's (`exact_route`) and
+    keep planes 0 .. R-2 of a block's qpb queries x 128 classes in shared
+    memory behind the ring (plane R-1 stays in registers); an id is the
+    2-byte tile number while n_tiles <= 65,535, else the 4-byte row. Of two
+    blocks an SM (the ring's own occupancy: the planes get what is left of
+    half the SM) and one (the rest of the block's 227 KB), the rule takes
+    the one that reads the corpus fewest times, ceil(n_q / qpb), and two
+    blocks on a tie: one query at R = 12 fits two blocks, 16 queries only
+    one (132 KB of planes beside a 75 KB ring at D = 384 bf16). One block
+    an SM takes a fourth ring stage where it fits, to keep more copies in
+    flight. `blocks_per_sm` and `stages` (or _TOPR_BLOCKS_PER_SM and
+    _TOPR_STAGES) fix either. Where no plane fits beside the ring, and at
+    depths the ring does not take, the route is "cores", topr_scan_kernel
+    (4 bytes an id, 88 KB of planes, four blocks an SM, stages 0: no
+    ring). A pure function of its arguments."""
+    route = exact_route(dtype, d)
+    blocks_per_sm = blocks_per_sm or _TOPR_BLOCKS_PER_SM
+    stages = stages or _TOPR_STAGES
+    if route != "cores":
+        id_bytes = 2 if n_tiles <= 0xFFFF else 4
+        entry = (r_planes - 1) * _TC * (4 + id_bytes)
+        best = None
+        for bps in (blocks_per_sm,) if blocks_per_sm else (2, 1):
+            budget = min(_MAX_SMEM, _SM_SMEM // bps - _BLOCK_RESERVED)
+            room = budget - _ring_bytes(dtype, d, stages or _RING_STAGES)
+            qpb = min(_TQ, n_q, room // entry if entry else room)
+            if qpb >= 1 and (best is None
+                             or -(-n_q // qpb) < -(-n_q // best[1])):
+                more = _ring_bytes(dtype, d, _RING_STAGES + 1) + qpb * entry
+                st = stages or (_RING_STAGES + 1 if bps == 1 and more <= budget
+                                else _RING_STAGES)
+                best = (route, qpb, id_bytes, bps, st)
+        if best is not None:
+            return best
+    qpb = min(_TQ, n_q, _PLANE_SMEM // (r_planes * _TC * 8))
+    return "cores", qpb, 4, _BLOCKS_PER_SM, 0
 
 
 def flat_topk_large(corpus, corpus_sqnorms, queries, n_valid,
                     corpus_scales=None, *, k: int, metric: str,
-                    tile_c: int = 1024, r_planes: int = 0):
+                    tile_c: int = 1024, r_planes: int = 0,
+                    planes: bool = False):
     """K3: certified large-k selection (k up to 8192, the reference's
     top_k=2000 regime). Returns (scores (Q, k) descending, ids (Q, k),
-    certified (Q,) bool). certified[q] PROVES row q exact: every class
-    (row mod tile_c) kept its R best rows and `rej`, the best value it ever
-    rejected; a true top-k member that was missed lies at or below its
-    class's rej, so max(rej) < tau (the k-th collected score) rules it out.
-    Uncertified rows must be recomputed by the caller.
+    certified (Q,) bool); with `planes`, the planes (Q, R, tile_c) scores
+    and ids and rej (Q, tile_c) that they come from. certified[q] PROVES
+    row q exact: every class (row mod tile_c) kept its R best rows and
+    `rej`, the best value it ever rejected; a true top-k member that was
+    missed lies at or below its class's rej, so max(rej) < tau (the k-th
+    collected score) rules it out. Uncertified rows must be recomputed by
+    the caller.
 
     Replaces cuvs_rag_tpu/ops/pallas_flat.py flat_topk_large (`_topr_kernel`,
-    `default_r_planes`). Bound like K2 (the shared CUDA-core score tile)
-    once the inserts stay on chip:
-    blocks over (query tile x 128-class chunk x split of the corpus
-    tiles) own disjoint (query, class) states, whose planes live in the
-    block's shared memory (an insert chain through global memory measured
-    2.5x slower end to end: each round trip waits on the previous stores).
-    Plane R-1 and rej stay in registers, and the chain runs only for a
-    candidate that beats plane R-1. The merge pass keeps each class's R best
-    of the union of the splits and folds every value it displaces into rej,
+    `default_r_planes`). Bound, like K1 and K2, by one read of the corpus.
+    Its ring routes (`topr_plan`: bf16 and int8 rows on the tensor cores,
+    fp32 rows with fp32 FMAs, wherever K1 takes the ring) stream the corpus
+    exactly as K2 does: blocks over (block of queries x 128-class chunk x
+    split of the corpus tiles) walk their classes' rows, W rows apart
+    from one tile to the next, through K1's three-stage cp.async ring, in
+    one wave. Only the selection differs: each (query, class) keeps its R
+    best in the block's shared memory behind the ring and plane R-1 and
+    rej in registers, and the chain runs only for a score that beats plane
+    R-1 (~R (1 + ln(T / R)) of T tiles). At one query a block's planes
+    take 8 KB (R = 12) and two blocks share an SM as K1's and K2's do; 16
+    queries' planes take most of an SM, so such blocks run one an SM, with
+    a fourth ring stage, and read the corpus once. Other depths, and planes that fit no ring block, keep
+    the older CUDA-core kernel. The merge pass keeps each class's R best of
+    the union of the splits and folds every value it displaces into rej,
     which keeps the certificate sound.
     """
     r_planes = _large_args(k, tile_c, r_planes)
     if corpus.device.type == "cpu":
         return flat_topk_large_plain(
             corpus, corpus_sqnorms, queries, n_valid, corpus_scales, k=k,
-            metric=metric, tile_c=tile_c, r_planes=r_planes)
+            metric=metric, tile_c=tile_c, r_planes=r_planes, planes=planes)
     _require_cuda(corpus)
     queries, _, scales = _prepare(corpus, corpus_sqnorms, queries, n_valid,
                                   corpus_scales, metric)
@@ -548,9 +672,11 @@ def flat_topk_large(corpus, corpus_sqnorms, queries, n_valid,
     dev = corpus.device
     n, d = corpus.shape
     n_q = queries.shape[0]
-    per, n_splits = _class_splits(n, n_q, tile_c, _sm_count(dev))
+    route, qpb, id_bytes, bps, stages = topr_plan(n_q, r_planes, d,
+                                                  corpus.dtype, -(-n // tile_c))
+    per, n_splits = _class_splits(n, n_q, tile_c, _sm_count(dev), bps, qpb)
     queries = queries.contiguous()
-    corpus = corpus.contiguous()
+    corpus = _aligned(corpus.contiguous())
     part_s = torch.empty((n_splits, n_q, r_planes, tile_c), dtype=torch.float32,
                          device=dev)
     part_i = torch.empty((n_splits, n_q, r_planes, tile_c), dtype=torch.int32,
@@ -564,7 +690,8 @@ def flat_topk_large(corpus, corpus_sqnorms, queries, n_valid,
     rej = torch.empty((n_q, tile_c), dtype=torch.float32, device=dev)
     with build.device_guard(dev):
         err = build.load(_SOURCE).flat_topr(
-            _COMBO[corpus.dtype], _ptr(queries), _ptr(corpus),
+            _COMBO[corpus.dtype], int(route != "cores"), qpb, id_bytes,
+            stages, _ptr(queries), _ptr(corpus),
             _ptr(corpus_sqnorms.contiguous()), _ptr(scales.contiguous()),
             n_q, d, n, int(n_valid), int(metric == Metric.SQEUCLIDEAN),
             tile_c, r_planes, per, n_splits, _ptr(part_s), _ptr(part_i),
@@ -573,6 +700,8 @@ def flat_topk_large(corpus, corpus_sqnorms, queries, n_valid,
         )
     build.check(err, "flat_topr")
     flat_topk_large.launches += 1
+    if planes:
+        return planes_s, planes_i, rej
     return finish_large(planes_s, planes_i, rej, k)
 
 

@@ -44,9 +44,12 @@ _K4_PIECES = (1024, 512, 256)
 _K4_BLOCKS_PER_SM = 4
 _K4_PIECE = None
 _K4_TILE = 128  # the ring's tile (csrc/ring.cuh TC)
-_K5_CLASSES = 128  # classes per K5 block (csrc/ivf_scan.cu CLASSES)
-# Shared memory a K5 block may take (query + planes): two blocks per SM.
-_K5_SMEM = 96 * 1024
+_K5_CLASSES = 128  # classes per K5 block (csrc/ivf_scan.cu CLASSES, ring TC)
+# Shared memory a K5 block may take alone (`_k5_smem` says what it takes),
+# and each of two that share an SM.
+_K5_SMEM = 227 * 1024
+_K5_SMEM_TWO = 228 * 1024 // 2 - 1024
+_K5_BLOCKS_PER_SM = 2  # the ring's occupancy, as K4's
 _SOURCE = "ivf_scan.cu"
 _COMBO = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
@@ -325,21 +328,57 @@ ivf_scan.launches = 0
 # ------------------------------------------------------------------- K5 ---
 
 
+def _k5_smem(dim: int, r_planes: int, row_bytes: int = 128) -> int:
+    """Shared memory of a K5 ring block at depth `dim`, R planes and rows
+    of `row_bytes` (a stage row is min(128, row_bytes) + 16 bytes): the
+    fp32 query, the ring and the planes. The most either K5 kernel takes."""
+    chunk = min(128, row_bytes)
+    return (-(-4 * dim // 128) * 128 + 3 * _K4_TILE * (chunk + 16)
+            + r_planes * _K5_CLASSES * 8)
+
+
 def large_k_config(window: int, dim: int, k: int):
     """(n_sub, r_planes) of K5 on the card, or None when K5 does not take
     this k. A block holds 128 classes of one query whatever the class
     width, so the width is the whole window (n_sub = 1): splitting it, as
     the TPU did to fit its VMEM double buffer, would only raise R. R =
-    default_r_planes(k, window) must stay <= MAX_R_PLANES, and the block's
-    query and planes must fit its shared-memory budget."""
+    default_r_planes(k, window) must stay <= MAX_R_PLANES, and a ring
+    block's query, ring and planes must fit the 227 KB one block may take
+    (`_k5_smem`, 67 KB at window 2,048, D = 384, k = 2,000); that admits
+    everything the older kernel's 96 KB of query and planes admitted."""
     if not MAX_KERNEL_K < k <= MAX_LARGE_K or window < 1:
         return None
     r = flat_kernels.default_r_planes(k, window)
     if k > r * window or r > MAX_R_PLANES:
         return None
-    if dim * 4 + r * _K5_CLASSES * 8 > _K5_SMEM:
+    if _k5_smem(dim, r) > _K5_SMEM:
         return None
     return 1, r
+
+
+def k5_plan(n_q: int, window: int, n_sub: int, n_probe: int, r_planes: int,
+            d: int, dtype, sm_count: int = 132):
+    """(route, tiles a split, splits) of K5 for a call of n_q queries over
+    n_probe probes of `window` rows cut into n_sub sub-windows. "ring"
+    (`ivf_route`: rows of a multiple of 16 bytes, d <= 2,048): blocks
+    (query, 128-class chunk, split of the query's n_probe x n_sub tiles),
+    as many splits as still fit the call's blocks in one wave of
+    _K5_BLOCKS_PER_SM blocks an SM (one where the planes need it), the
+    tiles cut as evenly as whole tiles allow: at one query, window 2,048
+    and 20 probes, 16 chunks x 10 splits of 2 probes; at 16 queries, 256
+    blocks of all 20. Each chunk of each query is a block whatever the
+    counts (a chunk past every count streams nothing). "cores": the older
+    kernel, one split. A pure function of its arguments."""
+    tiles = n_probe * n_sub
+    route = ivf_route(dtype, d)
+    if route != "ring":
+        return "cores", tiles, 1
+    bps = _K5_BLOCKS_PER_SM if _k5_smem(
+        d, r_planes, d * _ELEMENT_BYTES[dtype]) <= _K5_SMEM_TWO else 1
+    blocks = n_q * -(-(window // n_sub) // _K5_CLASSES)
+    want = max(1, min(tiles, bps * sm_count // blocks))
+    per = -(-tiles // want)
+    return "ring", per, -(-tiles // per)
 
 
 def _large_args(k, window, n_sub, r_planes):
@@ -359,10 +398,14 @@ def _large_args(k, window, n_sub, r_planes):
 def ivf_scan_large_plain(sorted_vectors, sorted_sqnorms, sorted_scales,
                          queries, probe_offsets, probe_counts, *, k: int,
                          window: int, metric: str, coarse_ip=None,
-                         n_sub: int = 1, r_planes: int = 0):
+                         n_sub: int = 1, r_planes: int = 0,
+                         planes: bool = False, n_splits: int = 1):
     """Plain PyTorch version of K5: the same classes (column of the
     sub-window), each class's R best and its (R+1)-th best (`rej`), then
-    the top-k and the certificate."""
+    the top-k and the certificate; with `planes`, the planes (Q, R, subwin)
+    scores and positions and rej (Q, subwin) instead. `n_splits` selects
+    over that many runs of the (probe, sub-window) tiles and merges them,
+    as the card does (`flat_kernels.topr_planes_plain`)."""
     subwin, r_planes = _large_args(k, window, n_sub, r_planes)
     q, offs, cnts, coarse = _prepare(
         sorted_vectors, sorted_sqnorms, sorted_scales, queries, probe_offsets,
@@ -371,42 +414,41 @@ def ivf_scan_large_plain(sorted_vectors, sorted_sqnorms, sorted_scales,
                                   sorted_scales, q, offs, cnts, coarse,
                                   window, metric)
     q_n, p_n, _ = s.shape
-    s = s.reshape(q_n, p_n * n_sub, subwin)  # (query, sub-window, class)
-    pos = pos.reshape(q_n, p_n * n_sub, subwin)
-    n_win = s.shape[1]
-    if n_win <= r_planes:  # fewer sub-windows than planes: pad with -inf
-        fill = r_planes + 1 - n_win
-        s = torch.cat([s, torch.full((q_n, fill, subwin), topk_ops.NEG_INF,
-                                     device=s.device)], dim=1)
-        pos = torch.cat([pos, torch.full((q_n, fill, subwin), -1,
-                                         dtype=pos.dtype, device=s.device)],
-                        dim=1)
-    vals, arg = torch.topk(s, r_planes + 1, dim=1)
-    planes_i = torch.gather(pos, 1, arg[:, :r_planes])
-    planes_s, planes_i = flat_kernels._mask_invalid(vals[:, :r_planes],
-                                                    planes_i)
-    return flat_kernels.finish_large(planes_s, planes_i, vals[:, r_planes], k)
+    # (query, sub-window, class)
+    out = flat_kernels.topr_planes_plain(
+        s.reshape(q_n, p_n * n_sub, subwin),
+        pos.reshape(q_n, p_n * n_sub, subwin), r_planes, n_splits)
+    return out if planes else flat_kernels.finish_large(*out, k)
 
 
 def ivf_scan_large(sorted_vectors, sorted_sqnorms, sorted_scales, queries,
                    probe_offsets, probe_counts, *, k: int, window: int,
                    metric: str, coarse_ip=None, n_sub: int = 1,
-                   r_planes: int = 0):
+                   r_planes: int = 0, planes: bool = False):
     """K5: certified large-k probed scan. Returns ((Q, k) scores descending,
-    (Q, k) layout positions, (Q,) certified bool). certified[q] PROVES row
-    q is the exact top-k of the probed lists (every class kept its R best
-    and the best value it ever displaced, and max(rej) < the k-th score);
-    uncertified rows must be recomputed by the caller.
+    (Q, k) layout positions, (Q,) certified bool); with `planes`, the
+    planes (Q, R, subwin) scores and positions and rej (Q, subwin) that
+    they come from. certified[q] PROVES row q is the exact top-k of the
+    probed lists (every class kept its R best and the best value it ever
+    displaced, and max(rej) < the k-th score); uncertified rows must be
+    recomputed by the caller.
 
     Replaces cuvs_rag_tpu/ops/pallas_ivf.py ivf_scan_pallas_large
     (`_kernel_large`; its VMEM budget `large_k_config` becomes this
-    module's shared-memory one). Bound like K4 by the window bytes once
-    the inserts stay on chip: blocks over (query x 128-class chunk) walk
-    all of the query's probes and sub-windows, so each class lives in one
-    block and needs no cross-block merge, and the planes live in the
-    block's shared memory (planes in global memory measured 2.8x slower on
-    K3). At one query this gives only subwin/128 blocks (16 at window
-    2,048): its occupancy is a known limit. The final top-k and the
+    module's shared-memory one). Bound like K4 by the bytes of the probed
+    windows. On the card a class is a column of the window, so a 128-class
+    chunk of one probe's window is 128 consecutive layout rows: one tile
+    of K4's copy ring. The ring route (`k5_plan`) runs blocks over (query x
+    128-class chunk x split of the probes), each streaming one tile per
+    probe of its split through K4's ring (tiles past a count issue no
+    copy) and multiplying as K4 does (two threads a row, fp32 FMAs); each
+    class keeps its R best in the block's shared memory behind the ring,
+    plane R-1 and rej in registers, and runs the chain only for a score
+    that beats plane R-1. The splits fill the card in one wave (16 chunks
+    x 10 splits at one query, window 2,048, 20 probes), and K3's merge
+    pass folds their planes together, every displaced value into rej.
+    Depths the ring does not take keep the older kernel, one block per
+    (query, chunk) walking every probe. The final top-k and the
     certificate run in PyTorch, as they ran outside the TPU kernel.
     """
     subwin, r_planes = _large_args(k, window, n_sub, r_planes)
@@ -414,7 +456,8 @@ def ivf_scan_large(sorted_vectors, sorted_sqnorms, sorted_scales, queries,
         return ivf_scan_large_plain(
             sorted_vectors, sorted_sqnorms, sorted_scales, queries,
             probe_offsets, probe_counts, k=k, window=window, metric=metric,
-            coarse_ip=coarse_ip, n_sub=n_sub, r_planes=r_planes)
+            coarse_ip=coarse_ip, n_sub=n_sub, r_planes=r_planes,
+            planes=planes)
     _require_cuda(sorted_vectors)
     q, offs, cnts, coarse = _prepare(
         sorted_vectors, sorted_sqnorms, sorted_scales, queries, probe_offsets,
@@ -423,25 +466,37 @@ def ivf_scan_large(sorted_vectors, sorted_sqnorms, sorted_scales, queries,
 
     dev = sorted_vectors.device
     q_n, p_n = offs.shape
+    d = sorted_vectors.shape[1]
+    route, per, n_splits = k5_plan(q_n, window, n_sub, p_n, r_planes, d,
+                                   sorted_vectors.dtype,
+                                   flat_kernels._sm_count(dev))
     planes_s = torch.empty((q_n, r_planes, subwin), dtype=torch.float32,
                            device=dev)
     planes_i = torch.empty((q_n, r_planes, subwin), dtype=torch.int32,
                            device=dev)
     rej = torch.empty((q_n, subwin), dtype=torch.float32, device=dev)
-    args = [q, sorted_vectors, sorted_sqnorms, sorted_scales, offs, cnts,
-            coarse]
-    args = [t.contiguous() for t in args]
+    parts = [planes_s, planes_i, rej]  # one split writes the outputs
+    if n_splits > 1:
+        parts = [torch.empty((n_splits,) + t.shape, dtype=t.dtype, device=dev)
+                 for t in parts]
+    args = [q, flat_kernels._aligned(sorted_vectors.contiguous()),
+            sorted_sqnorms, sorted_scales, offs, cnts, coarse]
+    args = [t.contiguous() for t in args]  # held until the call returns
     with build.device_guard(dev):
         err = build.load(_SOURCE).ivf_scan_topr(
-            _COMBO[sorted_vectors.dtype], *(t.data_ptr() for t in args),
-            q_n, p_n, sorted_vectors.shape[1], window, n_sub,
+            _COMBO[sorted_vectors.dtype], int(route == "ring"),
+            *(t.data_ptr() for t in args),
+            q_n, p_n, d, window, n_sub,
             int(metric == Metric.SQEUCLIDEAN),
-            int(sorted_vectors.dtype == torch.int8), r_planes,
+            int(sorted_vectors.dtype == torch.int8), r_planes, per, n_splits,
+            *(t.data_ptr() for t in parts),
             planes_s.data_ptr(), planes_i.data_ptr(), rej.data_ptr(),
             build.raw_stream(dev),
         )
     build.check(err, "ivf_scan_topr")
     ivf_scan_large.launches += 1
+    if planes:
+        return planes_s, planes_i, rej
     return flat_kernels.finish_large(planes_s, planes_i, rej, k)
 
 

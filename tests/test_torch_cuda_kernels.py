@@ -256,6 +256,132 @@ def test_ivf_kernel_routes_match_plain(cuda_device, dtype, d, piece):
     assert ik.ivf_scan.launches == before + 18
 
 
+@pytest.mark.parametrize("dtype,d", [("float32", 64), ("bfloat16", 64),
+                                     ("int8", 64), ("bfloat16", 42),
+                                     ("float32", 384), ("int8", 384)])
+def test_large_kernel_routes_hold(cuda_device, dtype, d):
+    """K3 by each route (the ring on the tensor cores for bf16 and int8
+    rows, fp32 FMAs for fp32 rows; the older kernel at d = 42) on a ragged
+    50,003-row corpus with pad rows past n_valid and 1% tombstones, k in
+    {33, 300, 2,000} and the few-planes case (k = 300, 128 classes, R = 3),
+    at 1, 16 and 40 queries, both metrics, each by chip_smoke.large_hold:
+    certified rows exact, certificate differences only within the
+    rounding bound (ring routes) or none (older route), planes equal to
+    the plain version's up to ties within the bound."""
+    import chip_smoke
+    from cuvs_rag_tpu_torch.index import flat
+    from cuvs_rag_tpu_torch.ops import flat_kernels as fk
+    from cuvs_rag_tpu_torch.utils.config import FlatParams
+
+    n = 50_003
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    x = torch.nn.functional.normalize(
+        torch.randn((n, d), generator=g, device=cuda_device), dim=1)
+    ix = flat.build(FlatParams(dtype=dtype, tile_n=2048), x)
+    ix = flat.delete(ix, torch.arange(3, n, 100, device=cuda_device))
+    storage = min(ix.size, n + 1000)
+    want_route = fk.exact_route(ix.vectors.dtype, d)
+    before = fk.flat_topk_large.launches
+    calls = 0
+    for n_q in (1, 16, 40):
+        q = torch.cat([x[:n_q // 2] + 0.01, torch.nn.functional.normalize(
+            torch.randn((n_q - n_q // 2, d), generator=g, device=cuda_device),
+            dim=1)])
+        args = (ix.vectors[:storage], ix.sqnorms[:storage], q, ix.n_valid,
+                ix.scales[:storage])
+        for metric in ("sqeuclidean", "inner_product"):
+            for kw in (dict(k=33), dict(k=300), dict(k=2000),
+                       dict(k=300, tile_c=128, r_planes=3)):
+                held = chip_smoke.large_hold("flat_topk_large", args,
+                                             dict(kw, metric=metric))
+                assert held["route"] == want_route
+                calls += 2
+    assert fk.flat_topk_large.launches == before + calls
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, 2])
+def test_large_kernel_plans_agree(cuda_device, blocks_per_sm):
+    """K3's two ring plans (queries a block by the budget at two blocks an
+    SM; all 16 at one block an SM) and 4-byte plane ids (a corpus of more
+    than 65,535 tiles: 1,100,000 rows of 16 classes) hold by large_hold,
+    and the two plans give the same scores and certificates."""
+    from unittest import mock
+
+    import chip_smoke
+    from cuvs_rag_tpu_torch.ops import flat_kernels as fk
+
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.nn.functional.normalize(
+        torch.randn((1_100_000, 64), generator=g, device=cuda_device), dim=1)
+    v, sq = x.to(torch.bfloat16), (x * x).sum(1)
+    q = x[:16] + 0.01
+    args = (v, sq, q, x.shape[0], None)
+    for kw in (dict(k=2000), dict(k=100, tile_c=16)):
+        kw = dict(kw, metric="sqeuclidean")
+        with mock.patch.object(fk, "_TOPR_BLOCKS_PER_SM", blocks_per_sm):
+            chip_smoke.large_hold("flat_topk_large", args, kw)
+            got = fk.flat_topk_large(*args, **kw)
+        want = fk.flat_topk_large(*args, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("d", [40, 42, 384])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_ivf_large_kernel_routes_hold(cuda_device, dtype, d):
+    """K5 by both routes (the ring where rows are whole 16-byte pieces, the
+    older kernel at d = 42 and for int8 at d = 40) over windows that start
+    at arbitrary rows with counts 0, 1, 31, 32, 127, 128, 129, 2,047, the
+    window and past it, 1% tombstones, n_q in {1, 16, 17}, all ten probes
+    and one, k in {33, 2,000}, whole windows and 128-row sub-windows with
+    few planes, both metrics, each by chip_smoke.large_hold."""
+    import chip_smoke
+    from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
+
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    vectors, sq, scales, queries, offs, cnts, coarse = _ivf_windows(
+        dtype, d, g, cuda_device)
+    before = ik.ivf_scan_large.launches
+    calls = 0
+    for n_q in (1, 16, 17):
+        for probes in (10, 1):
+            args = (vectors, sq, scales, queries[:n_q], offs[:n_q, :probes],
+                    cnts[:n_q, :probes])
+            for metric in ("sqeuclidean", "inner_product"):
+                kw = dict(window=2048, metric=metric, coarse_ip=None
+                          if coarse is None else coarse[:n_q, :probes])
+                for kw5 in (dict(k=33), dict(k=2000),
+                            dict(k=300, n_sub=16, r_planes=3)):
+                    held = chip_smoke.large_hold("ivf_scan_large", args,
+                                                 dict(kw5, **kw))
+                    assert held["route"] == ik.ivf_route(vectors.dtype, d)
+                    calls += 2
+    assert ik.ivf_scan_large.launches == before + calls
+
+
+def test_ivf_large_kernel_on_ragged_index(cuda_device):
+    """K5 on chip_smoke.ragged_ivf_index (250 empty lists, lists of 1 to
+    1,500 rows) at every split the plan may choose, by large_hold."""
+    from unittest import mock
+
+    import chip_smoke
+    from cuvs_rag_tpu_torch.index import ivf_flat
+    from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((30_000, chip_smoke.D), generator=g, device=cuda_device)
+    ix, q = chip_smoke.ragged_ivf_index(x, g, cuda_device)
+    for n_probe in (1, 4, 20):
+        probes, coarse = ivf_flat.probe(ix, q, n_probe, "sqeuclidean")
+        p = probes.long()
+        args = (ix.vectors, ix.sqnorms, ix.scales, q, ix.list_offsets[p],
+                ix.list_counts[p])
+        kw = dict(k=200, window=ix.max_list_size, metric="sqeuclidean")
+        for sms in (132, 1, 100_000):  # splits from one to every probe
+            with mock.patch.object(ik.flat_kernels, "_sm_count",
+                                   lambda dev, n=sms: n):
+                chip_smoke.large_hold("ivf_scan_large", args, kw)
+
+
 def test_ivf_kernels_match_plain_versions(cuda_device):
     """K4 (k in {1, 10, 32}) and K5 (k = 600, and the few-planes
     certificate case) on fp32, bf16 and int8 IVF-Flat indexes of a

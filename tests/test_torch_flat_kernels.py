@@ -151,6 +151,21 @@ def test_large_matches_pallas(metric, k):
     compare_topk(s, i, rs, ri, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+def test_large_split_emulation_matches_pallas(metric):
+    """The card's structure, K3's tiles in 7 splits each selected alone and
+    merged (`topr_planes_plain`), against the Pallas kernel that walks
+    them in one pass: the same certificate and top-k."""
+    corpus, queries = _data(17, n=7 * TILE, q=12)
+    rs, ri, rc = _large_ref(corpus, queries, 600, metric)
+    s, i, c = fk.flat_topk_large_plain(
+        torch.from_numpy(corpus), (torch.from_numpy(corpus) ** 2).sum(1),
+        torch.from_numpy(queries), 7 * TILE, k=600, metric=metric,
+        tile_c=TILE, n_splits=7)
+    np.testing.assert_array_equal(c.numpy(), np.asarray(rc))
+    compare_topk(s, i, rs, ri, rtol=1e-5, atol=1e-5)
+
+
 def test_large_certificate_fails_on_class_stuffed_corpus():
     """All true top-k in ONE residue class (> R members): neither the
     reference nor the port can be exact there, and both must say so."""

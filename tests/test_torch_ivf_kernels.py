@@ -143,6 +143,29 @@ def test_k5_plain_matches_pallas(indexes, dtype, metric, n_sub):
     compare_topk(s, pos, es, epos, **TOL)
 
 
+@pytest.mark.parametrize("n_splits", [2, 7])
+def test_k5_split_emulation_matches_pallas(indexes, n_splits):
+    """The card's structure, the probes in splits each selected alone and
+    merged (`flat_kernels.topr_planes_plain`), against the Pallas kernel
+    that walks every probe in one block: the same certificate and top-k,
+    at the default planes and at two planes of 128-row sub-windows."""
+    ixs, queries = indexes
+    jix, tix = ixs["bfloat16"]
+    offs, cnts, coarse = _probe_args(jix, queries, "sqeuclidean")
+    for kw in (dict(k=64), dict(k=200, n_sub=jix.max_list_size // 128,
+                                r_planes=2)):
+        ref = pallas_ivf.ivf_scan_pallas_large(
+            jix.vectors, jix.sqnorms, jix.scales, jnp.asarray(queries), offs,
+            cnts, nprobe=offs.shape[1], window=jix.max_list_size,
+            metric="sqeuclidean", coarse_ip=coarse, interpret=True, **kw)
+        s, pos, cert = ik.ivf_scan_large_plain(
+            *_layout_args(tix), torch.from_numpy(queries), to_torch(offs),
+            to_torch(cnts), window=jix.max_list_size, metric="sqeuclidean",
+            n_splits=n_splits, **kw)
+        np.testing.assert_array_equal(cert.numpy(), np.asarray(ref[2]))
+        compare_topk(s, pos, ref[0], ref[1], **TOL)
+
+
 def test_k5_under_provisioned_certificate_matches(indexes):
     """Two planes of 128-row classes cannot hold k = 200 well: rows fail
     the certificate, and the flags and candidates equal the Pallas kernel's."""
