@@ -386,12 +386,13 @@ def large_hold(name: str, args, kw) -> dict:
     return out
 
 
-def _merge_held(out: dict, held: dict, route_key: str, case: str) -> None:
+def _merge_held(out: dict, held: dict, route_key: str, case: str,
+                uncertified_key: str = "large_uncertified") -> None:
     """Fold one `large_hold` result into a phase's totals."""
     for key in ("max_abs_err", "max_err_over_allowed", "planes_over_slack"):
         out[f"large_{key}"] = max(out.get(f"large_{key}", 0.0), held[key])
-    for key in ("uncertified", "cert_differs"):
-        out[f"large_{key}"] = out.get(f"large_{key}", 0) + held[key]
+    out["large_cert_differs"] = out.get("large_cert_differs", 0) + held["cert_differs"]
+    out[uncertified_key] = out.get(uncertified_key, 0) + held["uncertified"]
     out.setdefault(route_key, {})[case] = held["route"]
 
 
@@ -473,10 +474,12 @@ def parity_phase(n_rows: int, n_ragged: int, seed: int, device="cuda",
                 # k_large at the default planes, and few planes and classes:
                 # inserts reach every plane position and many rows fail the
                 # certificate; both by large_hold's three holds
-                for kw in (dict(k=k_large, metric=metric),
-                           dict(k=300, metric=metric, tile_c=128, r_planes=3)):
+                for kind, kw in (
+                        ("large", dict(k=k_large, metric=metric)),
+                        ("large_few", dict(k=300, metric=metric, tile_c=128,
+                                           r_planes=3))):
                     _merge_held(out, large_hold("flat_topk_large", args, kw),
-                                "large_route", dtype)
+                                "large_route", dtype, kind + "_uncertified")
                     out["cases"] += 1
             del ix, args
         del x
@@ -571,7 +574,8 @@ def ivf_parity_phase(n_rows: int, seed: int, device="cuda",
                     ("k5_few", dict(k=300, n_sub=window // 128, r_planes=3))):
                 held = large_hold("ivf_scan_large", args, dict(kw5, **kw))
                 out[kind + "_uncertified"][name] += held["uncertified"]
-                _merge_held(out, held, "k5_route", name)
+                _merge_held(out, held, "k5_route", name,
+                            "large_uncertified_total")
                 out["cases"] += 1
     return out
 
@@ -1638,17 +1642,18 @@ def ivf_scan_times(args, kw) -> dict:
 
 def large_times(name: str, args, kw) -> dict:
     """K3 or K5 through its wrapper: "ms" by CUDA events around 10 calls,
-    "device_ms" its kernels' own device time a call (torch.profiler), and
+    "device_ms" its kernels' own device time a call (torch.profiler; by
+    kernel in "device_ms_by_kernel": scan and merge), and
     for K3 "library_ms", the one library route to the same top-k (a (Q, N)
     matmul and torch.topk, as K1's; timed as a yardstick only)."""
     from cuvs_rag_tpu_torch.eval.roofline import cuda_ms, device_ms
     from cuvs_rag_tpu_torch.ops import topk as topk_ops
 
     kern = kernel_fns()[name][0]
+    by_kernel = device_ms(lambda: kern(*args, **kw), LARGE_KERNELS[name], 20)
     out = {"ms": cuda_ms(lambda: kern(*args, **kw), 10),
-           "device_ms": sum(device_ms(lambda: kern(*args, **kw),
-                                      LARGE_KERNELS[name], 20).values()),
-           "library_ms": None}
+           "device_ms": sum(by_kernel.values()),
+           "device_ms_by_kernel": by_kernel, "library_ms": None}
     if name == "flat_topk_large":
         lib = dict(k=kw["k"], metric=kw["metric"])
         out["library_ms"] = cuda_ms(
@@ -1669,7 +1674,7 @@ def large_shape_row(name: str, shape: str, args, kw, bound_fn) -> dict:
                             args[0].shape[1], args[0].dtype,
                             -(-args[0].shape[0] // tile_c))
         plan = dict(zip(("route", "queries_a_block", "id_bytes",
-                         "blocks_an_sm", "stages"), plan))
+                         "blocks_an_sm"), plan))
         plan["splits"] = fk._class_splits(
             args[0].shape[0], n_q, tile_c,
             fk._sm_count(args[0].device), plan["blocks_an_sm"],
@@ -1731,6 +1736,11 @@ def timing_phase(flat_r, ivf_r, pq_r, ooc_r, enc, texts, launches: dict):
             lambda: flat.search(None, flat_r.index, q, 10), 20),
         "ivf_search_ms_per_batch": cuda_ms(
             lambda: ivf_flat.search(None, ivf_r.index, q, 10), 20),
+        # the same batch at the large k that K3 and K5 serve
+        "search_ms_per_batch_k_large": cuda_ms(
+            lambda: flat.search(None, flat_r.index, q, K_LARGE), 10),
+        "ivf_search_ms_per_batch_k_large": cuda_ms(
+            lambda: ivf_flat.search(None, ivf_r.index, q, K_LARGE), 10),
         "pq_search_ms_per_batch_refine_2": cuda_ms(
             lambda: ivf_pq.search(sp2, pq_ix, q, 10), 20),
         "pq_search_ms_per_batch_refine_64": cuda_ms(

@@ -636,8 +636,7 @@ __device__ __forceinline__ void stage_query_tile(unsigned char* s_q, int q_pitch
 // from c0, split s) takes queries [q0, q_end), q0 = blockIdx.x * qpb (qpb <=
 // TQ; the staged tile's other rows are zeros), and streams, for each tile
 // jt of its split in ascending order, the rows jt * w + c0 .. + min(TC, w -
-// c0) (fewer past n_rows) through K1's ring of STAGES stages (K1's
-// RING_STAGES but where K3 runs one block an SM), one depth chunk at a time, and
+// c0) (fewer past n_rows) through K1's ring, one depth chunk at a time, and
 // multiplies them as exact_scan_kernel does: MODE 0 bf16 rows, 1 int8 rows
 // with bf16 queries (mma.sync m16n8k16, fp32 sums), 3 int8 rows with int8
 // queries (m16n8k32, exact int32 sums: the integer dot of the plain
@@ -647,7 +646,7 @@ __device__ __forceinline__ void stage_query_tile(unsigned char* s_q, int q_pitch
 // (query q0 + w + 8 i < q_end, row jt * w + c0 + l + 32 j) as
 // sel.offer(i, j, score, jt, row): the selection is the one thing K2 and K3
 // do differently.
-template <int MODE, int STAGES, typename Sel>
+template <int MODE, typename Sel>
 __device__ __forceinline__ void class_ring_walk(
     unsigned char* ring_smem, const void* __restrict__ q,
     const unsigned char* __restrict__ x, const float* __restrict__ sqn,
@@ -683,7 +682,7 @@ __device__ __forceinline__ void class_ring_walk(
     if (chunk < n_chunks) {
       const long long first = (j0 + ld_tile) * w + c0;
       const int byte0 = ld_dc * chunk_bytes;
-      loader.load(ring_a + (chunk % STAGES) * stage_bytes, pitch, x, row_bytes,
+      loader.load(ring_a + (chunk % RING_STAGES) * stage_bytes, pitch, x, row_bytes,
                   first, (int)min((long long)n_class, n_rows - first), byte0,
                   min(chunk_bytes, row_bytes - byte0));
       if (++ld_dc == n_dc) {
@@ -694,7 +693,7 @@ __device__ __forceinline__ void class_ring_walk(
     asm volatile("cp.async.commit_group;" ::: "memory");  // one group a call
   };
 #pragma unroll
-  for (int c = 0; c < STAGES - 1; ++c) load_next(c);
+  for (int c = 0; c < RING_STAGES - 1; ++c) load_next(c);
   stage_query_tile<MODE>(s_q, q_pitch, q, q0, q_end, d);
 
   const int mat = lane >> 3;
@@ -719,9 +718,9 @@ __device__ __forceinline__ void class_ring_walk(
   int tile = 0, dc = 0;
 
   for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    asm volatile("cp.async.wait_group %0;" ::"n"(STAGES - 2) : "memory");
+    asm volatile("cp.async.wait_group %0;" ::"n"(RING_STAGES - 2) : "memory");
     __syncthreads();  // the chunk has landed; every warp is done with the one before
-    load_next(chunk + STAGES - 1);
+    load_next(chunk + RING_STAGES - 1);
 
     const long long jt = j0 + tile;
     const long long row0 = jt * w + c0;
@@ -745,7 +744,7 @@ __device__ __forceinline__ void class_ring_walk(
     const int byte0 = dc * chunk_bytes;
     const int width = min(chunk_bytes, row_bytes - byte0);
     if constexpr (FP32) {
-      const unsigned char* rows = s_ring + (chunk % STAGES) * stage_bytes + lane * pitch;
+      const unsigned char* rows = s_ring + (chunk % RING_STAGES) * stage_bytes + lane * pitch;
       const unsigned char* qs = s_q + warp * q_pitch + byte0;
 #pragma unroll 2
       for (int u = 0; u < width; u += 16) {
@@ -770,7 +769,7 @@ __device__ __forceinline__ void class_ring_walk(
       // the chunk's first value in the staged queries: 2 bytes a value for
       // bf16 queries over int8 rows, as many bytes as the rows otherwise
       mma_chunk<MODE>(acc, a_lane + (MODE == 1 ? 2 * byte0 : byte0),
-                      ring_a + (chunk % STAGES) * stage_bytes + b_lane,
+                      ring_a + (chunk % RING_STAGES) * stage_bytes + b_lane,
                       width >> 5);
     }
     if (++dc < n_dc) continue;
@@ -855,7 +854,7 @@ __global__ void __launch_bounds__(THREADS, 2) sketch_ring_kernel(
   extern __shared__ __align__(128) unsigned char ring_smem[];
   ClassBest sel;
   sel.init();
-  class_ring_walk<MODE, RING_STAGES>(ring_smem, q, x, sqn, scales, qscales, n_q, TQ, d,
+  class_ring_walk<MODE>(ring_smem, q, x, sqn, scales, qscales, n_q, TQ, d,
                         n_rows, n_valid, metric_sq, w, tiles_per_split, n_dc,
                         chunk_bytes, sel);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -994,30 +993,27 @@ __global__ void __launch_bounds__(THREADS) topr_scan_kernel(
 }
 
 // K3 on the ring: the same planes and chain, fed by class_ring_walk. Each
-// thread keeps plane R-1 of its (query, class) pairs (`last`, with its id)
-// and rej in registers; a score that beats `last` is pushed through planes
-// 0 .. R-2 in shared memory, behind the ring ([qpb][R-1][TC] scores, then
-// [qpb][R-1][TC] ids), and what falls off their end meets plane R-1. Ids are
-// rows (ID_BYTES 4) or, while the corpus has at most 65,535 tiles, the
-// 16-bit tile number jt of row jt * w + c (ID_BYTES 2): 6 bytes an entry, so
-// the planes of all 16 queries at R = 12 fit beside the ring at D = 384
-// (ops/flat_kernels.topr_plan), with a fourth stage where one block has the
-// SM. Each candidate is offered in ascending row order, as topr_scan_kernel
-// offers it, and the chain is the same. Partials (S, n_q, R, W) and (S, n_q,
-// W); with one split (gridDim.z = 1) they are the outputs, and the validity
-// rule is applied here instead of in the merge.
+// thread keeps plane R-1 (`last`) and rej of its (query, class) pairs in
+// registers; a score that beats `last` runs the chain through the planes
+// in shared memory, which lie behind the ring ([qpb][R][TC] scores, then
+// [qpb][R][TC] ids). Ids are rows (ID_BYTES 4) or, while the corpus has at
+// most 65,535 tiles, the 16-bit tile number jt of row jt * w + c (ID_BYTES
+// 2): 6 bytes an entry, so all 16 queries' planes of R = 12 fit beside the
+// ring at D = 384 (ops/flat_kernels.topr_plan). Each candidate is offered
+// in ascending row order, as topr_scan_kernel offers it. Partials (S, n_q,
+// R, W) and (S, n_q, W); with one split (gridDim.z = 1) they are the
+// outputs, and the validity rule is applied here instead of in the merge.
 template <typename IDT>
 struct ClassPlanes {
   float last[QPT][CPT], rej[QPT][CPT];
-  IDT last_id[QPT][CPT];
   float* ps;
   IDT* pi;
-  int n_smem;  // planes in shared memory: R - 1
+  int r_planes;
 
-  __device__ __forceinline__ void init(float* ps_, IDT* pi_, int r_planes, int qpb) {
+  __device__ __forceinline__ void init(float* ps_, IDT* pi_, int r, int qpb) {
     ps = ps_;
     pi = pi_;
-    n_smem = r_planes - 1;
+    r_planes = r;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
     for (int i = 0; i < QPT; ++i)
@@ -1025,12 +1021,11 @@ struct ClassPlanes {
       for (int j = 0; j < CPT; ++j) {
         last[i][j] = neg_inf();
         rej[i][j] = neg_inf();
-        last_id[i][j] = IDT(-1);
         const int qi = warp + 8 * i;
         if (qi >= qpb) continue;
         // this thread's own planes: nobody else reads or writes them
-        for (int rr = 0; rr < n_smem; ++rr) {
-          const int o = (qi * n_smem + rr) * TC + lane + 32 * j;
+        for (int rr = 0; rr < r; ++rr) {
+          const int o = (qi * r + rr) * TC + lane + 32 * j;
           ps[o] = neg_inf();
           pi[o] = IDT(-1);
         }
@@ -1039,38 +1034,27 @@ struct ClassPlanes {
 
   __device__ __forceinline__ void offer(int i, int j, float v, long long jt,
                                         long long row) {
-    if (!(v > last[i][j])) {
-      rej[i][j] = fmaxf(rej[i][j], v);
-      return;
-    }
-    const int qi = (threadIdx.x >> 5) + 8 * i, cl = (threadIdx.x & 31) + 32 * j;
-    const int o = qi * n_smem * TC + cl;
-    IDT id = (IDT)(sizeof(IDT) == 2 ? jt : row);
-    chain_push(ps + o, pi + o, TC, n_smem, v, id);
-    // what fell off plane R-2 (v itself if it entered none) meets plane R-1
+    float out = v;
     if (v > last[i][j]) {
-      rej[i][j] = fmaxf(rej[i][j], last[i][j]);
-      last[i][j] = v;
-      last_id[i][j] = id;
-    } else {
-      rej[i][j] = fmaxf(rej[i][j], v);
+      const int qi = (threadIdx.x >> 5) + 8 * i, cl = (threadIdx.x & 31) + 32 * j;
+      const int o = qi * r_planes * TC + cl;
+      out = chain_insert(ps + o, pi + o, TC, r_planes, v,
+                         (IDT)(sizeof(IDT) == 2 ? jt : row), last[i][j]);
     }
+    rej[i][j] = fmaxf(rej[i][j], out);
   }
 };
 
-// Bytes of class_ring_walk's shared memory (query tile, score tile, ring of
-// `stages`) before whatever its selection keeps behind it; a multiple of 16.
+// Bytes of class_ring_walk's shared memory (query tile, score tile, ring)
+// before whatever its selection keeps behind it; a multiple of 16.
 __host__ __device__ inline int class_ring_bytes(int q_bytes, bool score_tile,
-                                                int d, int chunk_bytes,
-                                                int stages) {
+                                                int d, int chunk_bytes) {
   return TQ * (q_bytes * d + 16) + (score_tile ? TQ * SCORE_PITCH * 4 : 0) +
-         stages * TC * (chunk_bytes + 16);
+         RING_STAGES * TC * (chunk_bytes + 16);
 }
 
-// STAGES: RING_STAGES at two blocks an SM, one more where a block has the SM
-// to itself (the ring then keeps as many bytes in flight as it can).
-template <int MODE, int ID_BYTES, int STAGES>
-__global__ void __launch_bounds__(THREADS, STAGES == RING_STAGES ? 2 : 1) topr_ring_kernel(
+template <int MODE, int ID_BYTES>
+__global__ void __launch_bounds__(THREADS, 2) topr_ring_kernel(
     const void* __restrict__ q, const unsigned char* __restrict__ x,
     const float* __restrict__ sqn, const float* __restrict__ scales, int n_q,
     int qpb, int d, long long n_rows, int n_valid, int metric_sq, int w,
@@ -1080,15 +1064,14 @@ __global__ void __launch_bounds__(THREADS, STAGES == RING_STAGES ? 2 : 1) topr_r
   extern __shared__ __align__(128) unsigned char ring_smem[];
   using IDT = typename std::conditional<ID_BYTES == 2, uint16_t, int>::type;
   constexpr bool FP32 = MODE == 2;
-  const int n_smem = r_planes - 1;
   float* ps = reinterpret_cast<float*>(
-      ring_smem + class_ring_bytes(FP32 ? 4 : 2, !FP32, d, chunk_bytes, STAGES));
-  IDT* pi = reinterpret_cast<IDT*>(ps + qpb * n_smem * TC);
+      ring_smem + class_ring_bytes(FP32 ? 4 : 2, !FP32, d, chunk_bytes));
+  IDT* pi = reinterpret_cast<IDT*>(ps + qpb * r_planes * TC);
   ClassPlanes<IDT> sel;
   sel.init(ps, pi, r_planes, qpb);
-  class_ring_walk<MODE, STAGES>(ring_smem, q, x, sqn, scales, nullptr, n_q, qpb,
-                                d, n_rows, n_valid, metric_sq, w,
-                                tiles_per_split, n_dc, chunk_bytes, sel);
+  class_ring_walk<MODE>(ring_smem, q, x, sqn, scales, nullptr, n_q, qpb, d,
+                        n_rows, n_valid, metric_sq, w, tiles_per_split, n_dc,
+                        chunk_bytes, sel);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q0 = blockIdx.x * qpb, c0 = blockIdx.y * TC, split = blockIdx.z;
   const int n_class = min(TC, w - c0);
@@ -1101,9 +1084,8 @@ __global__ void __launch_bounds__(THREADS, STAGES == RING_STAGES ? 2 : 1) topr_r
       if (qi >= qpb || qq >= n_q || cl >= n_class) continue;
       const long long o = ((long long)split * n_q + qq) * r_planes * w + c0 + cl;
       for (int r = 0; r < r_planes; ++r) {
-        const int e = (qi * n_smem + r) * TC + cl;
-        float s = r < n_smem ? ps[e] : sel.last[i][j];
-        const IDT id = r < n_smem ? pi[e] : sel.last_id[i][j];
+        float s = ps[(qi * r_planes + r) * TC + cl];
+        const IDT id = pi[(qi * r_planes + r) * TC + cl];
         int row = id == IDT(-1) ? -1
                   : ID_BYTES == 2 ? (int)((long long)id * w + c0 + cl) : (int)id;
         if (single && !(s > VALID_MIN)) {
@@ -1249,13 +1231,11 @@ int flat_sketch_topk(int combo, int ring, const void* q, const void* x,
 
 // ring = 1 takes topr_ring_kernel (bf16 and int8 rows of a multiple of 32
 // bytes, fp32 rows of a multiple of 16; the corpus 16-byte aligned), 0
-// topr_scan_kernel; `qpb` queries a block, `id_bytes` (2: tile numbers,
-// ring only; 4: rows) and the ring's `stages` (ring only: RING_STAGES or
-// one more) as ops/flat_kernels.topr_plan chose them. With one split the
-// ring kernel writes the outputs itself and no merge runs.
-int flat_topr(int combo, int ring, int qpb, int id_bytes, int stages,
-              const void* q, const void* x, const float* sqn,
-              const float* scales, int n_q,
+// topr_scan_kernel; `qpb` queries a block and `id_bytes` (2: tile numbers,
+// ring only; 4: rows) as ops/flat_kernels.topr_plan chose them. With one
+// split the ring kernel writes the outputs itself and no merge runs.
+int flat_topr(int combo, int ring, int qpb, int id_bytes, const void* q,
+              const void* x, const float* sqn, const float* scales, int n_q,
               int d, long long n_rows, int n_valid, int metric_sq, int w,
               int r_planes, long long tiles_per_split, int n_splits,
               float* part_s, int* part_i, float* part_rej, float* out_s,
@@ -1265,51 +1245,42 @@ int flat_topr(int combo, int ring, int qpb, int id_bytes, int stages,
       (id_bytes != 4 && !(ring && id_bytes == 2 && (n_rows + w - 1) / w <= 65535)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((n_q + qpb - 1) / qpb, (w + TC - 1) / TC, n_splits);
+  const long long planes = (long long)qpb * r_planes * TC * (4 + id_bytes);
   if (ring) {
-    if (stages != RING_STAGES && stages != RING_STAGES + 1)
-      return (int)cudaErrorInvalidValue;
     const bool fp32 = combo == F32;
     const int row_bytes = fp32 ? 4 * d : combo == I8_BF16 ? d : 2 * d;
     if (row_bytes % (fp32 ? 16 : 32) != 0 || (uintptr_t)x % 16 != 0)
       return (int)cudaErrorInvalidValue;
     const int chunk_bytes = std::min(RING_CHUNK, row_bytes);
     const int n_dc = (row_bytes + chunk_bytes - 1) / chunk_bytes;
-    // the ring, then planes 0 .. R-2 (plane R-1 stays in registers)
-    const long long smem = class_ring_bytes(fp32 ? 4 : 2, !fp32, d, chunk_bytes, stages) +
-                           (long long)qpb * (r_planes - 1) * TC * (4 + id_bytes);
+    // the ring, then the planes
+    const long long smem = class_ring_bytes(fp32 ? 4 : 2, !fp32, d, chunk_bytes) + planes;
     if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
     if (n_splits == 1) {  // the kernel's partials are the outputs
       part_s = out_s;
       part_i = out_i;
       part_rej = out_rej;
     }
-#define LAUNCH_TOPR_RING(MODE, IDB, ST)                                      \
+#define LAUNCH_TOPR_RING(MODE, IDB)                                          \
   {                                                                          \
     static int allowed[MAX_DEVICES] = {};  /* this instance's, by device */  \
-    cudaError_t e = allow_smem(allowed, topr_ring_kernel<MODE, IDB, ST>, (int)smem); \
+    cudaError_t e = allow_smem(allowed, topr_ring_kernel<MODE, IDB>, (int)smem); \
     if (e != cudaSuccess) return (int)e;                                     \
-    topr_ring_kernel<MODE, IDB, ST><<<grid, THREADS, (int)smem, stream>>>(   \
+    topr_ring_kernel<MODE, IDB><<<grid, THREADS, (int)smem, stream>>>(       \
         q, (const unsigned char*)x, sqn, scales, n_q, qpb, d, n_rows,        \
         n_valid, metric_sq, w, r_planes, tiles_per_split, n_dc, chunk_bytes, \
         part_s, part_i, part_rej);                                           \
   }
-#define LAUNCH_TOPR_MODES(IDB, ST)                                           \
-  if (mode == 2) LAUNCH_TOPR_RING(2, IDB, ST)                                \
-  else if (mode == 1) LAUNCH_TOPR_RING(1, IDB, ST)                           \
-  else LAUNCH_TOPR_RING(0, IDB, ST)
     const int mode = fp32 ? 2 : combo == I8_BF16 ? 1 : 0;
-    const bool more = stages != RING_STAGES;
     if (id_bytes == 2) {
-      if (more) { LAUNCH_TOPR_MODES(2, RING_STAGES + 1) } else { LAUNCH_TOPR_MODES(2, RING_STAGES) }
+      if (mode == 2) LAUNCH_TOPR_RING(2, 2) else if (mode == 1) LAUNCH_TOPR_RING(1, 2) else LAUNCH_TOPR_RING(0, 2)
     } else {
-      if (more) { LAUNCH_TOPR_MODES(4, RING_STAGES + 1) } else { LAUNCH_TOPR_MODES(4, RING_STAGES) }
+      if (mode == 2) LAUNCH_TOPR_RING(2, 4) else if (mode == 1) LAUNCH_TOPR_RING(1, 4) else LAUNCH_TOPR_RING(0, 4)
     }
-#undef LAUNCH_TOPR_MODES
 #undef LAUNCH_TOPR_RING
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || n_splits == 1) return (int)err;
   } else {
-    const long long planes = (long long)qpb * r_planes * TC * (4 + id_bytes);
     // beside score_tile's stage in static shared memory
     if (planes + (long long)sizeof(Stage<false>) > MAX_SMEM) return (int)cudaErrorInvalidValue;
     const int smem = (int)planes;

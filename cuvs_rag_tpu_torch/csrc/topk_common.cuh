@@ -68,12 +68,11 @@ struct WarpTopK {
 // candidate in after every plane >= it. Returns the value that fell off the
 // end (the candidate itself if it entered nowhere); `last` becomes plane R-1.
 // IDT is the planes' id type (int rows or positions; uint16_t tile numbers).
-// chain_push is the chain over n planes alone: (cand, cid) becomes what fell
-// off the end.
 template <typename IDT>
-__device__ __forceinline__ void chain_push(float* ps, IDT* pi, int stride,
-                                           int n, float& cand, IDT& cid) {
-  for (int r = 0; r < n; ++r) {
+__device__ __forceinline__ float chain_insert(float* ps, IDT* pi, int stride,
+                                              int r_planes, float cand, IDT cid,
+                                              float& last) {
+  for (int r = 0; r < r_planes; ++r) {
     const float b = ps[r * stride];
     if (cand > b) {
       const IDT bi = pi[r * stride];
@@ -83,13 +82,6 @@ __device__ __forceinline__ void chain_push(float* ps, IDT* pi, int stride,
       cid = bi;
     }
   }
-}
-
-template <typename IDT>
-__device__ __forceinline__ float chain_insert(float* ps, IDT* pi, int stride,
-                                              int r_planes, float cand, IDT cid,
-                                              float& last) {
-  chain_push(ps, pi, stride, r_planes, cand, cid);
   last = ps[(r_planes - 1) * stride];
   return cand;
 }

@@ -6,14 +6,14 @@ paths' shapes, at one query and at 16:
 
 K3 over 6,290,000 x 384 bf16 unit rows at k = 2,000 (tile_c 1,024, R = 12);
 K5 over a sorted layout of the same rows cut into lists of 500 to 2,048 rows
-(window 2,048, R = 10), each query probing 20 of them at k = 2,000. Each
-call is timed by CUDA events around 10 calls ("ms") and by torch.profiler,
+(window 2,048, R = 10), each query probing 20 of them at k = 2,000; and the
+searches that run them, flat and IVF-Flat (default params, 20 probes) built
+over those rows, 16 queries at k = 2,000. Each call is timed by CUDA events around 10 calls ("ms") and by torch.profiler,
 as the device time of its kernels ("device_ms": every kernel whose name
 holds "topr", which both trees' K3 and K5 kernels and their merge do).
-Where the tree has K3's plan overrides (`_TOPR_BLOCKS_PER_SM`,
-`_TOPR_STAGES`), K3 is timed at its rule and at one block an SM with three
-and four ring stages and two blocks an SM with three, and the plans must
-give the same scores and certificates. Prints the card's name and power limit,
+Where the tree has K3's plan override (`_TOPR_BLOCKS_PER_SM`), K3 is timed
+at its rule and at one and two blocks an SM too, and the plans must give
+the same scores and certificates. Prints the card's name and power limit,
 then one JSON line {"large_k_times": {...}}. `--root` names another
 checkout of the repository whose package is timed instead of this one (to
 compare two trees in turns on one card). Run it as a file, not with -m, so
@@ -46,8 +46,10 @@ def main() -> int:
         print("large_k_times: CUDA is not available", file=sys.stderr)
         return 1
     from cuvs_rag_tpu_torch.eval.roofline import cuda_ms, device_ms, gpu_line
+    from cuvs_rag_tpu_torch.index import flat, ivf_flat
     from cuvs_rag_tpu_torch.ops import flat_kernels as fk
     from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
+    from cuvs_rag_tpu_torch.utils.config import FlatParams, IVFFlatParams
 
     print(gpu_line(), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -55,7 +57,6 @@ def main() -> int:
         torch.randn((ROWS, DIM), generator=gen, device="cuda"), dim=1)
     v = x.to(torch.bfloat16)
     sq = (v.float() ** 2).sum(1)
-    del x
     out = {}
 
     def timed(name, fn):
@@ -64,6 +65,17 @@ def main() -> int:
         out[name] = {"ms": cuda_ms(fn, 10),
                      "device_ms": sum(device_ms(fn, ("topr",), 20).values())}
 
+    # the searches that run K3 and K5: flat and IVF-Flat (20 probes) at
+    # k = 2,000, 16 queries near corpus rows
+    q16 = x[:16] + 0.01
+    index = flat.build(FlatParams(dtype="bfloat16"), x)
+    timed(f"flat search 16 x k = {K}",
+          lambda: flat.search(None, index, q16, K))
+    index = ivf_flat.build(IVFFlatParams(dtype="bfloat16"), x)
+    timed(f"ivf_flat search 16 x k = {K}",
+          lambda: ivf_flat.search(None, index, q16, K))
+    del index, x
+
     # K3: queries near corpus rows
     for n_q in (1, 16):
         q = v[:n_q].float() + 0.01
@@ -71,19 +83,16 @@ def main() -> int:
         kw = dict(k=K, metric="sqeuclidean")
         timed(f"K3 {n_q} x {ROWS} x {DIM} bf16",
               lambda: fk.flat_topk_large(*call, **kw))
-        if hasattr(fk, "_TOPR_STAGES"):
+        if hasattr(fk, "_TOPR_BLOCKS_PER_SM"):
             want = fk.flat_topk_large(*call, **kw)
-            for blocks, stages in ((1, 3), (1, 4), (2, 3)):
-                with mock.patch.object(fk, "_TOPR_BLOCKS_PER_SM", blocks), \
-                        mock.patch.object(fk, "_TOPR_STAGES", stages):
+            for blocks in (1, 2):
+                with mock.patch.object(fk, "_TOPR_BLOCKS_PER_SM", blocks):
                     got = fk.flat_topk_large(*call, **kw)
                     if not (torch.equal(got[0], want[0])
                             and torch.equal(got[2], want[2])):
-                        raise AssertionError(
-                            f"K3 at {blocks} blocks an SM, {stages} stages, "
-                            "differs from its rule")
-                    timed(f"K3 {n_q} x {ROWS} x {DIM} bf16, {blocks} blocks "
-                          f"an SM, {stages} stages",
+                        raise AssertionError(f"K3 at {blocks} blocks an SM "
+                                             "differs from its rule")
+                    timed(f"K3 {n_q} x {ROWS} x {DIM} bf16, {blocks} blocks an SM",
                           lambda: fk.flat_topk_large(*call, **kw))
 
     # K5: lists of 500 to 2,048 rows over the same rows, 20 probed a query

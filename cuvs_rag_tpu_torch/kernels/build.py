@@ -47,8 +47,8 @@ SIGNATURES = {
             _P, _P, _P, _P, _P,
         ],
         "flat_topr": [
-            _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I,
-            _L, _I, _P, _P, _P, _P, _P, _P, _P,
+            _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _L,
+            _I, _P, _P, _P, _P, _P, _P, _P,
         ],
     },
     "ivf_scan.cu": {

@@ -62,11 +62,9 @@ _BLOCK_RESERVED = 1024
 _RING_STAGES, _RING_CHUNK, _SCORE_PITCH = 3, 128, 128 + 8
 # K3's "cores" route: the planes of the queries of a block (csrc topr_scan_kernel)
 _PLANE_SMEM = 88 * 1024
-# K3's ring route by blocks an SM (1 or 2) and by the ring's stages (3 or
-# 4), or None for `topr_plan`'s rule; eval/large_k_times.py sets them to time
-# each.
+# K3's ring route by blocks an SM (1 or 2), or None for `topr_plan`'s rule;
+# eval/large_k_times.py sets it to time both.
 _TOPR_BLOCKS_PER_SM = None
-_TOPR_STAGES = None
 # The ring routes stage the 16 x d query tile beside the ring: at d = 2048
 # that is 66 KB of bf16 (131 KB of fp32) and a block already has its SM to
 # itself; deeper rows stay with the older CUDA-core kernels.
@@ -573,7 +571,7 @@ def flat_topk_large_plain(corpus, corpus_sqnorms, queries, n_valid,
     return out if planes else finish_large(*out, k)
 
 
-def _ring_bytes(dtype, d: int, stages: int = _RING_STAGES) -> int:
+def _ring_bytes(dtype, d: int) -> int:
     """Shared memory of K3's ring walk before its planes (csrc/flat_topk.cu
     class_ring_bytes): the staged 16-query tile (bf16, or fp32 for fp32
     rows), the score tile (not for fp32 rows) and the ring's stages."""
@@ -582,49 +580,44 @@ def _ring_bytes(dtype, d: int, stages: int = _RING_STAGES) -> int:
     chunk = min(_RING_CHUNK, row_bytes)
     return (_TQ * ((4 if fp32 else 2) * d + 16)
             + (0 if fp32 else _TQ * _SCORE_PITCH * 4)
-            + stages * _TC * (chunk + 16))
+            + _RING_STAGES * _TC * (chunk + 16))
 
 
 def topr_plan(n_q: int, r_planes: int, d: int, dtype, n_tiles: int,
-              blocks_per_sm: int = None, stages: int = None):
-    """(route, queries a block, bytes of a plane id, blocks an SM, ring
-    stages) of K3 for n_q queries, R planes, rows of `dtype` and depth d
-    over n_tiles class tiles. The ring routes are K1's (`exact_route`) and
-    keep planes 0 .. R-2 of a block's qpb queries x 128 classes in shared
-    memory behind the ring (plane R-1 stays in registers); an id is the
-    2-byte tile number while n_tiles <= 65,535, else the 4-byte row. Of two
-    blocks an SM (the ring's own occupancy: the planes get what is left of
-    half the SM) and one (the rest of the block's 227 KB), the rule takes
-    the one that reads the corpus fewest times, ceil(n_q / qpb), and two
-    blocks on a tie: one query at R = 12 fits two blocks, 16 queries only
-    one (132 KB of planes beside a 75 KB ring at D = 384 bf16). One block
-    an SM takes a fourth ring stage where it fits, to keep more copies in
-    flight. `blocks_per_sm` and `stages` (or _TOPR_BLOCKS_PER_SM and
-    _TOPR_STAGES) fix either. Where no plane fits beside the ring, and at
-    depths the ring does not take, the route is "cores", topr_scan_kernel
-    (4 bytes an id, 88 KB of planes, four blocks an SM, stages 0: no
-    ring). A pure function of its arguments."""
+              blocks_per_sm: int = None):
+    """(route, queries a block, bytes of a plane id, blocks an SM) of K3
+    for n_q queries, R planes, rows of `dtype` and depth d over n_tiles
+    class tiles. The ring routes are K1's (`exact_route`) and keep a
+    block's planes (qpb x R x 128 classes) in shared memory behind the
+    ring; an id is the 2-byte tile number while n_tiles <= 65,535, else the
+    4-byte row. Of two blocks an SM (the ring's own occupancy: the planes
+    get what is left of half the SM) and one (the planes get the rest of
+    the block's 227 KB), the rule takes the one that reads the corpus
+    fewest times, ceil(n_q / qpb), and two blocks on a tie: one query at
+    R = 12 fits two blocks, 16 queries fit only one (144 KB of planes
+    beside a 75 KB ring at D = 384 bf16; eval/large_k_times.py times one
+    block with all 16 queries against two with 4 queries a block).
+    `blocks_per_sm` (or
+    _TOPR_BLOCKS_PER_SM) fixes one of the two. Where no plane fits beside
+    the ring, and at depths the ring does not take, the route is "cores",
+    topr_scan_kernel (4 bytes an id, 88 KB of planes, four blocks an SM).
+    A pure function of its arguments."""
     route = exact_route(dtype, d)
     blocks_per_sm = blocks_per_sm or _TOPR_BLOCKS_PER_SM
-    stages = stages or _TOPR_STAGES
     if route != "cores":
         id_bytes = 2 if n_tiles <= 0xFFFF else 4
-        entry = (r_planes - 1) * _TC * (4 + id_bytes)
+        entry = r_planes * _TC * (4 + id_bytes)
         best = None
         for bps in (blocks_per_sm,) if blocks_per_sm else (2, 1):
             budget = min(_MAX_SMEM, _SM_SMEM // bps - _BLOCK_RESERVED)
-            room = budget - _ring_bytes(dtype, d, stages or _RING_STAGES)
-            qpb = min(_TQ, n_q, room // entry if entry else room)
+            qpb = min(_TQ, n_q, (budget - _ring_bytes(dtype, d)) // entry)
             if qpb >= 1 and (best is None
                              or -(-n_q // qpb) < -(-n_q // best[1])):
-                more = _ring_bytes(dtype, d, _RING_STAGES + 1) + qpb * entry
-                st = stages or (_RING_STAGES + 1 if bps == 1 and more <= budget
-                                else _RING_STAGES)
-                best = (route, qpb, id_bytes, bps, st)
+                best = (route, qpb, id_bytes, bps)
         if best is not None:
             return best
     qpb = min(_TQ, n_q, _PLANE_SMEM // (r_planes * _TC * 8))
-    return "cores", qpb, 4, _BLOCKS_PER_SM, 0
+    return "cores", qpb, 4, _BLOCKS_PER_SM
 
 
 def flat_topk_large(corpus, corpus_sqnorms, queries, n_valid,
@@ -652,9 +645,10 @@ def flat_topk_large(corpus, corpus_sqnorms, queries, n_valid,
     best in the block's shared memory behind the ring and plane R-1 and
     rej in registers, and the chain runs only for a score that beats plane
     R-1 (~R (1 + ln(T / R)) of T tiles). At one query a block's planes
-    take 8 KB (R = 12) and two blocks share an SM as K1's and K2's do; 16
-    queries' planes take most of an SM, so such blocks run one an SM, with
-    a fourth ring stage, and read the corpus once. Other depths, and planes that fit no ring block, keep
+    take 9 KB (R = 12) and two blocks share an SM as K1's and K2's do; 16
+    queries' planes take most of an SM, so such blocks run one an SM and
+    read the corpus once; one block an SM keeps fewer copies in flight, and
+    that, not the selection, bounds K3 at 16 queries (PERF.md). Other depths, and planes that fit no ring block, keep
     the older CUDA-core kernel. The merge pass keeps each class's R best of
     the union of the splits and folds every value it displaces into rej,
     which keeps the certificate sound.
@@ -672,8 +666,8 @@ def flat_topk_large(corpus, corpus_sqnorms, queries, n_valid,
     dev = corpus.device
     n, d = corpus.shape
     n_q = queries.shape[0]
-    route, qpb, id_bytes, bps, stages = topr_plan(n_q, r_planes, d,
-                                                  corpus.dtype, -(-n // tile_c))
+    route, qpb, id_bytes, bps = topr_plan(n_q, r_planes, d, corpus.dtype,
+                                          -(-n // tile_c))
     per, n_splits = _class_splits(n, n_q, tile_c, _sm_count(dev), bps, qpb)
     queries = queries.contiguous()
     corpus = _aligned(corpus.contiguous())
@@ -691,7 +685,7 @@ def flat_topk_large(corpus, corpus_sqnorms, queries, n_valid,
     with build.device_guard(dev):
         err = build.load(_SOURCE).flat_topr(
             _COMBO[corpus.dtype], int(route != "cores"), qpb, id_bytes,
-            stages, _ptr(queries), _ptr(corpus),
+            _ptr(queries), _ptr(corpus),
             _ptr(corpus_sqnorms.contiguous()), _ptr(scales.contiguous()),
             n_q, d, n, int(n_valid), int(metric == Metric.SQEUCLIDEAN),
             tile_c, r_planes, per, n_splits, _ptr(part_s), _ptr(part_i),

@@ -45,11 +45,11 @@ _K4_BLOCKS_PER_SM = 4
 _K4_PIECE = None
 _K4_TILE = 128  # the ring's tile (csrc/ring.cuh TC)
 _K5_CLASSES = 128  # classes per K5 block (csrc/ivf_scan.cu CLASSES, ring TC)
-# Shared memory a K5 block may take alone (`_k5_smem` says what it takes),
-# and each of two that share an SM.
-_K5_SMEM = 227 * 1024
-_K5_SMEM_TWO = 228 * 1024 // 2 - 1024
-_K5_BLOCKS_PER_SM = 2  # the ring's occupancy, as K4's
+# Shared memory a K5 block may take (`_k5_smem` says what it takes): the
+# card's limit for one block; each of two blocks an SM (the ring's
+# occupancy, as K4's) gets half the SM.
+_K5_SMEM = flat_kernels._MAX_SMEM
+_K5_BLOCKS_PER_SM = 2
 _SOURCE = "ivf_scan.cu"
 _COMBO = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
@@ -373,8 +373,9 @@ def k5_plan(n_q: int, window: int, n_sub: int, n_probe: int, r_planes: int,
     route = ivf_route(dtype, d)
     if route != "ring":
         return "cores", tiles, 1
+    half = flat_kernels._SM_SMEM // 2 - flat_kernels._BLOCK_RESERVED
     bps = _K5_BLOCKS_PER_SM if _k5_smem(
-        d, r_planes, d * _ELEMENT_BYTES[dtype]) <= _K5_SMEM_TWO else 1
+        d, r_planes, d * _ELEMENT_BYTES[dtype]) <= half else 1
     blocks = n_q * -(-(window // n_sub) // _K5_CLASSES)
     want = max(1, min(tiles, bps * sm_count // blocks))
     per = -(-tiles // want)

@@ -147,60 +147,54 @@ def test_merge_folds_displaced_values_into_rej():
 def test_topr_plan_takes_every_call_and_fits(dtype, d, n_q, k, tile_c):
     """Every (k, tile_c, dtype, d) the wrapper accepts gets a plan; the
     ring takes exactly K1's ring depths whose planes fit beside it; a
-    plan's ring and planes 0 .. R-2 fit the block's share of the SM, as
-    many queries a block as fit (at most 16), the fewest passes over the
-    corpus and two blocks an SM on a tie; one block an SM takes a fourth
-    stage exactly where it fits."""
+    plan's planes fit the block's share of the SM, as many queries a block
+    as fit (at most 16) and the fewest passes over the corpus, two blocks
+    an SM on a tie."""
     try:
         r = fk._large_args(k, tile_c, 0)
     except ValueError:
         return  # not accepted today either
     n_tiles = -(-1_000_000 // tile_c)
-    route, qpb, id_bytes, bps, stages = fk.topr_plan(n_q, r, d, dtype, n_tiles)
+    route, qpb, id_bytes, bps = fk.topr_plan(n_q, r, d, dtype, n_tiles)
     assert 1 <= qpb <= min(16, n_q)
     if route == "cores":
-        assert (id_bytes, bps, stages) == (4, fk._BLOCKS_PER_SM, 0)
+        assert (id_bytes, bps) == (4, fk._BLOCKS_PER_SM)
         assert qpb == min(16, n_q, fk._PLANE_SMEM // (r * 128 * 8))
         if fk.exact_route(dtype, d) != "cores":  # planes fit no ring block
             room = fk._MAX_SMEM - fk._ring_bytes(dtype, d)
-            assert room < (r - 1) * 128 * (4 + (2 if n_tiles <= 65535 else 4))
+            assert room < r * 128 * (4 + (2 if n_tiles <= 65535 else 4))
         return
     assert route == fk.exact_route(dtype, d)
     assert id_bytes == (2 if n_tiles <= 65535 else 4)
-    entry = (r - 1) * 128 * (4 + id_bytes)
-
-    def budget(blocks):
-        return min(fk._MAX_SMEM, fk._SM_SMEM // blocks - fk._BLOCK_RESERVED)
+    entry = r * 128 * (4 + id_bytes)
 
     def fit(blocks):
-        room = budget(blocks) - fk._ring_bytes(dtype, d)
-        return min(16, n_q, room // entry if entry else room)
+        budget = min(fk._MAX_SMEM, fk._SM_SMEM // blocks - fk._BLOCK_RESERVED)
+        return min(16, n_q, (budget - fk._ring_bytes(dtype, d)) // entry)
 
     assert qpb == fit(bps)
-    assert fk._ring_bytes(dtype, d, stages) + qpb * entry <= budget(bps)
+    assert fk._ring_bytes(dtype, d) + qpb * entry <= min(
+        fk._MAX_SMEM, fk._SM_SMEM // bps - fk._BLOCK_RESERVED)
     passes = {b: math.ceil(n_q / fit(b)) if fit(b) >= 1 else math.inf
               for b in (1, 2)}
     assert passes[bps] == min(passes.values())
     if passes[2] == passes[1]:
         assert bps == 2
-    four = fk._ring_bytes(dtype, d, 4) + qpb * entry <= budget(bps)
-    assert stages == (4 if bps == 1 and four else 3)
 
 
 def test_topr_plan_at_the_main_path():
     """At 6.29M x 384 bf16, k = 2,000 (R = 12, 6,143 tiles of 1,024): one
     query takes two blocks an SM with 2-byte ids; 16 queries take one
-    block an SM with all 16 (132 KB of planes) and four stages, where two
-    blocks an SM would hold 4 and read the corpus four times."""
+    block an SM with all 16 (144 KB of planes), where two blocks an SM
+    would hold 4 and read the corpus four times."""
     r = fk.default_r_planes(2000, 1024)
     assert r == 12
     tiles = -(-6_290_000 // 1024)
     bf16 = torch.bfloat16
-    assert fk.topr_plan(1, r, 384, bf16, tiles) == ("ring", 1, 2, 2, 3)
-    assert fk.topr_plan(16, r, 384, bf16, tiles) == ("ring", 16, 2, 1, 4)
-    assert fk.topr_plan(16, r, 384, bf16, tiles, 2) == ("ring", 4, 2, 2, 3)
-    assert fk.topr_plan(16, r, 384, bf16, tiles, 1, 3) == ("ring", 16, 2, 1, 3)
-    assert fk.topr_plan(1, r, 384, bf16, tiles, 1) == ("ring", 1, 2, 1, 4)
+    assert fk.topr_plan(1, r, 384, bf16, tiles) == ("ring", 1, 2, 2)
+    assert fk.topr_plan(16, r, 384, bf16, tiles) == ("ring", 16, 2, 1)
+    assert fk.topr_plan(16, r, 384, bf16, tiles, 2) == ("ring", 4, 2, 2)
+    assert fk.topr_plan(1, r, 384, bf16, tiles, 1) == ("ring", 1, 2, 1)
     assert fk.topr_plan(16, r, 384, bf16, 70_000)[2] == 4
     assert fk.topr_plan(16, r, 42, bf16, tiles)[0] == "cores"
 
