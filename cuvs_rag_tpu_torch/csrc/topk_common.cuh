@@ -10,6 +10,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <algorithm>
 
 #include "ring.cuh"
 
@@ -112,35 +113,44 @@ __global__ void merge_partials_kernel(const float* __restrict__ part_s,
   }
 }
 
-// K3's and K5's merge of their splits. One thread per (query, class): each
-// class keeps the R best of the union of the splits' planes, and its rej
-// becomes the max of the splits' rej values and of every value the merge
-// displaced, so max(rej) < tau still proves the collected top-k exact. Each
-// split's planes are sorted, so the first value that cannot enter ends that
-// split (it is the best of the rest). The class's planes stay in shared
-// memory ([R][MERGE_THREADS] scores, then ids) and a split's planes are read
-// four at a time, so neither the chain nor the next value waits on a round
-// trip to device memory. Partials (S, n_q, R, W) and (S, n_q, W); output
-// planes (n_q, R, W) with the validity rule applied, rej (n_q, W).
-constexpr int MERGE_THREADS = 128;
+// K3's and K5's merge of their splits. Each class keeps the R best of the
+// union of the splits' planes, and its rej becomes the max of the splits'
+// rej values and of every value the merge displaced, so max(rej) < tau
+// still proves the collected top-k exact. Each split's planes are sorted,
+// so the first value that cannot enter ends that split (it is the best of
+// the rest). A block takes MERGE_CLASSES classes with `groups` threads
+// each: thread (class c, group g) first merges splits g, g + groups, ...
+// into its own planes in shared memory ([R][groups x MERGE_CLASSES] scores,
+// then ids, then the groups' rej), reading a split's planes four at a time;
+// then group 0 merges the other groups' planes, which are sorted too, from
+// shared memory. So a class's splits are read by `groups` threads at once
+// and no chain waits on device memory (one thread a class left the merge
+// latency-bound: half of K5's device time at one query). Partials (S, n_q,
+// R, W) and (S, n_q, W); output planes (n_q, R, W) with the validity rule
+// applied, rej (n_q, W).
+constexpr int MERGE_CLASSES = 128;
+constexpr int MERGE_GROUPS = 8;
 
-__global__ void __launch_bounds__(MERGE_THREADS) topr_merge_kernel(
+__global__ void __launch_bounds__(MERGE_CLASSES * MERGE_GROUPS) topr_merge_kernel(
     const float* __restrict__ part_s, const int* __restrict__ part_i,
     const float* __restrict__ part_rej, int n_q, int n_splits, int w,
-    int r_planes, float* __restrict__ out_s, int* __restrict__ out_i,
-    float* __restrict__ out_rej) {
+    int r_planes, int groups, float* __restrict__ out_s,
+    int* __restrict__ out_i, float* __restrict__ out_rej) {
   extern __shared__ float merge_smem[];
-  const long long e = (long long)blockIdx.x * MERGE_THREADS + threadIdx.x;
-  if (e >= (long long)n_q * w) return;  // a thread touches only its own class
+  const int cl = threadIdx.x % MERGE_CLASSES, g = threadIdx.x / MERGE_CLASSES;
+  const int stride = groups * MERGE_CLASSES;  // between planes of a thread
+  float* ps = merge_smem + g * MERGE_CLASSES + cl;
+  int* pi = reinterpret_cast<int*>(merge_smem + r_planes * stride) + g * MERGE_CLASSES + cl;
+  float* s_rej = merge_smem + 2 * r_planes * stride;  // [groups][MERGE_CLASSES]
+  const long long e = (long long)blockIdx.x * MERGE_CLASSES + cl;
+  const bool live = e < (long long)n_q * w;
   const int qq = (int)(e / w), c = (int)(e % w);
-  float* ps = merge_smem + threadIdx.x;
-  int* pi = reinterpret_cast<int*>(merge_smem + r_planes * MERGE_THREADS) + threadIdx.x;
   for (int r = 0; r < r_planes; ++r) {
-    ps[r * MERGE_THREADS] = neg_inf();
-    pi[r * MERGE_THREADS] = -1;
+    ps[r * stride] = neg_inf();
+    pi[r * stride] = -1;
   }
   float last = neg_inf(), rej = neg_inf();
-  for (int s = 0; s < n_splits; ++s) {
+  for (int s = g; live && s < n_splits; s += groups) {
     rej = fmaxf(rej, part_rej[((long long)s * n_q + qq) * w + c]);
     const long long o = ((long long)s * n_q + qq) * r_planes * w + c;
     bool done = false;
@@ -160,39 +170,59 @@ __global__ void __launch_bounds__(MERGE_THREADS) topr_merge_kernel(
           rej = fmaxf(rej, v[u]);
           done = true;
         } else {
-          rej = fmaxf(rej, chain_insert(ps, pi, MERGE_THREADS, r_planes, v[u],
-                                        id[u], last));
+          rej = fmaxf(rej, chain_insert(ps, pi, stride, r_planes, v[u], id[u],
+                                        last));
         }
       }
     }
   }
+  s_rej[g * MERGE_CLASSES + cl] = rej;
+  __syncthreads();  // every group's planes are done
+  if (g != 0 || !live) return;
+  for (int h = 1; h < groups; ++h) {
+    rej = fmaxf(rej, s_rej[h * MERGE_CLASSES + cl]);
+    const float* hs = ps + h * MERGE_CLASSES;
+    const int* hi = pi + h * MERGE_CLASSES;
+    for (int r = 0; r < r_planes; ++r) {
+      const float v = hs[r * stride];
+      if (!(v > last)) {
+        rej = fmaxf(rej, v);
+        break;
+      }
+      rej = fmaxf(rej, chain_insert(ps, pi, stride, r_planes, v, hi[r * stride],
+                                    last));
+    }
+  }
   const long long o = (long long)qq * r_planes * w + c;
   for (int r = 0; r < r_planes; ++r) {
-    const float s = ps[r * MERGE_THREADS];
-    const bool ok = s > VALID_MIN;
-    out_s[o + (long long)r * w] = ok ? s : neg_inf();
-    out_i[o + (long long)r * w] = ok ? pi[r * MERGE_THREADS] : -1;
+    const float sc = ps[r * stride];
+    const bool ok = sc > VALID_MIN;
+    out_s[o + (long long)r * w] = ok ? sc : neg_inf();
+    out_i[o + (long long)r * w] = ok ? pi[r * stride] : -1;
   }
   out_rej[e] = rej;
 }
 
-// Launches topr_merge_kernel over the n_q x w classes, with the shared
-// memory its planes take; returns the launch's error.
+// Launches topr_merge_kernel over the n_q x w classes, as many groups a
+// class (<= MERGE_GROUPS, <= n_splits) as the planes' shared memory allows;
+// returns the launch's error.
 inline cudaError_t launch_topr_merge(const float* part_s, const int* part_i,
                                      const float* part_rej, int n_q,
                                      int n_splits, int w, int r_planes,
                                      float* out_s, int* out_i, float* out_rej,
                                      cudaStream_t stream) {
-  const int smem = r_planes * MERGE_THREADS * 8;
-  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  const int group_bytes = MERGE_CLASSES * (r_planes * 8 + 4);
+  const int groups = std::min(std::min(MERGE_GROUPS, n_splits), MAX_SMEM / group_bytes);
+  if (groups < 1) return cudaErrorInvalidValue;
+  const int smem = groups * group_bytes;
   static int allowed[MAX_DEVICES] = {};  // this source's, by device
   const cudaError_t e = allow_smem(allowed, topr_merge_kernel, smem);
   if (e != cudaSuccess) return e;
   const long long n = (long long)n_q * w;
-  topr_merge_kernel<<<(unsigned)((n + MERGE_THREADS - 1) / MERGE_THREADS),
-                      MERGE_THREADS, smem, stream>>>(
-      part_s, part_i, part_rej, n_q, n_splits, w, r_planes, out_s, out_i,
-      out_rej);
+  topr_merge_kernel<<<(unsigned)((n + MERGE_CLASSES - 1) / MERGE_CLASSES),
+                      groups * MERGE_CLASSES, smem, stream>>>(
+      part_s, part_i, part_rej, n_q, n_splits, w, r_planes, groups, out_s,
+      out_i, out_rej);
   return cudaGetLastError();
 }
 
