@@ -50,7 +50,20 @@ is non-zero):
                out of core: build_from_chunks(store_raw=False) fed from a
                MemmapStore in a temporary directory, retrieve_batch
                re-ranking on the host from that store, save and load.
-  9. attn_parity — the flash-attention kernel (K7) against its plain
+  9. cagra_main — the CAGRA path on the same corpus (after timing, which
+               measures the other families first): Retriever.build(
+               family="cagra") at default params (graph degree 64 over 128,
+               the IVF bootstrap at N/1000 lists, bf16 rows) with its build
+               seconds by phase, peak memory and index size; recall@10
+               against the flat results and planted top-1 at itopk 64 and
+               128 on the planted batches and on 1,024 corpus-like queries
+               (>= CAGRA_RECALL_FLOOR at itopk 64 on the latter); search ms
+               per batch (CUDA events) and a torch.profiler table of one
+               search; delete, allow= (the post-filter), 1,000 rows added by
+               extend and found by their own vectors; save and load of a
+               1,048,576-row index built the same way. No hand kernel runs
+               on this path.
+ 10. attn_parity — the flash-attention kernel (K7) against its plain
                version on the whole output: one 8,192-token sequence at the
                Qwen3 widths (16 heads over 8 kv heads, head_dim 128, bf16),
                16 x 512 with ragged right and left padding down to one
@@ -58,18 +71,18 @@ is non-zero):
                S = 777, 4 heads of 64, q = 0 and 64-fold sharpened scores;
                bf16 within the error that one rounding of P and one of the
                output allow, the largest error / allowed error per case.
- 10. stream_parity — the measurement kernels M1-M4 against their plain
+ 11. stream_parity — the measurement kernels M1-M4 against their plain
                versions on the flat corpus: read_all in both modes (and on a
                ragged row count), gather_rows on bf16 and int8 rows at span
                1 and 32 with duplicate ids, gather_reduce.
- 11. qwen_main — the Qwen3 retrieval path at the published
+ 12. qwen_main — the Qwen3 retrieval path at the published
                Qwen3-Embedding-0.6B widths (28 layers, seeded random bf16
                weights): 256 planted passages encoded 16 at a time at 512
                tokens and 4 of about 8,000 words one at a time at 8,192
                tokens, written into a clustered 1,000,000 x 1024 bf16
                corpus; Retriever.build(family="flat"), retrieve_batch at
                k = 10; then the same encodes with the plain attention.
- 12. timing  — each kernel against its plain version at the main paths'
+ 13. timing  — each kernel against its plain version at the main paths'
                shapes (CUDA events) beside its bound (the larger of this
                run's bytes over H100_BYTES_PER_S and its operations over the
                peak rate of their type), a second bound from the read rate
@@ -80,7 +93,8 @@ is non-zero):
                chose, K3 beside its library call), and the distinct lists
                K4's 16 x 20 pairs touch;
                the streaming and gather rates of eval/roofline.py; encode
-               times with a torch.profiler table; then the kernels JSON line.
+               times with a torch.profiler table, and cagra_main's search
+               ms a batch; then the kernels JSON line.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -161,6 +175,9 @@ REFINE_TUNED = 64  # the reference's tuned refine_ratio for IVF-PQ
 # IVF-PQ gates (see pq_main_path): recall@10 against flat at REFINE_TUNED on
 # queries drawn like the corpus, and the loose floors of the planted clump
 PQ_RECALL_FLOOR = 0.9
+CAGRA_RECALL_FLOOR = PQ_RECALL_FLOOR  # recall@10 against flat, itopk 64
+CAGRA_EXTEND = 1000  # rows added through the incremental path
+CAGRA_SAVED_ROWS = 1 << 20  # rows of the index saved and loaded
 PQ_MIN_REACHABLE = 0.75
 PQ_MIN_TOP1 = 0.25
 OOC_CHUNKS = 10  # chunks of the out-of-core build (divides ROWS)
@@ -990,6 +1007,17 @@ def reachability(enc, ix, planted, texts, probe_fn, min_top1: float = 1.0):
     return probed, check_reachable
 
 
+def corpus_like_queries(emb, n: int = 1024, seed: int = 11):
+    """(source rows, (n, D) fp32 queries): unit noisy copies of n random
+    corpus rows, each nearest its own source."""
+    import torch
+
+    gen_q = torch.Generator(device=emb.device).manual_seed(seed)
+    src = torch.randint(0, ROWS, (n,), generator=gen_q, device=emb.device)
+    return src, torch.nn.functional.normalize(
+        emb[src].float() + 0.02 * make_rows(n, D, gen_q, emb.device), dim=1)
+
+
 def planted_sweep(retriever, planted, texts, check_reachable,
                   min_top1: float = 1.0, batches: int = 0,
                   min_reachable: float = 0.99):
@@ -1183,10 +1211,7 @@ def pq_main_path(enc, emb, passages, planted, texts, flat_ids, flat_index,
         raise AssertionError(f"recall@10 against flat: {out}")
     # the same two pools on queries drawn like the corpus: noisy copies of
     # 1,024 of its rows, searched through the index modules directly
-    gen_q = torch.Generator(device=emb.device).manual_seed(11)
-    src = torch.randint(0, ROWS, (1024,), generator=gen_q, device=emb.device)
-    qs = torch.nn.functional.normalize(
-        emb[src].float() + 0.02 * make_rows(1024, D, gen_q, emb.device), dim=1)
+    src, qs = corpus_like_queries(emb)
     _, want = flat.search(None, flat_index, qs, 10)
     for name, ratio in (("default_refine", 2), ("refine_64", REFINE_TUNED)):
         sp = IVFPQSearchParams(n_probes=N_PROBES, refine_ratio=ratio)
@@ -1300,6 +1325,174 @@ def pq_main_path(enc, emb, passages, planted, texts, flat_ids, flat_index,
     out["ooc_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["tmp"] = tmp
     return out, retriever, ooc
+
+
+def cagra_main_path(enc, emb, passages, planted, texts, flat_ids, flat_index,
+                    rng):
+    """The CAGRA path at default params (graph degree 64 over an
+    intermediate 128, the IVF bootstrap at N/1000 lists and 4 probes, bf16
+    rows; itopk 64, search width 16, 128 entry points).
+
+    Held exactly: no id twice in a result row; deleted rows never return;
+    allow= results stay inside the mask; CAGRA_EXTEND extended rows found
+    at top-1 by their own vectors (>= 99%); a saved and loaded index of
+    CAGRA_SAVED_ROWS rows built the same way answers the same. Held by
+    share: recall@10 against flat >= CAGRA_RECALL_FLOOR at itopk 64 on
+    1,024 corpus-like queries. Reported: build seconds by phase, peak
+    memory, index size, rows whose forward edges are all self-loops,
+    recall and planted top-1 at itopk 64 and 128, search ms per batch and a
+    profile of one search. Returns the fields."""
+    import itertools
+    import tempfile
+
+    import torch
+
+    from cuvs_rag_tpu_torch.eval.recall import recall_at_k
+    from cuvs_rag_tpu_torch.eval.roofline import cuda_ms
+    from cuvs_rag_tpu_torch.index import cagra, filters, flat
+    from cuvs_rag_tpu_torch.index import io as index_io
+    from cuvs_rag_tpu_torch.rag.corpus import Corpus
+    from cuvs_rag_tpu_torch.rag.pipeline import Retriever
+    from cuvs_rag_tpu_torch.utils.config import CagraParams, CagraSearchParams
+    from cuvs_rag_tpu_torch.utils.metrics import default_registry
+
+    def gauges():
+        return {k.removeprefix("cagra.build.").removesuffix("_s"): v
+                for k, v in default_registry.snapshot()["gauges"].items()
+                if k.startswith("cagra.build.")}
+
+    def distinct(ids):
+        for row in np.asarray(ids):
+            live = row[row >= 0]
+            if len(np.unique(live)) != len(live):
+                raise AssertionError(f"an id twice in one result row: {row}")
+
+    # the flat ground truth of the corpus-like queries first: K1 runs it,
+    # and the CAGRA path below must launch none of the port's kernels
+    src, qs = corpus_like_queries(emb)
+    _, want = flat.search(None, flat_index, qs, 10)
+    params = CagraParams(dtype="bfloat16")
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    retriever = Retriever.build(
+        Corpus(passages=list(passages), embeddings=emb), enc, family="cagra",
+        params=params)
+    torch.cuda.synchronize()
+    ix = retriever.index
+    fwd = ix.graph_degree // 2
+    rows = torch.arange(ix.n_valid, device=ix.device)[:, None]
+    out = {"rows": ROWS, "graph_degree": ix.graph_degree,
+           "intermediate_graph_degree": params.intermediate_graph_degree,
+           "bootstrap_lists": ix.entry_centroids.shape[0],
+           "build_nprobes": params.build_nprobes,
+           "build_s": time.perf_counter() - t0, "build_phase_s": gauges(),
+           "resident_before_build_gb": resident / 1e9,
+           "build_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "index_gb": nbytes(*(getattr(ix, f) for f in
+                                cagra.CagraIndex._tensor_fields)) / 1e9,
+           "rows_all_self_forward": int(
+               (ix.graph[:ix.n_valid, :fwd] == rows).all(dim=1).sum()),
+           "graph_ids_in_range": bool(ix.graph.min() >= 0
+                                      and ix.graph.max() < ix.size)}
+    if not out["graph_ids_in_range"]:
+        raise AssertionError("graph ids outside the index")
+
+    # the planted batches through retrieve_batch, at itopk 64 and 128
+    for itopk in (64, 128):
+        retriever.search_params = CagraSearchParams(itopk_size=itopk)
+        ids, top1 = [], 0
+        for sel in planted_batches():
+            results = retriever.retrieve_batch([texts[i] for i in sel], k=10)
+            top1 += sum(bool(r.passages) and r.passages[0].index
+                        == int(planted[i]) for r, i in zip(results, sel))
+            ids += [[p.index for p in r.passages]
+                    + [-1] * (10 - len(r.passages)) for r in results]
+        distinct(ids)
+        out[f"planted_recall_at_10_vs_flat_itopk_{itopk}"] = recall_at_k(
+            np.asarray(ids), flat_ids, 10)
+        out[f"planted_top1_itopk_{itopk}"] = top1
+    retriever.search_params = None
+    out["queries_checked"] = 2 * BATCHES * BATCH
+
+    # 1,024 corpus-like queries through the index module, at both widths
+    batches = [qs[i:i + BATCH] for i in range(0, qs.shape[0], BATCH)]
+    for itopk in (64, 128):
+        sp = CagraSearchParams(itopk_size=itopk)
+        got = torch.cat([cagra.search(sp, ix, b, 10)[1] for b in batches])
+        distinct(got.cpu().numpy())
+        out[f"corpus_like_recall_at_10_itopk_{itopk}"] = recall_at_k(
+            got.cpu().numpy(), want.cpu().numpy(), 10)
+        out[f"corpus_like_top1_itopk_{itopk}"] = int((got[:, 0] == src).sum())
+        # distinct batches, back to back (the warm-up takes three of them)
+        cycle = itertools.cycle(batches)
+        out[f"search_ms_per_batch_itopk_{itopk}"] = cuda_ms(
+            lambda: cagra.search(sp, ix, next(cycle), 10), len(batches))
+    out["search_ms_per_batch"] = out["search_ms_per_batch_itopk_64"]
+    if out["corpus_like_recall_at_10_itopk_64"] < CAGRA_RECALL_FLOOR:
+        raise AssertionError(f"recall on corpus-like queries: {out}")
+    out["profile"] = profile_calls(lambda: cagra.search(None, ix, qs[:BATCH],
+                                                        10))
+
+    # deleted rows never return
+    gone = src[:BATCH].tolist() + [int(planted[0])]
+    retriever.delete(gone)
+    ids = cagra.search(None, retriever.index, qs[:BATCH], 10)[1].cpu().numpy()
+    ids = np.concatenate([ids, retriever.retrieve_ids([texts[0]], 10)[1]])
+    if np.isin(ids, gone).any():
+        raise AssertionError("a deleted row came back")
+    distinct(ids)
+    # allow= stays inside the mask (the post-filter: over-fetch, then mask)
+    allow = np.arange(len(retriever.corpus.passages)) % 3 != 0
+    ids = np.concatenate([
+        retriever.retrieve_ids([texts[i] for i in planted_batches()[1]], 10,
+                               allow=allow)[1],
+        filters.search(None, retriever.index, qs[BATCH:2 * BATCH], 10,
+                       allow)[1].cpu().numpy()])
+    if not (ids >= 0).any() or not allow[ids[ids >= 0]].all():
+        raise AssertionError("filtered results leave the mask")
+    # CAGRA_EXTEND new rows through the incremental path, each found by its
+    # own vector
+    src_new, new = corpus_like_queries(emb, CAGRA_EXTEND, seed=12)
+    t0 = time.perf_counter()
+    new_ids = retriever.extend(vectors=new.to(emb.dtype))
+    torch.cuda.synchronize()
+    out["extend_s"] = time.perf_counter() - t0
+    if retriever.index.n_valid != ROWS + CAGRA_EXTEND:
+        raise AssertionError("extend did not add the rows")
+    got = cagra.search(None, retriever.index, new, 10)[1]
+    distinct(got.cpu().numpy())
+    out["extended_top1"] = int((got[:, 0].cpu() == torch.tensor(
+        list(new_ids), dtype=torch.int32)).sum())
+    if out["extended_top1"] < 0.99 * CAGRA_EXTEND:
+        raise AssertionError(f"extended rows not found: {out}")
+    # the path runs on library calls: none of the port's hand kernels
+    out["hand_kernel_launches"] = sum(
+        kern.launches for kern, _ in kernel_fns().values())
+    if out["hand_kernel_launches"]:
+        raise AssertionError("the CAGRA path launched a hand kernel")
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del retriever, ix
+    torch.cuda.empty_cache()
+
+    # save and load at CAGRA_SAVED_ROWS rows (the same build, a 1.3 GB file)
+    t0 = time.perf_counter()
+    small = cagra.build(params, emb[:CAGRA_SAVED_ROWS])
+    torch.cuda.synchronize()
+    out["saved_rows_build_s"] = time.perf_counter() - t0
+    want = cagra.search(None, small, qs[:BATCH], 10)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cagra_") as tmp:
+        path = os.path.join(tmp, "cagra.npz")
+        index_io.save_index(path, small)
+        out["saved_file_gb"] = os.path.getsize(path) / 1e9
+        back = index_io.load_index(path)
+    got = cagra.search(None, back, qs[:BATCH], 10)
+    if back.device != emb.device or not torch.equal(got[1], want[1]) \
+            or not torch.equal(got[0], want[0]):
+        raise AssertionError("a saved and loaded CAGRA index answers "
+                             "otherwise")
+    return out
 
 
 def make_qwen_encoders(seed: int, dev):
@@ -2146,7 +2339,14 @@ def main() -> int:
     finally:
         tmp.cleanup()
     # the IVF retrievers and their stores are done: free them for what follows
-    del ivf_r, pq_r, ooc_r, flat_r, passages
+    del ivf_r, pq_r, ooc_r
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cagra_out = cagra_main_path(enc, emb, passages, planted, texts, flat_ids,
+                                flat_r.index, rng)
+    emit("cagra_main", gpu=gpu, seconds=time.perf_counter() - t0, **cagra_out)
+    e2e["cagra_search_ms_per_batch"] = cagra_out["search_ms_per_batch"]
+    del flat_r, passages
     torch.cuda.empty_cache()
     stream_out, stream_rows, read_rate = stream_timing(emb, args.seed)
     del emb

@@ -10,8 +10,12 @@ already honours these, so a view searches at the cost of a normal search.
 Views compose with deletion (deleted rows stay dead) and are positionally
 exact: search(view) equals search restricted to the allowed rows.
 
-Ported: FlatIndex, IVFFlatIndex and IVFPQIndex. CAGRA's post-filter
-arrives with ROADMAP slice 4.
+CAGRA has no view: the beam must walk through excluded rows to keep the
+graph connected (a scoring tombstone would cut their edges), so `search`
+post-filters it: the beam over-fetches max(k, k·over_fetch) candidates,
+capped at itopk_size, and excluded ones are masked afterwards. Results are
+always ⊆ allow; recall under a selective filter follows over_fetch and
+itopk_size.
 """
 
 from __future__ import annotations
@@ -23,9 +27,9 @@ import torch
 
 from cuvs_rag_tpu_torch.ops import distance as dist_ops
 
-# What each unported family's filtering waits for (ROADMAP.md queue 1).
+# What each unported index type's filtering waits for (ROADMAP.md queue 1).
 _PENDING = {
-    "CagraIndex": "slice 4 (CAGRA, post-filter)",
+    "ShardedIndex": "slice 6 (multi-GPU, filtered_view_sharded)",
 }
 
 
@@ -105,6 +109,9 @@ def _unsupported(index) -> Exception:
         return NotImplementedError(
             f"filtering {name} is not ported yet: it arrives with ROADMAP "
             f"{_PENDING[name]}")
+    if name == "CagraIndex":
+        return TypeError("CAGRA filtering is post-filter only: use "
+                         "filters.search")
     return TypeError(f"filtered views do not support {name}")
 
 
@@ -136,9 +143,43 @@ def _family_module(index):
     return _families()[type(index)]
 
 
-def search(search_params, index, queries, k: int, allow):
+def _cagra_postfilter(search_params, index, queries, allow, k: int,
+                      kk: int):
+    """The beam's top-kk, excluded ids masked, then the top k of what is
+    left (ties to the lowest position, as the JAX package's top_k)."""
+    from cuvs_rag_tpu_torch.index import cagra as cagra_mod
+    from cuvs_rag_tpu_torch.ops import graph as graph_ops
+
+    scores, ids = cagra_mod.search_scores(search_params, index, queries, kk)
+    ok = _gather_by_row_ids(allow, ids.reshape(-1)).reshape(ids.shape)
+    top_s, arg = graph_ops.topk_first(
+        scores.masked_fill(~ok, graph_ops.NEG_INF), k)
+    top_i = torch.gather(ids, 1, arg).masked_fill(
+        top_s == graph_ops.NEG_INF, -1)
+    return cagra_mod._to_distances(top_s, index, queries), top_i
+
+
+def search(search_params, index, queries, k: int, allow,
+           over_fetch: float = 4.0):
     """Filtered search for any ported family: (distances, original ids),
     always ⊆ allow; surplus slots report id -1 when fewer than k allowed
-    rows are reachable. Exact view semantics."""
+    rows are reachable.
+
+    flat / ivf_flat / ivf_pq: exact view semantics. cagra: the beam runs at
+    max(k, round(k·over_fetch)) <= itopk_size candidates and is masked
+    afterwards; raise over_fetch or itopk_size for selective filters."""
+    from cuvs_rag_tpu_torch.index import base
+    from cuvs_rag_tpu_torch.index import cagra as cagra_mod
+
+    if isinstance(index, cagra_mod.CagraIndex):
+        queries = base.validate_queries(
+            base.as_tensor(queries, index.device), index.dim)
+        sp = search_params or cagra_mod.default_search_params()
+        if k > sp.itopk_size:
+            raise ValueError(f"k={k} exceeds itopk_size={sp.itopk_size}; "
+                             "raise CagraSearchParams.itopk_size")
+        kk = min(max(k, int(round(k * over_fetch))), sp.itopk_size)
+        mask = _as_mask(allow, index.n_valid, index.device)
+        return _cagra_postfilter(sp, index, queries, mask, k, kk)
     view = filtered_view(index, allow)
     return _family_module(view).search(search_params, view, queries, k)

@@ -3,10 +3,11 @@
 One .npz file per index: each tensor field as an array (bf16 stored as its
 uint16 bit pattern, listed under "bf16"), `n_valid` as a 0-d int32 array,
 and a `__meta__` JSON record {"__class__", "static", "bf16", "format"}. A
-file saved by either package loads in the other. FlatIndex, IVFFlatIndex
-and IVFPQIndex are ported so far; CAGRA arrives with its slice (see
-ROADMAP.md). An IVFPQIndex file older than format 2 holds row-major
-(cap, mb) codes and is transposed to the stream-major layout on load.
+file saved by either package loads in the other, for all four families. An
+IVFPQIndex file older than format 2 holds row-major (cap, mb) codes and is
+transposed to the stream-major layout on load; a CagraIndex file older
+than format 3 holds raw (Np, D) rows and no data_dim, and is migrated to
+the score-augmented layout (_migrate_cagra_v2).
 """
 
 from __future__ import annotations
@@ -24,12 +25,13 @@ _BF16 = "bf16"
 
 
 def _registry():
+    from cuvs_rag_tpu_torch.index.cagra import CagraIndex
     from cuvs_rag_tpu_torch.index.flat import FlatIndex
     from cuvs_rag_tpu_torch.index.ivf_flat import IVFFlatIndex
     from cuvs_rag_tpu_torch.index.ivf_pq import IVFPQIndex
 
     return {"FlatIndex": FlatIndex, "IVFFlatIndex": IVFFlatIndex,
-            "IVFPQIndex": IVFPQIndex}
+            "IVFPQIndex": IVFPQIndex, "CagraIndex": CagraIndex}
 
 
 def save_index(path: str, index: Any) -> None:
@@ -71,6 +73,8 @@ def load_index(path: str, device=None) -> Any:
         kwargs = dict(meta["static"])
         kwargs["n_valid"] = int(z["n_valid"])
         for field in cls._tensor_fields:
+            if field not in z:
+                continue  # a field newer than the file: migrated below
             a = z[field]
             if field in meta[_BF16]:
                 t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
@@ -79,7 +83,35 @@ def load_index(path: str, device=None) -> Any:
             kwargs[field] = t.to(device)
         if name == "IVFPQIndex" and meta.get("format", 1) < 2:
             kwargs["codes"] = kwargs["codes"].T.contiguous()
+        if name == "CagraIndex" and "data_dim" not in kwargs:
+            _migrate_cagra_v2(kwargs)
     return cls(**kwargs)
+
+
+def _migrate_cagra_v2(kwargs: dict) -> None:
+    """A CagraIndex file older than format 3 holds raw (Np, D) rows and no
+    data_dim or entry-map fields: rebuild the score-augmented rows
+    (ops/graph.augment_rows) and put the sqnorm slots' tombstones back
+    into the [hi, lo] columns, so deleted rows stay deleted in every
+    metric."""
+    from cuvs_rag_tpu_torch.ops import distance as dist_ops
+    from cuvs_rag_tpu_torch.ops import graph as graph_ops
+
+    v = kwargs["vectors"]
+    d = v.shape[-1]
+    kwargs["data_dim"] = d
+    kwargs.setdefault("entry_centroids", torch.zeros(
+        (0, d), dtype=torch.float32, device=v.device))
+    kwargs.setdefault("entry_rows", torch.zeros(0, dtype=torch.int32,
+                                                device=v.device))
+    sq = kwargs["sqnorms"].float()
+    aug = graph_ops.augment_rows(
+        v, torch.clamp(sq, max=dist_ops.DELETED_THRESHOLD),
+        kwargs["n_valid"], kwargs["metric"])
+    tomb = sq > dist_ops.DELETED_THRESHOLD
+    aug[tomb, d] = dist_ops.DELETED_PENALTY
+    aug[tomb, d + 1] = 0.0
+    kwargs["vectors"] = aug
 
 
 def recover_rows(index: Any) -> torch.Tensor:
@@ -92,6 +124,8 @@ def recover_rows(index: Any) -> torch.Tensor:
         if v.dtype == torch.int8:
             v = v.float() * index.scales[:nv, None]
         return v
+    if cls == "CagraIndex":
+        return index.vectors[:nv, :index.dim]  # drop the [hi, lo] columns
     if cls == "IVFFlatIndex":
         from cuvs_rag_tpu_torch.index.ivf_flat import _recover_rows
 
@@ -125,3 +159,20 @@ def _recover_rows_pq(index: Any, nv: int) -> torch.Tensor:
         res = res @ index.rotation  # inverse of r @ R.T
     cents = index.centroids[label_of_slot[slot_of].long()]
     return (cents + res)[:, :index.dim]
+
+
+def deleted_row_ids(index: Any) -> np.ndarray:
+    """Host-side: original ids tombstone-removed from any ported family's
+    index (see <family>.delete). The positional families (flat, CAGRA) read
+    the sqnorm-slot tombstone; the layout families read the row_ids gaps,
+    and refuse a window-capped layout, whose gaps are not deletions."""
+    from cuvs_rag_tpu_torch.ops.distance import DELETED_THRESHOLD
+
+    cls = type(index).__name__
+    nv = int(index.n_valid)
+    if cls in ("FlatIndex", "CagraIndex"):
+        sq = index.sqnorms[:nv].cpu().numpy()
+        return np.nonzero(sq > DELETED_THRESHOLD)[0].astype(np.int64)
+    from cuvs_rag_tpu_torch.index.ivf_flat import deleted_ids
+
+    return deleted_ids(index)

@@ -1,0 +1,394 @@
+"""Graph-index ops: kNN-graph construction and monotone-beam search.
+
+The PyTorch counterpart of the JAX package's `ops/graph.py` (cuVS CAGRA's
+build and search, reshaped for batched tensor ops):
+
+  * Graph build: the intermediate graph is an exact kNN graph
+    (`build_knn_graph`, chunked matmul + top-k) up to ~10^5 rows, beyond
+    that the list-centric IVF bootstrap (`build_knn_graph_ivf`): each IVF
+    list's window is scored against its own window and its `n_probes - 1`
+    nearest sibling windows in one batched product. The final graph keeps
+    half its slots for forward edges and fills the rest with reverse edges
+    (`augment_reverse_edges`, one stable sort + a segment gather).
+  * Search: a fixed-width beam over a fixed number of iterations, batched
+    over queries as (Q, itopk) tensors. Deduplication uses the MONOTONE
+    BEAM: the beam keeps the best `itopk` scores seen so far, so an id
+    displaced from it can never re-enter, and "visited and still relevant"
+    is "in the current beam". Two masks do it: new ids against the beam,
+    and later copies within the new batch.
+
+Every selection of the beam breaks ties by position, lowest first, as
+`lax.top_k` does (`topk_first`): the JAX search relies on that order (a
+masked -inf candidate never displaces an earlier -inf slot), and
+`torch.topk` promises no order among ties. Tombstoned rows score a finite
+~-2e30, so ties among them are ordinary, not rare.
+
+Deliberate differences from the JAX package: `build_knn_graph_ivf` ranks
+fp32 scores with exact `torch.topk` where the JAX package ranks bf16 scores
+with `approx_max_k(recall_target=0.98)` (the graphs differ by a few percent
+of edges and are held by recall); int8 IVF windows are scored as their fp32
+reconstruction.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from cuvs_rag_tpu_torch.ops import distance as dist_ops
+from cuvs_rag_tpu_torch.ops import topk as topk_ops
+from cuvs_rag_tpu_torch.utils.config import Metric
+
+NEG_INF = topk_ops.NEG_INF
+
+# Bytes of the fp32 score tile one step of the IVF bootstrap may hold:
+# B lists x L own rows x r·L candidates x 4 bytes (64 MB a list at L =
+# 2,048, r = 4).
+_IVF_TILE_BYTES = 1 << 30
+# Reverse-edge candidates whose forward rows one dedup step gathers.
+_DEDUP_CHUNK = 1 << 22
+# Queries one beam pass carries: bounds the (Q, e·G, width) gathered rows.
+_BEAM_QUERY_CHUNK = 256
+
+
+def topk_first(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest along the last axis, ties to the lowest position
+    (`lax.top_k`'s order): a stable descending sort."""
+    s, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return s[..., :k], i[..., :k]
+
+
+def earlier_copy(v: torch.Tensor) -> torch.Tensor:
+    """(..., M) ids -> (..., M) bool: True where an EARLIER element of the
+    row equals v[i]. A stable sort puts each value's copies in position
+    order, so every element of a run but its first has an earlier copy."""
+    s, order = torch.sort(v, dim=-1, stable=True)
+    dup = torch.zeros_like(v, dtype=torch.bool)
+    dup[..., 1:] = s[..., 1:] == s[..., :-1]
+    return torch.zeros_like(dup).scatter_(-1, order, dup)
+
+
+def linspace_rows(n_pad: int, count: int, device) -> torch.Tensor:
+    """(count,) int32 `jnp.linspace(0, n_pad - 1, count).astype(int32)` as
+    the JAX package computes it on the CPU: XLA evaluates stop·(i / div) as
+    (stop·fl(1/div))·i in fp32 and truncates, and the evenly spaced entry
+    rows must be the same rows."""
+    if count == 1:
+        return torch.zeros(1, dtype=torch.int32, device=device)
+    stop = np.float32(n_pad - 1)
+    scale = stop * (np.float32(1) / np.float32(count - 1))
+    v = scale * np.arange(count - 1, dtype=np.float32)
+    rows = np.append(v, stop).astype(np.int32)
+    return torch.from_numpy(rows).to(device)
+
+
+# ------------------------------------------------------------- build ---
+
+
+def build_knn_graph(vectors: torch.Tensor, sqnorms: torch.Tensor,
+                    n_valid: int, *, degree: int, metric: str,
+                    query_chunk: int = 1024) -> torch.Tensor:
+    """(Np, D) -> (Np, degree) int32 exact neighbour ids, self excluded.
+
+    Chunks of rows are scored against the whole block (one matmul and one
+    top-k each). Pad rows and slots without a valid neighbour self-loop;
+    the search masks them through the augmented rows' tombstones."""
+    n_pad = vectors.shape[0]
+    dev = vectors.device
+    graph = torch.empty((n_pad, degree), dtype=torch.int32, device=dev)
+    for start in range(0, n_pad, query_chunk):
+        q = vectors[start:start + query_chunk].float()
+        scores, idx = topk_ops.flat_topk_search_dense(
+            vectors, sqnorms, q, n_valid, k=degree + 1, metric=metric)
+        rows = torch.arange(start, start + q.shape[0], dtype=torch.int32,
+                            device=dev)[:, None]
+        scores = scores.masked_fill(idx == rows, NEG_INF)
+        _, order = torch.topk(scores, degree, dim=1)
+        nbrs = torch.gather(idx, 1, order)
+        graph[start:start + q.shape[0]] = torch.where(
+            nbrs >= 0, nbrs, rows.expand_as(nbrs))
+    return graph
+
+
+def _windows(ivf_index, lists: torch.Tensor):
+    """Rows of each list's window: (..., L) layout positions, (..., L) ids
+    (-1 past the list's count) and the raw (..., L) row_ids there."""
+    L = ivf_index.max_list_size
+    pos = torch.arange(L, device=lists.device)
+    slots = ivf_index.list_offsets[lists].long()[..., None] + pos
+    slots = slots.clamp(max=ivf_index.size - 1)
+    raw = ivf_index.row_ids[slots]
+    live = pos < ivf_index.list_counts[lists][..., None]
+    return slots, torch.where(live, raw, torch.full_like(raw, -1)), raw
+
+
+def _window_rows(ivf_index, slots: torch.Tensor, lists: torch.Tensor):
+    """(rows fp32, sqnorms) at layout `slots`: float storage as stored, int8
+    residual SQ8 as its reconstruction c_list + scale·code."""
+    v = ivf_index.vectors[slots].float()
+    if ivf_index.vectors.dtype != torch.int8:
+        return v, ivf_index.sqnorms[slots]
+    cents = ivf_index.centroids.float()[lists]
+    return cents[..., None, :] + ivf_index.scales[slots][..., None] * v, \
+        ivf_index.sqnorms[slots]
+
+
+def build_knn_graph_ivf(vectors: torch.Tensor, n_valid: int, ivf_index, *,
+                        degree: int, n_probes: int = 4) -> torch.Tensor:
+    """Approximate kNN graph from an IVF clustering of the same rows.
+
+    List-centric: each list's own window is scored against the windows of
+    its r = n_probes nearest lists (itself included) in one (L, r·L)
+    product, and each own row keeps its top `degree` candidates. A batch of
+    lists shares one batched product, sized so the fp32 score tile stays
+    within _IVF_TILE_BYTES. Self-matches are dropped; rows with fewer valid
+    candidates than `degree` self-loop, as do rows no list holds.
+
+    vectors: (n_pad, D) rows in original order (the graph's ids index it);
+    ivf_index: an IVFFlatIndex over the same rows (any storage dtype)."""
+    n_pad = vectors.shape[0]
+    dev = vectors.device
+    L = ivf_index.max_list_size
+    cents = ivf_index.centroids.float()
+    n_lists = cents.shape[0]
+    r = max(1, min(n_probes, n_lists))
+    c_scores = dist_ops.scores_from_tile(cents, cents, dist_ops.sqnorms(cents),
+                                         Metric.SQEUCLIDEAN)
+    list_nbrs = torch.topk(c_scores, r, dim=1).indices  # (C, r), self incl.
+    kk = min(degree, r * L)
+    graph = torch.arange(n_pad, dtype=torch.int32, device=dev)[:, None] \
+        .repeat(1, degree)
+    step = max(1, _IVF_TILE_BYTES // (L * r * L * 4))
+    for c0 in range(0, n_lists, step):
+        lists = torch.arange(c0, min(c0 + step, n_lists), device=dev)
+        b = lists.shape[0]
+        own_slots, own_ids, _ = _windows(ivf_index, lists)  # (b, L)
+        nb = list_nbrs[lists]  # (b, r)
+        cand_slots, cand_ids, _ = _windows(ivf_index, nb)  # (b, r, L)
+        own_v, _ = _window_rows(ivf_index, own_slots, lists)
+        cand_v, cand_sq = _window_rows(ivf_index, cand_slots, nb)
+        cand_ids = cand_ids.reshape(b, r * L)
+        dist_ops._check_fp32_matmul(own_v)
+        scores = 2.0 * torch.bmm(own_v, cand_v.reshape(b, r * L, -1)
+                                 .transpose(1, 2)) \
+            - cand_sq.reshape(b, 1, r * L)
+        bad = (cand_ids < 0)[:, None, :] \
+            | (cand_ids[:, None, :] == own_ids[:, :, None])
+        scores.masked_fill_(bad, NEG_INF)
+        top_s, order = torch.topk(scores, kk, dim=2)
+        nbrs = torch.gather(cand_ids[:, None, :].expand(b, L, r * L), 2, order)
+        nbrs = torch.where(top_s > NEG_INF, nbrs, own_ids[..., None]
+                           .expand_as(nbrs)).clamp(min=0)
+        keep = own_ids.reshape(-1) >= 0
+        rows = own_ids.reshape(-1)[keep].long()
+        graph[rows, :kk] = nbrs.reshape(b * L, kk)[keep].to(torch.int32)
+        del scores, bad, own_v, cand_v
+    return graph
+
+
+def list_medoids(ivf_index) -> torch.Tensor:
+    """(C,) int32: per IVF list, the row id nearest its centroid (the beam's
+    query-adaptive entry points). The argmax takes the lowest position on
+    ties, as `jnp.argmax`; an empty list maps to whatever id its window's
+    first slot holds, or 0."""
+    cents = ivf_index.centroids
+    n_lists, d = cents.shape
+    L = ivf_index.max_list_size
+    qdtype = torch.bfloat16 if ivf_index.vectors.dtype == torch.int8 \
+        else ivf_index.vectors.dtype
+    out = torch.empty(n_lists, dtype=torch.int32, device=cents.device)
+    step = max(1, _IVF_TILE_BYTES // (L * d * 4))
+    for c0 in range(0, n_lists, step):
+        lists = torch.arange(c0, min(c0 + step, n_lists), device=cents.device)
+        slots, ids, raw = _windows(ivf_index, lists)
+        w, wsq = _window_rows(ivf_index, slots, lists)
+        q = cents[lists].to(qdtype).float()
+        if ivf_index.vectors.dtype == torch.int8:
+            # residual SQ8: the reconstruction already carries c, so the
+            # centroid scores as itself (the JAX package's coarse term)
+            q = cents[lists].float()
+        dist_ops._check_fp32_matmul(w)
+        s = 2.0 * torch.bmm(w, q[:, :, None])[..., 0] - wsq
+        s = s.masked_fill(ids < 0, NEG_INF)
+        best = torch.argmax(s, dim=1)
+        out[lists] = torch.gather(raw, 1, best[:, None])[:, 0].clamp(min=0) \
+            .to(torch.int32)
+    return out
+
+
+def augment_reverse_edges(graph: torch.Tensor, keep: int,
+                          forward: int | None = None) -> torch.Tensor:
+    """CAGRA-style pruning: `forward` forward edges (default keep // 2) +
+    reverse-edge fill (who points at me), unfilled reverse slots falling
+    back to the next distance-ranked forward edges.
+
+    All (dst = graph[i, rank], rank, src = i) candidates, minus those that
+    repeat one of dst's own forward edges, are sorted stably by (dst, rank):
+    each dst's reverse slots take its lowest-rank sources in source order.
+    Deterministic, collision-free and equal to the JAX package's result."""
+    n = graph.shape[0]
+    half = keep // 2 if forward is None else max(1, min(forward, keep))
+    cap = keep - half
+    if cap == 0:
+        return graph[:, :keep].contiguous()
+    dev = graph.device
+    fwd = graph[:, :half]
+    dst = fwd.reshape(-1).long()  # (n·half,), src-major then rank-minor
+    dst = torch.where(dst >= 0, dst, torch.full_like(dst, n))
+    # a reverse candidate that repeats one of dst's forward edges wastes a
+    # slot; the check gathers fwd[dst] a chunk of candidates at a time
+    for s in range(0, dst.shape[0], _DEDUP_CHUNK):
+        d_c = dst[s:s + _DEDUP_CHUNK]
+        src_c = torch.arange(s, s + d_c.shape[0], device=dev) // half
+        dup = (fwd[d_c.clamp(max=n - 1)] == src_c[:, None]).any(dim=1)
+        dst[s:s + _DEDUP_CHUNK] = torch.where(dup, n, d_c)
+    counts = torch.bincount(dst, minlength=n + 1)
+    starts = torch.cumsum(counts, 0) - counts
+    # sort key dst·half + rank; the sort is stable and the positions are
+    # src·half + rank, so the sorted positions give the sources in order
+    key = dst.mul_(half).view(n, half).add_(torch.arange(half, device=dev))
+    order = torch.sort(key.view(-1), stable=True).indices
+    del key, dst
+    src_s = (order // half).to(torch.int32)
+    del order
+    slot = torch.arange(cap, device=dev)[None, :]
+    gidx = (starts[:n, None] + slot).clamp(max=n * half - 1)
+    rev = torch.where(slot < counts[:n, None], src_s[gidx],
+                      torch.full((), -1, dtype=torch.int32, device=dev))
+    rev = torch.where(rev >= 0, rev, graph[:, half:half + cap])
+    return torch.cat([fwd, rev], dim=1).to(torch.int32)
+
+
+def augment_rows(vectors: torch.Tensor, sqnorms: torch.Tensor, n_valid: int,
+                 metric: str) -> torch.Tensor:
+    """(Np, D) rows -> (Np, width) score-augmented rows, width = D + 2
+    rounded up to 128: [v, hi, lo, 0...], so that one row gather carries
+    everything a beam score needs.
+
+      sqeuclidean: hi + lo = ||v||² split across two storage-dtype lanes
+                   (hi = the storage dtype's round-to-nearest-even of the
+                   fp32 sqnorm, lo = the rest); the query is [2q, -1, -1]:
+                   q'·v' = 2 q·v - ||v||².
+      ip/cosine:   [v, 0, 0]; the query [q, -1, -1].
+
+    Pad rows (>= n_valid) carry hi = DELETED_PENALTY, the tombstone delete()
+    writes: every metric scores them ~-2e30. Bit-equal to the JAX package's
+    rows (the npz layout is shared)."""
+    n_pad, d = vectors.shape
+    storage = vectors.dtype
+    dev = vectors.device
+    if metric == Metric.SQEUCLIDEAN:
+        sq = sqnorms.float()
+        hi = sq.to(storage)
+        lo = (sq - hi.float()).to(storage)
+    else:
+        hi = torch.zeros(n_pad, dtype=storage, device=dev)
+        lo = torch.zeros(n_pad, dtype=storage, device=dev)
+    pad = torch.arange(n_pad, device=dev) >= n_valid
+    hi = hi.masked_fill(pad, dist_ops.DELETED_PENALTY)
+    lo = lo.masked_fill(pad, 0.0)
+    width = -(-(d + 2) // 128) * 128
+    out = torch.zeros((n_pad, width), dtype=storage, device=dev)
+    out[:, :d] = vectors
+    out[:, d] = hi
+    out[:, d + 1] = lo
+    return out
+
+
+def augmented_query(queries: torch.Tensor, metric: str,
+                    width: int) -> torch.Tensor:
+    """(Q, D) queries -> (Q, width) fp32, so that q'·v' is the beam score."""
+    q = queries.float()
+    scale = 2.0 if metric == Metric.SQEUCLIDEAN else 1.0
+    out = torch.zeros((q.shape[0], width), dtype=torch.float32,
+                      device=q.device)
+    out[:, :q.shape[1]] = scale * q
+    out[:, q.shape[1]:q.shape[1] + 2] = -1.0
+    return out
+
+
+# ------------------------------------------------------------ search ---
+
+
+def _score_rows(aug_vectors, aq, ids):
+    """(Q, M) ids -> (Q, M) fp32 beam scores q'·v' (one gather a row)."""
+    q, m = ids.shape
+    vecs = aug_vectors.index_select(0, ids.reshape(-1)).view(q, m, -1)
+    return torch.bmm(vecs.float(), aq[:, :, None])[..., 0]
+
+
+def beam_search(aug_vectors: torch.Tensor, graph: torch.Tensor,
+                queries: torch.Tensor, *, k: int, metric: str,
+                itopk: int = 64, max_iters: int = 0, n_entries: int = 32,
+                expansions: int = 4, entry_ids: torch.Tensor | None = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-iteration greedy beam search over the graph, all queries at
+    once: beam tensors are (Q, b), b = max(itopk, k).
+
+    aug_vectors: (Np, width) score-augmented rows (augment_rows); graph
+    (Np, G). Entry points: `entry_ids` (Q, E) per query when given (the
+    medoid map), else `n_entries` evenly spaced rows. Each iteration expands
+    the `expansions` best unexpanded beam entries (cuVS's search_width).
+    Returns (scores (Q, k) descending, ids (Q, k) int32); slots without a
+    live row hold -inf and -1."""
+    n_q = queries.shape[0]
+    if n_q > _BEAM_QUERY_CHUNK:
+        parts = [beam_search(
+            aug_vectors, graph, queries[s:s + _BEAM_QUERY_CHUNK], k=k,
+            metric=metric, itopk=itopk, max_iters=max_iters,
+            n_entries=n_entries, expansions=expansions,
+            entry_ids=None if entry_ids is None
+            else entry_ids[s:s + _BEAM_QUERY_CHUNK])
+            for s in range(0, n_q, _BEAM_QUERY_CHUNK)]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+    n_pad, width = aug_vectors.shape
+    dev = aug_vectors.device
+    g = graph.shape[1]
+    b = max(itopk, k)
+    e = max(1, min(expansions, b))
+    iters = max_iters or min(64, max(8, 2 * -(-b // e)))
+    aq = augmented_query(queries, metric, width)
+    if entry_ids is None:
+        entry_ids = linspace_rows(n_pad, n_entries, dev).expand(n_q, -1)
+    entry_ids = entry_ids.to(torch.int32)
+    n_e = entry_ids.shape[1]
+
+    # the monotone-beam dedup needs the initial beam id-distinct too
+    e_scores = _score_rows(aug_vectors, aq, entry_ids)
+    e_scores = e_scores.masked_fill(earlier_copy(entry_ids), NEG_INF)
+    top_e, order = topk_first(e_scores, min(b, n_e))
+    scores = torch.full((n_q, b), NEG_INF, device=dev)
+    ids = torch.full((n_q, b), -1, dtype=torch.int32, device=dev)
+    scores[:, :top_e.shape[1]] = top_e
+    ids[:, :top_e.shape[1]] = torch.gather(entry_ids, 1, order)
+    expanded = torch.zeros((n_q, b), dtype=torch.bool, device=dev)
+    fresh = torch.zeros((n_q, e * g), dtype=torch.bool, device=dev)
+
+    for _ in range(iters):
+        pick_s, picks = topk_first(scores.masked_fill(expanded, NEG_INF), e)
+        pick_ids = torch.gather(ids, 1, picks)
+        # gate on the tombstone threshold: pad and deleted rows score a
+        # finite ~-2e30 and must not spend expansions
+        valid = pick_s > -dist_ops.DELETED_THRESHOLD
+        expanded = expanded.scatter(1, picks, True)
+        nbrs = graph[pick_ids.clamp(min=0).long()].reshape(n_q, e * g)
+        n_scores = _score_rows(aug_vectors, aq, nbrs).view(n_q, e, g) \
+            .masked_fill(~valid[:, :, None], NEG_INF).view(n_q, e * g)
+        # exact dedup without a visited set: news already in the beam, and
+        # later copies within the news (see the module docstring)
+        dup = (nbrs[:, :, None] == ids[:, None, :]).any(dim=2) \
+            | earlier_copy(nbrs)
+        n_scores = n_scores.masked_fill(dup, NEG_INF)
+        scores, sel = topk_first(torch.cat([scores, n_scores], 1), b)
+        ids = torch.gather(torch.cat([ids, nbrs], 1), 1, sel)
+        expanded = torch.gather(torch.cat([expanded, fresh], 1), 1, sel)
+
+    out_s, order = topk_first(scores, k)
+    # a tombstoned row can hold a slot when the beam saw fewer than k live
+    # rows: report it empty, as a pad
+    live = out_s > -dist_ops.DELETED_THRESHOLD
+    out_i = torch.gather(ids, 1, order)
+    return (out_s.masked_fill(~live, NEG_INF),
+            out_i.masked_fill(~live, -1))

@@ -1,13 +1,13 @@
 """RAG retrieval pipeline: encode → search → assemble context.
 
 The counterpart of the JAX package's `rag/pipeline.py` for one device and
-the flat, IVF-Flat and IVF-PQ families: query texts are encoded on the
-index's device, the embeddings go to the family's `search` without leaving
-it (through a filtered view when `allow=` is given), and the returned ids
-become passages. An IVF-PQ index without a raw store refines out of core,
-from the corpus' embedding store on the host. Other families and
-placements arrive with their ROADMAP slices and raise NotImplementedError
-until then.
+the four index families (flat, IVF-Flat, IVF-PQ, CAGRA): query texts are
+encoded on the index's device, the embeddings go to the family's `search`
+without leaving it (through a filtered view when `allow=` is given, or
+CAGRA's post-filter), and the returned ids become passages. An IVF-PQ
+index without a raw store refines out of core, from the corpus' embedding
+store on the host. The sharded and replicated placements arrive with their
+ROADMAP slice and raise NotImplementedError until then.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from cuvs_rag_tpu_torch.index import base
+from cuvs_rag_tpu_torch.index import cagra
 from cuvs_rag_tpu_torch.index import filters
 from cuvs_rag_tpu_torch.index import flat
 from cuvs_rag_tpu_torch.index import io as index_io
@@ -33,14 +34,14 @@ from cuvs_rag_tpu_torch.rag.host_store import MemmapStore
 from cuvs_rag_tpu_torch.utils import config as config_mod
 from cuvs_rag_tpu_torch.utils.metrics import default_registry as metrics
 
-# What each unported family or placement waits for (ROADMAP.md queue 1).
+# What each unported placement waits for (ROADMAP.md queue 1).
 _PENDING = {
-    "cagra": "slice 4 (CAGRA)",
     "shard": "slice 6 (multi-GPU)",
     "replicate": "slice 6 (multi-GPU)",
 }
 
-FAMILIES = {"flat": flat, "ivf_flat": ivf_flat, "ivf_pq": ivf_pq}
+FAMILIES = {"flat": flat, "ivf_flat": ivf_flat, "ivf_pq": ivf_pq,
+            "cagra": cagra}
 
 _PARAM_CLASSES = (
     "FlatParams", "FlatSearchParams",
@@ -193,11 +194,16 @@ class Retriever:
         metrics.inc("retriever.queries", len(queries))
         t0 = time.time()
         q = encode_on_device(self.encoder, list(queries), self.index.device)
-        index = self.index if allow is None \
-            else filters.filtered_view(self.index, allow)
         mod = FAMILIES[self.family]
-        dists, idx = mod.search(self.search_params, index, q, k,
-                                **self._out_of_core_refine(mod))
+        if allow is not None and self.family == "cagra":
+            # CAGRA has no filtered view: the post-filter of filters.search
+            dists, idx = filters.search(self.search_params, self.index, q, k,
+                                        allow)
+        else:
+            index = self.index if allow is None \
+                else filters.filtered_view(self.index, allow)
+            dists, idx = mod.search(self.search_params, index, q, k,
+                                    **self._out_of_core_refine(mod))
         if isinstance(dists, torch.Tensor):  # a host re-rank returns numpy
             dists, idx = dists.cpu().numpy(), idx.cpu().numpy()
         dt = time.time() - t0
@@ -373,4 +379,5 @@ def _default_params(family: str):
         "flat": config_mod.FlatParams(),
         "ivf_flat": config_mod.IVFFlatParams(),
         "ivf_pq": config_mod.IVFPQParams(),
+        "cagra": config_mod.CagraParams(),
     }[family]

@@ -131,11 +131,11 @@ def test_bad_masks_and_unported_families_raise(built):
     with pytest.raises(ValueError, match=f"\\({N},\\)"):
         tfilters.filtered_view(tix, np.ones(N - 1, bool))
 
-    class CagraIndex:
+    class ShardedIndex:
         pass
 
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tfilters.search(None, CagraIndex(), None, 5, np.ones(N, bool))
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        tfilters.search(None, ShardedIndex(), None, 5, np.ones(N, bool))
     with pytest.raises(TypeError):
         tfilters.view_traced(object(), torch.ones(N, dtype=torch.bool))
 

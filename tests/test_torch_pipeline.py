@@ -189,10 +189,11 @@ def test_allow_filtered_retrieval_matches_jax(encoders, family):
 def test_unported_families_and_placements_raise(encoders):
     _, tencoder = encoders
     corpus = Corpus(passages=["a", "b"])
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        Retriever.build(corpus, tencoder, family="cagra")
     with pytest.raises(NotImplementedError, match="slice 6"):
         Retriever.build(corpus, tencoder, placement="shard")
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        Retriever.build(corpus, tencoder, family="cagra",
+                        placement="replicate")
     with pytest.raises(ValueError, match="unknown family"):
         Retriever.build(corpus, tencoder, family="hnsw")
 
