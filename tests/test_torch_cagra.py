@@ -326,6 +326,18 @@ def test_postfilter_matches_jax(data, jax_files, key):
         tfilters.filtered_view(tix, allow)
 
 
+@pytest.mark.parametrize("graph_degree,forward_edges", [
+    (64, 0), (64, 48), (64, 64), (64, 1), (16, 12), (32, 31)])
+def test_forward_split_equal(graph_degree, forward_edges):
+    """The forward / reverse split against the realized degree, equal to the
+    JAX package's for every degree a small corpus or shard can realize."""
+    for final_deg in range(1, graph_degree + 1):
+        kw = dict(graph_degree=graph_degree, forward_edges=forward_edges,
+                  intermediate_graph_degree=2 * graph_degree)
+        assert tcagra._forward_split(CagraParams(**kw), final_deg) \
+            == jcagra._forward_split(jconfig.CagraParams(**kw), final_deg)
+
+
 def test_io_torch_to_jax(data, tmp_path):
     """A port-built index (ivf, bf16, with a deletion) saved by the port
     loads in the JAX package and searches the same."""
