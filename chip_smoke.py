@@ -63,7 +63,22 @@ is non-zero):
                extend and found by their own vectors; save and load of a
                1,048,576-row index built the same way. No hand kernel runs
                on this path.
- 10. attn_parity — the flash-attention kernel (K7) against its plain
+ 10. serve_main — the serving layer over the flat retriever of main (after
+               cagra_main): the HTTP daemon (rag/server.serve on
+               127.0.0.1, a free port) answering 16 client threads x 32
+               planted text requests (each at top-1; the mean micro-batch
+               above 1) and one client's 32 (requests/s, p50 / p99 ms),
+               raw vectors, a deny list of 40 rows at k = 10 (K3), an allow
+               view of 100,000 ids and a deny view, extend and delete with
+               four clients searching beside them, /healthz and /stats
+               naming the card; the hybrid (BM25 over the same corpus
+               object, its build seconds and search ms) with planted
+               passages at fused top-1 under zscore and rrf through the
+               daemon; FAISS write_index / import_index of a flat and an
+               IVF-Flat index over the first 2^20 rows (imports exact and
+               searched as their sources, K1 and K4) and an IVF-PQ round
+               trip held by recall. Its launches join the kernels line's.
+ 11. attn_parity — the flash-attention kernel (K7) against its plain
                version on the whole output: one 8,192-token sequence at the
                Qwen3 widths (16 heads over 8 kv heads, head_dim 128, bf16),
                16 x 512 with ragged right and left padding down to one
@@ -71,18 +86,18 @@ is non-zero):
                S = 777, 4 heads of 64, q = 0 and 64-fold sharpened scores;
                bf16 within the error that one rounding of P and one of the
                output allow, the largest error / allowed error per case.
- 11. stream_parity — the measurement kernels M1-M4 against their plain
+ 12. stream_parity — the measurement kernels M1-M4 against their plain
                versions on the flat corpus: read_all in both modes (and on a
                ragged row count), gather_rows on bf16 and int8 rows at span
                1 and 32 with duplicate ids, gather_reduce.
- 12. qwen_main — the Qwen3 retrieval path at the published
+ 13. qwen_main — the Qwen3 retrieval path at the published
                Qwen3-Embedding-0.6B widths (28 layers, seeded random bf16
                weights): 256 planted passages encoded 16 at a time at 512
                tokens and 4 of about 8,000 words one at a time at 8,192
                tokens, written into a clustered 1,000,000 x 1024 bf16
                corpus; Retriever.build(family="flat"), retrieve_batch at
                k = 10; then the same encodes with the plain attention.
- 13. timing  — each kernel against its plain version at the main paths'
+ 14. timing  — each kernel against its plain version at the main paths'
                shapes (CUDA events) beside its bound (the larger of this
                run's bytes over H100_BYTES_PER_S and its operations over the
                peak rate of their type), a second bound from the read rate
@@ -203,6 +218,17 @@ QWEN_PLANTED = 256
 QWEN_LONG = 4
 QWEN_LONG_WORDS = 8000
 QWEN_TASK = "Given a web search query, retrieve relevant passages that answer the query"
+# The serving layer (serve_main): 16 client threads x 32 text requests, a
+# deny list that over-fetches past K1's k (K3), an allow view of 100,000
+# ids; FAISS round trips of indexes over the first 2^20 rows, the imported
+# IVF-PQ (flat 8-bit codes) held by recall@10 against its source's ADC.
+SERVE_CLIENTS = 16
+SERVE_REQUESTS = 32
+SERVE_DENY = 40
+SERVE_VIEW_ROWS = 100_000
+SERVE_TIMEOUT_S = 120.0
+FAISS_ROWS = 1 << 20
+FAISS_PQ_RECALL_FLOOR = 0.95
 # The scripts' gather shapes: m ids into 2M rows of 768 values
 GATHER_ROWS = 2_000_000
 GATHER_M2 = 131_072
@@ -1495,6 +1521,437 @@ def cagra_main_path(enc, emb, passages, planted, texts, flat_ids, flat_index,
     return out
 
 
+# ----------------------------------------------------------- serving ---
+
+
+class Client:
+    """One keep-alive HTTP connection to the daemon; every call has a
+    timeout and any status but 200 raises."""
+
+    def __init__(self, port: int, timeout: float = SERVE_TIMEOUT_S):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port,
+                                               timeout=timeout)
+
+    def call(self, method: str, path: str, payload=None):
+        body = None if payload is None else json.dumps(payload)
+        headers = {"Content-Type": "application/json"} if body else {}
+        self.conn.request(method, path, body=body, headers=headers)
+        resp = self.conn.getresponse()
+        data = json.loads(resp.read())
+        if resp.status != 200:
+            raise AssertionError(f"{method} {path}: {resp.status} {data}")
+        return data
+
+    def search(self, texts, k: int = 10, **kw):
+        """[[passage index, ...] of each text], [[distance, ...], ...]"""
+        rep = self.call("POST", "/v1/search", {"texts": list(texts), "k": k,
+                                                **kw})["results"]
+        return ([[p["index"] for p in r["passages"]] for r in rep],
+                [[p["distance"] for p in r["passages"]] for r in rep])
+
+    def close(self):
+        self.conn.close()
+
+
+class Daemon:
+    """rag/server.serve on 127.0.0.1 at a free port, in a thread; `with`
+    stops the server, its batchers and the thread."""
+
+    def __init__(self, retriever):
+        import threading
+
+        from cuvs_rag_tpu_torch.rag import server
+
+        self.srv = server.serve(retriever, "127.0.0.1", 0)
+        self.port = self.srv.server_address[1]
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.srv.service.close()
+        self.thread.join(timeout=SERVE_TIMEOUT_S)
+        if self.thread.is_alive():
+            raise AssertionError("the daemon's thread did not stop")
+
+
+def microbatches(cl: Client) -> tuple:
+    """(batches, texts requests in them) so far, from /metrics."""
+    h = cl.call("GET", "/metrics")["histograms"].get(
+        "server.microbatch_size.texts", {"count": 0, "mean": 0.0})
+    return h["count"], h["count"] * h["mean"]
+
+
+def text_load(port: int, numbers, texts, planted, clients: int,
+              per_client: int) -> dict:
+    """`clients` threads, each sending `per_client` requests of one planted
+    passage at k = 10 in turn on its own connection; each reply must have
+    its planted row at top-1 within 0.05. Returns requests/s and latency
+    percentiles."""
+    def run(c):
+        cl, lat = Client(port), []
+        try:
+            for j in range(per_client):
+                i = numbers[(c * per_client + j) % len(numbers)]
+                t0 = time.perf_counter()
+                rep = cl.call("POST", "/v1/search",
+                              {"texts": [texts[i]], "k": 10})
+                lat.append(time.perf_counter() - t0)
+                top = rep["results"][0]["passages"][0]
+                if top["index"] != int(planted[i]) \
+                        or not top["distance"] < 0.05:
+                    raise AssertionError(
+                        f"planted row {int(planted[i])}: the daemon gave "
+                        f"{top['index']} at {top['distance']}")
+        finally:
+            cl.close()
+        return lat
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as pool:
+        lats = [x for lat in pool.map(run, range(clients)) for x in lat]
+    wall = time.perf_counter() - t0
+    return {"clients": clients, "requests": len(lats),
+            "requests_per_s": len(lats) / wall,
+            "p50_ms": 1e3 * float(np.percentile(lats, 50)),
+            "p99_ms": 1e3 * float(np.percentile(lats, 99))}
+
+
+def load_profile(port: int, cl: Client, numbers, texts, planted,
+                 clients: int, per_client: int, batches_per_s: float) -> dict:
+    """The card's share of a text load: torch.profiler (device activity
+    only) over another `clients` x `per_client` load gives the kernels'
+    device ms per micro-batch; times the unprofiled run's `batches_per_s`,
+    that is the share of the unprofiled run the card was busy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    b0, _ = microbatches(cl)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        text_load(port, numbers, texts, planted, clients, per_client)
+    b1, _ = microbatches(cl)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    ms = sum(e.self_device_time_total for e in kernels) / 1e3 / max(b1 - b0, 1)
+    return {"batches": b1 - b0, "device_ms_per_batch": ms,
+            "kernels_per_batch": sum(e.count for e in kernels)
+            / max(b1 - b0, 1),
+            "device_busy_share": ms * batches_per_s / 1e3}
+
+
+def daemon_checks(retriever, enc, planted, texts, numbers, *,
+                  clients: int = SERVE_CLIENTS,
+                  per_client: int = SERVE_REQUESTS,
+                  view_rows: int = SERVE_VIEW_ROWS, seed: int = 0) -> dict:
+    """The daemon over `retriever` (a flat Retriever whose rows
+    planted[i] hold the embeddings of texts[i], for i in `numbers`, which
+    must hold at least 128 numbers of rows neither deleted nor extended):
+    text requests at concurrency 1 and `clients`, raw vectors, a deny list
+    over-fetching past 32 (K3), an allow view of `view_rows` ids and a deny
+    view, extend and delete with searches running beside them, /healthz and
+    /stats. Raises where a reply is wrong; returns the fields."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    numbers = list(numbers)
+    dev = retriever.index.device
+    out = {}
+    with Daemon(retriever) as d:
+        cl = Client(d.port)
+        try:
+            health = cl.call("GET", "/healthz")
+            stats = cl.call("GET", "/stats")
+            want = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                    else None)
+            for rep in (health, stats):
+                if rep["device"] != str(dev) or (
+                        want is not None and rep["device_name"] != want):
+                    raise AssertionError(f"the daemon names {rep} for {dev}")
+            out["device"] = [health["device"], health["device_name"]]
+
+            out["concurrency_1"] = text_load(d.port, numbers, texts, planted,
+                                             1, per_client)
+            b0, n0 = microbatches(cl)
+            out[f"concurrency_{clients}"] = text_load(
+                d.port, numbers, texts, planted, clients, per_client)
+            b1, n1 = microbatches(cl)
+            out["mean_microbatch"] = (n1 - n0) / max(b1 - b0, 1)
+            load = out[f"concurrency_{clients}"]
+            load["batches_per_s"] = (b1 - b0) * load["requests_per_s"] \
+                / load["requests"]
+            if dev.type == "cuda":  # the profiler traces the card's kernels
+                out["profile"] = load_profile(
+                    d.port, cl, numbers, texts, planted, clients,
+                    max(per_client // 4, 2), load["batches_per_s"])
+            if clients > 1 and not out["mean_microbatch"] > 1.0:
+                raise AssertionError(
+                    f"{clients} clients were never batched together: mean "
+                    f"micro-batch {out['mean_microbatch']}")
+
+            # raw vectors: the planted rows at top-1
+            sel = numbers[:BATCH]
+            rows = [int(planted[i]) for i in sel]
+            vecs = np.asarray(enc.encode([texts[i] for i in sel]), np.float32)
+            rep = cl.call("POST", "/v1/search",
+                          {"vectors": vecs.tolist(), "k": 10})
+            if [r[0] for r in rep["indices"]] != rows:
+                raise AssertionError("raw-vector search lost a planted row")
+
+            # a per-request deny list of SERVE_DENY rows at k = 10: the
+            # batch over-fetches k + 40 = 50 (K3) and drops them exactly
+            i = numbers[BATCH]
+            ids50, d50 = cl.search([texts[i]], k=10 + SERVE_DENY)
+            deny = ids50[0][:SERVE_DENY]
+            ids, dist = cl.search([texts[i]], k=10, deny_ids=deny)
+            if set(ids[0]) & set(deny) or len(ids[0]) != 10:
+                raise AssertionError("a denied row came back")
+            np.testing.assert_allclose(dist[0], d50[0][SERVE_DENY:], **TOL)
+
+            # an allow view of view_rows ids holding 64 queried planted
+            # rows, and a deny view of 16 others
+            allowed = {int(planted[i]) for i in numbers[:64]}
+            n = len(retriever.corpus)
+            while len(allowed) < min(view_rows, n):
+                allowed.update(rng.integers(
+                    0, n, view_rows - len(allowed)).tolist())
+            cl.call("POST", "/v1/views",
+                    {"name": "tenant", "allow_ids": sorted(allowed)})
+            denied = [int(planted[i]) for i in numbers[64:80]]
+            cl.call("POST", "/v1/views",
+                    {"name": "no_planted", "deny_ids": denied})
+            for start in range(0, 64, BATCH):
+                sel = numbers[start:start + BATCH]
+                ids, _ = cl.search([texts[i] for i in sel], view="tenant")
+                if any(not set(r) <= allowed for r in ids) or \
+                        [r[0] for r in ids] != [int(planted[i]) for i in sel]:
+                    raise AssertionError("the allow view leaked a row or "
+                                         "lost a planted row")
+            ids, _ = cl.search([texts[i] for i in numbers[64:80]],
+                               view="no_planted")
+            if set(denied) & {x for r in ids for x in r}:
+                raise AssertionError("the deny view let a denied row through")
+            out["views"] = cl.call("GET", "/v1/views")["views"]
+
+            out["updates"] = live_updates(d.port, cl, texts, planted,
+                                          numbers[80:84], rng)
+            out["stats"] = cl.call("GET", "/stats")
+        finally:
+            cl.close()
+    return out
+
+
+def live_updates(port: int, cl: Client, texts, planted, numbers, rng) -> dict:
+    """/v1/extend of one passage, then /v1/delete of the planted row of
+    numbers[0], while 4 clients search numbers in a loop: no request may
+    fail, every id must lie in the corpus, the new passage must be found
+    at top-1, and the deleted row must not come back from any search sent
+    after its delete returned."""
+    import threading
+
+    stop, deleted_at = threading.Event(), []
+    seen, errors = [], []
+
+    def searcher(c):
+        scl, n = Client(port), 0
+        try:
+            while not stop.is_set():
+                i = numbers[(c + n) % len(numbers)]
+                n += 1
+                t0 = time.perf_counter()
+                ids, _ = scl.search([texts[i]])
+                seen.append((t0, time.perf_counter(), ids[0]))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        finally:
+            scl.close()
+
+    threads = [threading.Thread(target=searcher, args=(c,), daemon=True)
+               for c in range(4)]
+    for t in threads:
+        t.start()
+    try:
+        time.sleep(0.2)
+        new_text = "a passage added live " + " ".join(
+            rng.choice([f"y{i}" for i in range(999)], 50))
+        t_ext = time.perf_counter()
+        ext = cl.call("POST", "/v1/extend", {"texts": [new_text]})
+        ids, _ = cl.search([new_text])
+        if ids[0][0] != ext["ids"][0]:
+            raise AssertionError(f"extended passage {ext['ids'][0]} not at "
+                                 f"top-1: {ids[0]}")
+        gone = int(planted[numbers[0]])
+        dele = cl.call("POST", "/v1/delete", {"ids": [gone]})
+        deleted_at.append(time.perf_counter())
+        time.sleep(0.2)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=SERVE_TIMEOUT_S)
+    if any(t.is_alive() for t in threads) or errors:
+        raise AssertionError(f"searches beside the updates failed: {errors}")
+    n = ext["corpus_size"]
+    during = sum(1 for t0, t1, _ in seen if t0 < deleted_at[0] and t1 > t_ext)
+    after = [ids for t0, _, ids in seen if t0 > deleted_at[0]]
+    if any(not 0 <= x < n for _, _, ids in seen for x in ids):
+        raise AssertionError("a search returned an id outside the corpus")
+    if any(gone in ids for ids in after) or not after or not during:
+        raise AssertionError(
+            f"deleted row {gone} came back, or no search ran beside the "
+            f"updates ({during}) or after them ({len(after)})")
+    return {"extend_ms": ext["update_ms"], "delete_ms": dele["update_ms"],
+            "searches_beside": during, "searches_after_delete": len(after)}
+
+
+def hybrid_checks(flat_r, planted, texts, numbers) -> dict:
+    """HybridRetriever([flat_r, LexicalRetriever over the same corpus
+    object]) through the daemon: each planted passage at fused top-1 under
+    zscore and rrf. Reports the BM25 build seconds, BM25 search ms a batch
+    of BATCH texts and hybrid retrieve_batch ms a batch."""
+    from cuvs_rag_tpu_torch.rag.fusion import HybridRetriever
+    from cuvs_rag_tpu_torch.rag.lexical import LexicalRetriever
+
+    out = {}
+    t0 = time.perf_counter()
+    lex = LexicalRetriever(flat_r.corpus)
+    out["bm25_build_s"] = time.perf_counter() - t0
+    out["bm25_docs"] = lex.bm25.n_docs
+    out["bm25_postings"] = int(len(lex.bm25.post_docs))
+    hybrid = HybridRetriever([flat_r, lex])
+    batches = [numbers[s:s + BATCH] for s in range(0, len(numbers), BATCH)]
+    for name, fn in (("bm25_search_ms_per_batch",
+                      lambda b: lex.bm25.search([texts[i] for i in b], 10)),
+                     ("hybrid_ms_per_batch",
+                      lambda b: hybrid.retrieve_batch([texts[i] for i in b],
+                                                      10))):
+        fn(batches[0])
+        t0 = time.perf_counter()
+        for b in batches:
+            fn(b)
+        out[name] = 1e3 * (time.perf_counter() - t0) / len(batches)
+    with Daemon(hybrid) as d:
+        cl = Client(d.port)
+        try:
+            for method in ("zscore", "rrf"):
+                hybrid.method = method
+                for b in batches:
+                    ids, _ = cl.search([texts[i] for i in b])
+                    if [r[0] for r in ids] != [int(planted[i]) for i in b]:
+                        raise AssertionError(
+                            f"a planted passage lost its fused top-1 ({method})")
+            out["stats"] = cl.call("GET", "/stats")
+        finally:
+            cl.close()
+    out["fused_top1"] = 2 * len(numbers)
+    return out
+
+
+def faiss_checks(emb, n_rows: int = FAISS_ROWS, seed: int = 0) -> dict:
+    """write_index and import_index of a flat and an IVF-Flat index (the
+    default N/1000 lists) over the first n_rows rows of `emb`, in a
+    temporary directory: the imports hold the bf16 values exactly and
+    search as their sources do (ids up to ties); an IVF-PQ round trip (flat
+    8-bit codes on import) is held by recall@10 against its source's ADC
+    search. Reports export and import seconds and the files' GB."""
+    import tempfile
+
+    import torch
+
+    from cuvs_rag_tpu_torch.index import faiss_io, flat, ivf_flat, ivf_pq
+    from cuvs_rag_tpu_torch.utils.compare import compare_topk
+    from cuvs_rag_tpu_torch.utils.config import (
+        FlatParams, IVFFlatParams, IVFPQParams, IVFPQSearchParams)
+
+    dev = emb.device
+    rows = emb[:n_rows]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    src = torch.randint(0, n_rows, (BATCH,), generator=gen, device=dev)
+    q = torch.nn.functional.normalize(
+        rows[src].float() + 0.02 * make_rows(BATCH, rows.shape[1], gen, dev),
+        dim=1)
+    out = {"rows": n_rows}
+
+    def round_trip(name, index, path, **imp):
+        t0 = time.perf_counter()
+        faiss_io.write_index(index, path)
+        out[f"{name}_export_s"] = time.perf_counter() - t0
+        out[f"{name}_file_gb"] = os.path.getsize(path) / 1e9
+        t0 = time.perf_counter()
+        family, back = faiss_io.import_index(path, device=dev, **imp)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out[f"{name}_import_s"] = time.perf_counter() - t0
+        os.unlink(path)
+        return family, back
+
+    reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_faiss_") as tmp:
+        index = flat.build(FlatParams(dtype="bfloat16"), rows)
+        family, back = round_trip("flat", index, os.path.join(tmp, "f.index"),
+                                  dtype="bfloat16")
+        if family != "flat" or not torch.equal(back.vectors[:n_rows],
+                                               index.vectors[:n_rows]):
+            raise AssertionError("the imported flat index holds other values")
+        compare_topk(*flat.search(None, back, q, 10),
+                     *flat.search(None, index, q, 10), **TOL)
+        del index, back
+
+        index = ivf_flat.build(IVFFlatParams(dtype="bfloat16"), rows)
+        out["ivf_lists"] = index.n_lists
+        family, back = round_trip("ivf_flat", index,
+                                  os.path.join(tmp, "ivf.index"),
+                                  dtype="bfloat16")
+        if family != "ivf_flat" or back.n_lists != index.n_lists:
+            raise AssertionError("the imported IVF-Flat index lost its lists")
+        compare_topk(*ivf_flat.search(None, back, q, 10),
+                     *ivf_flat.search(None, index, q, 10), **TOL)
+        del index, back
+
+        index = ivf_pq.build(IVFPQParams(), rows)
+        family, back = round_trip("ivf_pq", index,
+                                  os.path.join(tmp, "pq.index"))
+        adc = IVFPQSearchParams(refine_ratio=0)
+        want = ivf_pq.search(adc, index, q, 10)[1].cpu().numpy()
+        got = ivf_pq.search(adc, back, q, 10)[1].cpu().numpy()
+        out["ivf_pq_recall_at_10_vs_source"] = float(np.mean(
+            [len(set(a) & set(b)) / 10 for a, b in zip(got, want)]))
+        if family != "ivf_pq" or back.levels != 1 or \
+                out["ivf_pq_recall_at_10_vs_source"] < FAISS_PQ_RECALL_FLOOR:
+            raise AssertionError(f"the imported IVF-PQ index: {out}")
+        del index, back
+    return out
+
+
+def serve_main_path(enc, emb, flat_r, planted, texts, *,
+                    faiss_rows: int = FAISS_ROWS) -> dict:
+    """The serving layer over the main path's flat retriever: the daemon
+    (daemon_checks), the hybrid (hybrid_checks) and FAISS interop
+    (faiss_checks), each with the kernels' counts set to 0 just before it
+    and read just after. Returns the fields."""
+    import torch
+
+    # planted passages not deleted by main_path (query 2) nor used there
+    numbers = list(range(BATCH, BATCH + 8 * BATCH))
+    reset_launches()
+    out = {"daemon": daemon_checks(flat_r, enc, planted, texts, numbers)}
+    out["launches"] = read_launches(("flat_topk_exact", "flat_topk_large"))
+    reset_launches()
+    # the live updates deleted planted[numbers[80]]: the hybrid asks others
+    out["hybrid"] = hybrid_checks(flat_r, planted, texts, numbers[:4 * BATCH])
+    out["hybrid_launches"] = read_launches(("flat_topk_large",))
+    out["faiss"] = faiss_checks(emb, faiss_rows)
+    out["faiss_launches"] = read_launches(("flat_topk_exact", "ivf_scan"))
+    torch.cuda.empty_cache()
+    return out
+
+
 def make_qwen_encoders(seed: int, dev):
     """(512-token encoder, 8,192-token encoder, model): two encoders over
     one QwenModel at the published Qwen3-Embedding-0.6B widths with seeded
@@ -2346,6 +2803,12 @@ def main() -> int:
                                 flat_r.index, rng)
     emit("cagra_main", gpu=gpu, seconds=time.perf_counter() - t0, **cagra_out)
     e2e["cagra_search_ms_per_batch"] = cagra_out["search_ms_per_batch"]
+    t0 = time.perf_counter()
+    serve_out = serve_main_path(enc, emb, flat_r, planted, texts)
+    emit("serve_main", gpu=gpu, seconds=time.perf_counter() - t0, **serve_out)
+    for row in kernels:  # the serving path's launches join the main paths'
+        row["launches"] += sum(serve_out[key].get(row["name"], 0) for key in (
+            "launches", "hybrid_launches", "faiss_launches"))
     del flat_r, passages
     torch.cuda.empty_cache()
     stream_out, stream_rows, read_rate = stream_timing(emb, args.seed)

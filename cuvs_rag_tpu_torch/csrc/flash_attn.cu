@@ -84,6 +84,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr int SEG_NONE_Q = -2147483647;  // a query row past S matches no key
@@ -522,9 +524,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const int* seg,
   // Q, the ring, the key and row segments, and room to align the panels
   const int smem = BLOCK_ROWS * HD * 2 + 2 * WSTAGES * WBN * HD * 2 +
                    (WSTAGES * WBN + BLOCK_ROWS) * (int)sizeof(int) + 1024;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  static int allowed[MAX_DEVICES] = {};  // this instance's, by device
+  cudaError_t err = allow_smem(allowed, flash_attn_wgmma_kernel<HD>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(nh / G, (S + bmq - 1) / bmq, B);
   flash_attn_wgmma_kernel<HD><<<grid, 256, smem, stream>>>(
@@ -723,9 +724,8 @@ int launch_fp32(const void* q, const void* k, const void* v, const int* seg,
   const int smem =
       (BM * (HD + 4) + BN * (HD + 4) + BN * HD) * (int)sizeof(float) +
       BN * (int)sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_fp32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  static int allowed[MAX_DEVICES] = {};  // this instance's, by device
+  cudaError_t err = allow_smem(allowed, flash_attn_fp32_kernel<HD>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BM - 1) / BM, nh, B);
   flash_attn_fp32_kernel<HD><<<grid, THREADS, smem, stream>>>(

@@ -1134,9 +1134,8 @@ int flat_exact_topk(int combo, int ring, const void* q, const void* x,
     if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
 #define LAUNCH_RING(I8)                                                      \
   {                                                                          \
-    cudaError_t e = cudaFuncSetAttribute(                                    \
-        exact_scan_kernel<I8>, cudaFuncAttributeMaxDynamicSharedMemorySize,  \
-        smem);                                                               \
+    static int allowed[MAX_DEVICES] = {};  /* this instance's, by device */  \
+    cudaError_t e = allow_smem(allowed, exact_scan_kernel<I8>, smem);        \
     if (e != cudaSuccess) return (int)e;                                     \
     exact_scan_kernel<I8><<<grid, THREADS, smem, stream>>>(                  \
         q, (const unsigned char*)x, sqn, scales, n_q, d, n_rows, n_valid,    \

@@ -57,6 +57,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -140,8 +142,8 @@ int pq_adc_scores(const uint8_t* codes, const int* row_ids, const float* corr,
       smem > MAX_SMEM)
     return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        pq_adc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    static int allowed[MAX_DEVICES] = {};  // by device
+    cudaError_t err = allow_smem(allowed, pq_adc_kernel, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid(n_qp, (unsigned)n_chunks);

@@ -13,6 +13,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr int TQ = 16;            // queries per block (the mma's M)
@@ -118,23 +120,5 @@ struct RingLoader {
     }
   }
 };
-
-constexpr int MAX_DEVICES = 64;
-
-// Lets `kernel` take `bytes` of dynamic shared memory on the current
-// device, setting the attribute only when a launch asks for more than
-// `allowed` (the launch site's own static table for this kernel instance,
-// by device) records: once per instance and device, not on every launch.
-template <typename Kernel>
-cudaError_t allow_smem(int (&allowed)[MAX_DEVICES], Kernel kernel, int bytes) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < MAX_DEVICES && bytes <= allowed[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           bytes);
-  if (e == cudaSuccess && dev < MAX_DEVICES) allowed[dev] = bytes;
-  return e;
-}
 
 }  // namespace

@@ -161,18 +161,23 @@ class Retriever:
     def retrieve(self, query: str, k: int = 5, allow=None) -> RetrievalResult:
         return self.retrieve_batch([query], k, allow=allow)[0]
 
-    def retrieve_ids(self, queries: Sequence[str], k: int = 5, allow=None):
+    def retrieve_ids(self, queries: Sequence[str], k: int = 5, allow=None, *,
+                     index=None):
         """Raw-array retrieval: (distances, ids) as (Q, k) numpy arrays with
-        no passage assembly."""
-        dists, idx, _ = self._search_arrays(queries, k, allow)
+        no passage assembly (what rag/fusion.HybridRetriever reads)."""
+        dists, idx, _ = self._search_arrays(queries, k, allow, index)
         return dists, idx
 
     def retrieve_batch(self, queries: Sequence[str], k: int = 5,
-                       allow=None) -> List[RetrievalResult]:
+                       allow=None, *, index=None) -> List[RetrievalResult]:
         """`allow` (optional): an (n_passages,) bool mask, numpy or tensor —
         metadata-filtered retrieval through a filtered view of the index
-        (index/filters.py). Results are always ⊆ allow."""
-        dists, idx, dt = self._search_arrays(queries, k, allow)
+        (index/filters.py). Results are always ⊆ allow.
+
+        `index` (optional): search this index instead of `self.index`: a
+        view of the same corpus baked beforehand (`filters.filtered_view`),
+        as the serving daemon's named views are, so a request pays no bake."""
+        dists, idx, dt = self._search_arrays(queries, k, allow, index)
         results = []
         per_query = dt / max(len(queries), 1)
         for row in range(len(queries)):
@@ -190,18 +195,19 @@ class Retriever:
                                             query_time_s=per_query))
         return results
 
-    def _search_arrays(self, queries, k, allow=None):
+    def _search_arrays(self, queries, k, allow=None, index=None):
         metrics.inc("retriever.queries", len(queries))
         t0 = time.time()
-        q = encode_on_device(self.encoder, list(queries), self.index.device)
+        base_index = self.index if index is None else index
+        q = encode_on_device(self.encoder, list(queries), base_index.device)
         mod = FAMILIES[self.family]
         if allow is not None and self.family == "cagra":
             # CAGRA has no filtered view: the post-filter of filters.search
-            dists, idx = filters.search(self.search_params, self.index, q, k,
+            dists, idx = filters.search(self.search_params, base_index, q, k,
                                         allow)
         else:
-            index = self.index if allow is None \
-                else filters.filtered_view(self.index, allow)
+            index = base_index if allow is None \
+                else filters.filtered_view(base_index, allow)
             dists, idx = mod.search(self.search_params, index, q, k,
                                     **self._out_of_core_refine(mod))
         if isinstance(dists, torch.Tensor):  # a host re-rank returns numpy
@@ -340,7 +346,7 @@ class Retriever:
         # Build the new index first: if it rejects the rows, the corpus must
         # not have grown. The index is swapped last, so a reader that sees
         # the new index finds the passages already appended.
-        new_index = FAMILIES[self.family].extend(self.index, vectors)
+        new_index = self._build_extended_index(vectors)
         start = len(self.corpus.passages)
         if titles is not None and self.corpus.titles is None:
             self.corpus.titles = [""] * start
@@ -361,6 +367,15 @@ class Retriever:
         self.index = new_index
         metrics.inc("retriever.extended_rows", len(texts))
         return range(start, start + len(texts))
+
+    def _build_extended_index(self, vectors) -> Any:
+        """The index-growth step of `extend`, without touching the corpus:
+        rag/fusion.HybridRetriever grows engines that share one corpus
+        object through it. As `extend`, it consumes `self.index` (an
+        IVF-Flat layout may be grown in place): the caller swaps the result
+        in."""
+        return FAMILIES[self.family].extend(
+            self.index, base.as_tensor(vectors, self.index.device))
 
     def delete(self, ids) -> None:
         """Remove passages by corpus index (tombstone; id-stable)."""

@@ -260,6 +260,9 @@ def test_import_leaves_jax_out():
         "from cuvs_rag_tpu_torch.ops import pq, pq_kernels\n"
         "from cuvs_rag_tpu_torch.rag import host_store\n"
         "from cuvs_rag_tpu_torch.eval import recall\n"
+        "from cuvs_rag_tpu_torch import native\n"
+        "from cuvs_rag_tpu_torch.rag import datasets, fusion, lexical, server\n"
+        "from cuvs_rag_tpu_torch.index import faiss_io\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'cuvs_rag_tpu')]\n"
         "assert not bad, bad\n"
