@@ -78,7 +78,30 @@ is non-zero):
                IVF-Flat index over the first 2^20 rows (imports exact and
                searched as their sources, K1 and K4) and an IVF-PQ round
                trip held by recall. Its launches join the kernels line's.
- 11. attn_parity — the flash-attention kernel (K7) against its plain
+ 11. shard_main — the sharded placements over the same corpus on a mesh
+               of four positions on the one card (DeviceMesh(["cuda:0"] *
+               4)), each shard searched on its own CUDA stream and merged on
+               the card: flat through Retriever.build(placement="shard")
+               (planted top-1; equal to a single flat index at k = 10 and
+               k = 2000 on 1,024 corpus-like queries, K1 / K3 on every
+               shard with their certificates ANDed; approx K2 recall within
+               0.005 of single; delete, allow= with the view cache hit,
+               1,000 rows added by a re-shard); a replicated flat index
+               (four replicas of one index, one storage); IVF-Flat (K4, K5)
+               and IVF-PQ (K6) at 5 probes a shard, CAGRA at itopk 64
+               (its bootstrap at the single index's 6,290 lists a shard; the
+               default's recall reported), each held by recall@10 against
+               flat beside the single index's;
+               encode_sharded inside Retriever.build; the sharded Retriever
+               saved and loaded at 2^20 rows and rebuilt on 2 positions;
+               ElasticShardedIndex.heal with position 1 failed; the daemon
+               over the sharded retriever (16 clients, a deny list through
+               K3 on every shard, a view). Sharded and single search ms a
+               batch, torch.profiler tables (device / host ms, the merge's
+               device ms, whether the streams overlapped), build, extend,
+               heal and save / load seconds. Its K1-K6 launches join the
+               kernels line's.
+ 12. attn_parity — the flash-attention kernel (K7) against its plain
                version on the whole output: one 8,192-token sequence at the
                Qwen3 widths (16 heads over 8 kv heads, head_dim 128, bf16),
                16 x 512 with ragged right and left padding down to one
@@ -86,18 +109,20 @@ is non-zero):
                S = 777, 4 heads of 64, q = 0 and 64-fold sharpened scores;
                bf16 within the error that one rounding of P and one of the
                output allow, the largest error / allowed error per case.
- 12. stream_parity — the measurement kernels M1-M4 against their plain
+ 13. stream_parity — the measurement kernels M1-M4 against their plain
                versions on the flat corpus: read_all in both modes (and on a
                ragged row count), gather_rows on bf16 and int8 rows at span
                1 and 32 with duplicate ids, gather_reduce.
- 13. qwen_main — the Qwen3 retrieval path at the published
+ 14. qwen_main — the Qwen3 retrieval path at the published
                Qwen3-Embedding-0.6B widths (28 layers, seeded random bf16
                weights): 256 planted passages encoded 16 at a time at 512
                tokens and 4 of about 8,000 words one at a time at 8,192
                tokens, written into a clustered 1,000,000 x 1024 bf16
                corpus; Retriever.build(family="flat"), retrieve_batch at
-               k = 10; then the same encodes with the plain attention.
- 14. timing  — each kernel against its plain version at the main paths'
+               k = 10; encode_sharded of 16 texts over two mesh positions
+               on the card against the batch's encode (cosine >= 0.999 a
+               row); then the same encodes with the plain attention.
+ 15. timing  — each kernel against its plain version at the main paths'
                shapes (CUDA events) beside its bound (the larger of this
                run's bytes over H100_BYTES_PER_S and its operations over the
                peak rate of their type), a second bound from the read rate
@@ -623,8 +648,8 @@ def ivf_parity_phase(n_rows: int, seed: int, device="cuda",
     return out
 
 
-def pq_scan_args(ix, q):
-    """K6's arguments for queries `q` at N_PROBES probes, formed as
+def pq_scan_args(ix, q, n_probes: int = N_PROBES):
+    """K6's arguments for queries `q` at `n_probes` probes, formed as
     ivf_pq.search_scores forms them: (codes, row ids, correction or None,
     tables, window offsets, list counts, coarse scores)."""
     from cuvs_rag_tpu_torch.index import ivf_pq
@@ -633,7 +658,7 @@ def pq_scan_args(ix, q):
 
     qp = ivf_pq._prep_queries(ix, q)
     coarse, probes = ivf_ops.probe_lists(
-        qp, ix.centroids, ix.centroid_sqnorms, min(N_PROBES, ix.n_lists),
+        qp, ix.centroids, ix.centroid_sqnorms, min(n_probes, ix.n_lists),
         ix.metric)
     luts = pq_ops.probe_luts(qp, probes, ix.centroids, ix.codebooks,
                              ix.metric, levels=ix.levels)
@@ -1087,15 +1112,17 @@ def filtered_checks(retriever, planted, texts, first):
         raise AssertionError("an allowed planted row lost its top-1")
 
 
-def ivf_main_path(enc, emb, passages, planted, texts, flat_ids, rng):
+def ivf_main_path(enc, emb, passages, planted, texts, flat_ids, flat_index,
+                  rng):
     """The IVF-Flat path at N_PROBES probes. A planted query's top-1 must be
     its row whenever that row's list is among the query's probed lists, and
-    at least 99% of the planted queries must be so. Returns (fields,
-    retriever)."""
+    at least 99% of the planted queries must be so. Also reported: recall@10
+    against flat on the 1,024 corpus-like queries (shard_main holds its
+    sharded index against it). Returns (fields, retriever)."""
     import torch
 
     from cuvs_rag_tpu_torch.eval.recall import recall_at_k
-    from cuvs_rag_tpu_torch.index import ivf_flat
+    from cuvs_rag_tpu_torch.index import flat, ivf_flat
     from cuvs_rag_tpu_torch.rag.corpus import Corpus
     from cuvs_rag_tpu_torch.rag.pipeline import Retriever
     from cuvs_rag_tpu_torch.utils.config import IVFFlatParams
@@ -1134,7 +1161,14 @@ def ivf_main_path(enc, emb, passages, planted, texts, flat_ids, rng):
     check_top1([retriever.retrieve(new_text, k=10)], [new_ids[0]])
     filtered_checks(retriever, planted, texts, first[2:4])
     launches = read_launches(IVF_KERNELS)
+    _, qs = corpus_like_queries(emb)
+    _, want = flat.search(None, flat_index, qs, 10)
+    got = torch.cat([ivf_flat.search(None, retriever.index,
+                                     qs[i:i + BATCH], 10)[1]
+                     for i in range(0, qs.shape[0], BATCH)])
     out = {
+        "corpus_like_recall_at_10": recall_at_k(got.cpu().numpy(),
+                                                want.cpu().numpy(), 10),
         "rows": ROWS, "n_lists": ix.n_lists,
         "max_list": int(ix.list_counts.max()), "window": ix.max_list_size,
         "build_s": build_s, "n_probes": N_PROBES,
@@ -1952,6 +1986,597 @@ def serve_main_path(enc, emb, flat_r, planted, texts, *,
     return out
 
 
+# ---------------------------------------------------------------- shards ---
+
+
+# The sharded placements (shard_main): SHARDS mesh positions on the one card,
+# the single index's N_PROBES split among them, the Retriever's save and
+# load at SHARD_SAVED_ROWS rows, SHARD_EXTEND rows added by a re-shard, and
+# the daemon under SERVE_CLIENTS x SHARD_REQUESTS one-text requests.
+SHARDS = 4
+SHARD_PROBES = N_PROBES // SHARDS
+SHARD_SAVED_ROWS = 1 << 20
+SHARD_EXTEND = 1000
+SHARD_REQUESTS = 8
+SHARD_KERNELS = FLAT_KERNELS + IVF_KERNELS + PQ_KERNELS
+# a sharded approx (K2) search keeps the single index's recall@10 within it
+SHARD_APPROX_TOL = 0.005
+
+
+def take_launches(names) -> dict:
+    """The wrappers' counts now (set to 0 by reset_launches)."""
+    fns = kernel_fns()
+    return {n: fns[n][0].launches for n in names}
+
+
+def overlap_profile(fn, calls: int = 20) -> dict:
+    """torch.profiler over `calls` back-to-back fn(): host ms a call, the
+    sum of the device's kernel (and copy) times a call, the time the device
+    was busy with at least one of them (the union of their intervals), the
+    busy share of the host time, and overlap = sum / busy (above 1 where
+    kernels of different streams ran at once); kernels a call, and the
+    port's own kernels a call by name."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / calls * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    total = busy = 0.0
+    end = -np.inf
+    for start, stop, _ in spans:
+        total += stop - start
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    own = collections.Counter(o for *_, name in spans for o in OWN_KERNELS
+                              if o in name)
+    device_ms, busy_ms = total / 1e3 / calls, busy / 1e3 / calls
+    return {"host_ms_per_call": host_ms, "device_ms_per_call": device_ms,
+            "device_busy_ms_per_call": busy_ms,
+            "busy_share": busy_ms / host_ms,
+            "overlap": device_ms / busy_ms if busy_ms else 0.0,
+            "kernels_per_call": len(spans) / calls,
+            "own_kernels_per_call": {k: v / calls for k, v in own.items()}}
+
+
+def shard_daemon_checks(retriever, planted, texts, numbers, rng) -> dict:
+    """The daemon over a sharded flat retriever: /healthz and /stats name
+    every mesh position, SERVE_CLIENTS clients x SHARD_REQUESTS one-text
+    requests at top-1, a deny list of SERVE_DENY rows at k = 10 (K3 on
+    every shard) and an allow view of SERVE_VIEW_ROWS ids."""
+    n_pos = retriever.index.num_shards
+    out = {}
+    with Daemon(retriever) as d:
+        cl = Client(d.port)
+        try:
+            health = cl.call("GET", "/healthz")
+            stats = cl.call("GET", "/stats")
+            if health["devices"] != n_pos or len(stats["devices"]) != n_pos \
+                    or stats["placement"] != "ShardedIndex":
+                raise AssertionError(f"the daemon names {health} / {stats}")
+            out["devices"] = stats["devices"]
+            out["load"] = text_load(d.port, numbers, texts, planted,
+                                    SERVE_CLIENTS, SHARD_REQUESTS)
+            i = numbers[0]
+            ids50, d50 = cl.search([texts[i]], k=10 + SERVE_DENY)
+            deny = ids50[0][:SERVE_DENY]
+            ids, dist = cl.search([texts[i]], k=10, deny_ids=deny)
+            if set(ids[0]) & set(deny) or len(ids[0]) != 10:
+                raise AssertionError("a denied row came back")
+            np.testing.assert_allclose(dist[0], d50[0][SERVE_DENY:], **TOL)
+            sel = numbers[:BATCH]
+            rows = [int(planted[i]) for i in sel]
+            allowed = set(rows)
+            n = len(retriever.corpus)
+            while len(allowed) < SERVE_VIEW_ROWS:
+                allowed.update(rng.integers(
+                    0, n, SERVE_VIEW_ROWS - len(allowed)).tolist())
+            cl.call("POST", "/v1/views",
+                    {"name": "tenant", "allow_ids": sorted(allowed)})
+            ids, _ = cl.search([texts[i] for i in sel], view="tenant")
+            if any(not set(r) <= allowed for r in ids) or \
+                    [r[0] for r in ids] != rows:
+                raise AssertionError("the sharded view leaked a row or lost "
+                                     "a planted row")
+        finally:
+            cl.close()
+    return out
+
+
+def pq_hold(args, kw) -> float:
+    """Hold K6 to its plain version: the same ids and -inf pattern, the
+    live scores within PQ_TOL. Returns the largest absolute error."""
+    import torch
+
+    from cuvs_rag_tpu_torch.ops import pq_kernels as pk
+
+    s, i = pk.pq_adc_scores(*args, **kw)
+    ps, pi = pk.pq_adc_scores_plain(*args, **kw)
+    live = torch.isfinite(ps)
+    if not torch.equal(i, pi) or not torch.equal(torch.isfinite(s), live):
+        raise AssertionError("K6 ids or -inf pattern differ from plain")
+    torch.testing.assert_close(s[live], ps[live], **PQ_TOL)
+    return float((s[live] - ps[live]).abs().max()) if live.any() else 0.0
+
+
+def shard_kernel_rows(family: str, ix, q) -> dict:
+    """Each hand kernel of one shard `ix` (a mesh position's own index)
+    through its wrapper at the call shape the sharded search gives it (the
+    BATCH queries `q` at k = 10 and K_LARGE, SHARD_PROBES probes a shard
+    for the IVF families), held against its plain version on the same card
+    tensors as the timing phase holds them (TOL and the rounding bounds; K3
+    and K5 by `large_hold`; K6 by `pq_hold`), timed, and with the route or
+    plan the wrapper chose at this shape. Launches made here are not
+    counted."""
+    from cuvs_rag_tpu_torch.eval.roofline import cuda_ms
+    from cuvs_rag_tpu_torch.index import flat, ivf_flat
+    from cuvs_rag_tpu_torch.ops import flat_kernels as fk
+    from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
+    from cuvs_rag_tpu_torch.ops import pq_kernels as pk
+
+    if family in ("flat", "ivf_flat"):
+        dtype, d = ix.vectors.dtype, ix.dim
+    if family == "flat":
+        metric = flat._kernel_metric(ix.metric)
+        args = (ix.vectors, ix.sqnorms, q, ix.n_valid, ix.scales)
+        shape = f"{q.shape[0]} x {ix.n_valid} x {d} {dtype}"
+        return {
+            "flat_topk_exact": {
+                **k1_shape_row(shape, args, dict(k=10, metric=metric)),
+                "route": fk.exact_route(dtype, d)},
+            "flat_topk_sketch": {
+                **sketch_shape_row(shape, args, dict(
+                    k=10, metric=metric, tile_c=min(ix.tile_n, 2048))),
+                "route": fk.sketch_route(dtype, d)},
+            "flat_topk_large": large_shape_row(
+                "flat_topk_large", shape, args,
+                dict(k=K_LARGE, metric=metric), flat_bound)}
+    if family == "ivf_flat":
+        p = ivf_flat.probe(ix, q, SHARD_PROBES)[0].long()
+        args = (ix.vectors, ix.sqnorms, ix.scales, q, ix.list_offsets[p],
+                ix.list_counts[p])
+        kw = dict(window=ix.max_list_size,
+                  metric=ivf_flat._kernel_metric(ix.metric))
+        shape = (f"{q.shape[0]} x {SHARD_PROBES} probes, window "
+                 f"{ix.max_list_size}")
+        cfg = ik.large_k_config(ix.max_list_size, d, K_LARGE)
+        if cfg is None:
+            raise AssertionError(f"K5 takes no window of {ix.max_list_size}")
+        route = ik.ivf_route(dtype, d)
+        return {
+            "ivf_scan": {
+                **ivf_shape_row(shape, args, dict(kw, k=10)), "route": route,
+                "rows_a_block_blocks_a_probe": ik.k4_pieces(
+                    ix.max_list_size, route, p.numel(),
+                    fk._sm_count(ix.vectors.device))},
+            "ivf_scan_large": large_shape_row(
+                "ivf_scan_large", shape, args,
+                dict(kw, k=K_LARGE, n_sub=cfg[0], r_planes=cfg[1]),
+                ivf_bound)}
+    args = pq_scan_args(ix, q, SHARD_PROBES)
+    kw = dict(window=ix.max_list_size)
+    return {"pq_adc_scores": {
+        "shape": f"{q.shape[0]} x {SHARD_PROBES} probes, window "
+                 f"{ix.max_list_size}",
+        "max_abs_err": pq_hold(args, kw),
+        "ms": cuda_ms(lambda: pk.pq_adc_scores(*args, **kw), 20),
+        "plain_ms": cuda_ms(lambda: pk.pq_adc_scores_plain(*args, **kw), 10),
+        **pq_bound(*args, **kw)}}
+
+
+def shard_main_path(enc, emb, passages, planted, texts, single: dict) -> dict:
+    """The sharded placements on SHARDS mesh positions of the one card, over
+    the main path's corpus, each shard searched on its own stream.
+
+    Held exactly (ids up to ties at the k-th within TOL): sharded flat
+    equals a single flat index at k = 10 and k = K_LARGE on the 1,024
+    corpus-like queries (K1 / K3 on every shard, certificates ANDed, re-runs
+    counted); every planted batch at top-1 through Retriever.build(
+    placement="shard"); a deleted row never returns; allow= results stay in
+    the mask and a repeated mask hits the view cache; SHARD_EXTEND added
+    rows are found at top-1 under ids ROWS + i; the replicated flat index
+    (4 replicas of one index) equals the single one, its replicas one
+    storage; a sharded Retriever saved and loaded at SHARD_SAVED_ROWS rows
+    answers identically, and rebuilt on 2 positions finds the planted rows;
+    ElasticShardedIndex heals position 1 away and finds the planted rows;
+    the daemon over the sharded retriever. Held by share: approx (K2)
+    recall@10 within SHARD_APPROX_TOL of the single index's; IVF-Flat (K4,
+    K5 at K_LARGE) at SHARD_PROBES probes a shard >= 0.9 and within 0.01 of
+    the single index at N_PROBES (single["ivf"]); IVF-PQ at refine
+    REFINE_TUNED >= 0.9 and within 0.02 of single["pq"]; CAGRA at itopk 64,
+    its bootstrap at the single index's ROWS / 1000 lists a shard, >= 0.9
+    (at the default, a shard's rows / 1000, recall is reported), no id
+    twice in a row, its post-filtered allow= inside the mask.
+    encode_sharded over the mesh within 1e-4 of encode. Reported: rows a
+    shard, build seconds and peak memory, sharded and single search ms a
+    batch of BATCH, profiles (device and host ms a call, the merge's device
+    ms, whether the shards' streams overlapped), extend, heal, save and
+    load seconds. Returns the fields, with the K1-K6 launches of the
+    checks under "launches"."""
+    import itertools
+    import tempfile
+
+    import torch
+
+    from cuvs_rag_tpu_torch.eval.recall import recall_at_k
+    from cuvs_rag_tpu_torch.eval.roofline import cuda_ms
+    from cuvs_rag_tpu_torch.index import flat
+    from cuvs_rag_tpu_torch.ops import topk as topk_ops
+    from cuvs_rag_tpu_torch.parallel import elastic
+    from cuvs_rag_tpu_torch.parallel import search as ps
+    from cuvs_rag_tpu_torch.parallel.mesh import DeviceMesh
+    from cuvs_rag_tpu_torch.rag.corpus import Corpus
+    from cuvs_rag_tpu_torch.rag.pipeline import Retriever
+    from cuvs_rag_tpu_torch.utils.compare import compare_topk
+    from cuvs_rag_tpu_torch.utils.config import (
+        CagraParams, CagraSearchParams, FlatParams, FlatSearchParams,
+        IVFFlatParams, IVFFlatSearchParams, IVFPQParams, IVFPQSearchParams)
+
+    dev = emb.device
+    dmesh = DeviceMesh([dev] * SHARDS)
+    rng = np.random.default_rng(31)
+    src, qs = corpus_like_queries(emb)
+    batches = [qs[i:i + BATCH] for i in range(0, qs.shape[0], BATCH)]
+    q16 = enc.encode_device(texts[:BATCH])
+    approx = FlatSearchParams(approx=True)
+    bf16 = FlatParams(dtype="bfloat16")
+    out = {"positions": [str(d) for d in dmesh.devices], "rows": ROWS,
+           "shard_probes": SHARD_PROBES, "single_probes": N_PROBES}
+    launches = dict.fromkeys(SHARD_KERNELS, 0)
+
+    def count():
+        for name, c in take_launches(SHARD_KERNELS).items():
+            launches[name] += c
+
+    def built(fn):
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        made = fn()
+        torch.cuda.synchronize()
+        return made, {"build_s": time.perf_counter() - t0,
+                      "build_peak_over_resident_gb":
+                      (torch.cuda.max_memory_allocated() - resident) / 1e9}
+
+    def sweep(fn):
+        return torch.cat([fn(b)[1] for b in batches]).cpu().numpy()
+
+    def distinct(ids):
+        for row in ids:
+            live = row[row >= 0]
+            if len(np.unique(live)) != len(live):
+                raise AssertionError(f"an id twice in one result row: {row}")
+
+    # the single-index references, made before the counts are set to 0
+    single_ix = flat.build(bf16, emb)
+    ref10 = [flat.search(None, single_ix, b, 10) for b in batches]
+    ref_large = [flat.search(None, single_ix, b, K_LARGE) for b in batches]
+    ref_ids = torch.cat([i for _, i in ref10]).cpu().numpy()
+    single_approx = recall_at_k(
+        sweep(lambda b: flat.search(approx, single_ix, b, 10)), ref_ids, 10)
+
+    # --- flat (K1, K2, K3) through Retriever.build(placement="shard")
+    reset_launches()
+    reruns0 = counter("flat.certificate_reruns")
+    r, fields = built(lambda: Retriever.build(
+        Corpus(passages=list(passages), embeddings=emb), enc, family="flat",
+        params=bf16, placement="shard", dmesh=dmesh))
+    six = r.index
+    out["rows_per_shard"] = [ix.n_valid for ix in six.local]
+    for sel in planted_batches():
+        check_top1(r.retrieve_batch([texts[i] for i in sel], k=10),
+                   [int(planted[i]) for i in sel])
+    err10 = max(compare_topk(-d, i, -d1, i1, **TOL) for (d1, i1), (d, i) in
+                zip(ref10, (ps.search_sharded(None, six, b, 10, dmesh)
+                            for b in batches)))
+    err_large = max(compare_topk(-d, i, -d1, i1, **TOL)
+                    for (d1, i1), (d, i) in zip(ref_large, (
+                        ps.search_sharded(None, six, b, K_LARGE, dmesh)
+                        for b in batches)))
+    sharded_approx = recall_at_k(
+        sweep(lambda b: ps.search_sharded(approx, six, b, 10, dmesh)),
+        ref_ids, 10)
+    fields.update({
+        "planted_top1": BATCHES * BATCH, "max_abs_err_k10": err10,
+        "max_abs_err_k_large": err_large, "k_large": K_LARGE,
+        "certificate_reruns": counter("flat.certificate_reruns") - reruns0,
+        "approx_recall_at_10": sharded_approx,
+        "single_approx_recall_at_10": single_approx})
+    if abs(sharded_approx - single_approx) > SHARD_APPROX_TOL:
+        raise AssertionError(f"sharded approx recall {sharded_approx} vs "
+                             f"single {single_approx}")
+    # updates: delete, allow= (a repeated mask hits the view cache), extend
+    gone = int(planted[5])
+    r.delete([gone])
+    if gone in [p.index for p in r.retrieve(texts[5], k=10).passages]:
+        raise AssertionError("a deleted row came back")
+    sel = list(range(BATCH, 2 * BATCH))
+    rows = [int(planted[i]) for i in sel]
+    allow = np.zeros(ROWS, bool)
+    allow[rows] = True
+    while allow.sum() < SERVE_VIEW_ROWS:
+        allow[rng.integers(0, ROWS, SERVE_VIEW_ROWS - int(allow.sum()))] = True
+    hits0 = counter("parallel.view_cache_hits")
+    for _ in range(2):
+        res = r.retrieve_batch([texts[i] for i in sel], k=10, allow=allow)
+        check_top1(res, rows)
+        if not all(allow[p.index] for x in res for p in x.passages):
+            raise AssertionError("allow= let a row outside the mask through")
+    fields["view_cache_hits"] = counter("parallel.view_cache_hits") - hits0
+    if fields["view_cache_hits"] != 1:
+        raise AssertionError("a repeated mask missed the view cache")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    new = torch.nn.functional.normalize(
+        make_rows(SHARD_EXTEND, D, gen, dev), dim=1)
+    t0 = time.perf_counter()
+    new_ids = r.extend(vectors=new)
+    torch.cuda.synchronize()
+    fields["extend_s"] = time.perf_counter() - t0
+    _, got = ps.search_sharded(None, r.index, new, 1, dmesh)
+    if list(new_ids) != list(range(ROWS, ROWS + SHARD_EXTEND)) or \
+            got[:, 0].tolist() != list(new_ids):
+        raise AssertionError("an extended row is not at top-1 under its id")
+    fields["extended_top1"] = SHARD_EXTEND
+    count()
+    six = r.index
+    fields["search_ms_per_batch"] = cuda_ms(
+        lambda: ps.search_sharded(None, six, q16, 10, dmesh), 20)
+    fields["single_search_ms_per_batch"] = cuda_ms(
+        lambda: flat.search(None, single_ix, q16, 10), 20)
+    fields["search_ms_per_batch_k_large"] = cuda_ms(
+        lambda: ps.search_sharded(None, six, q16, K_LARGE, dmesh), 10)
+    fields["single_search_ms_per_batch_k_large"] = cuda_ms(
+        lambda: flat.search(None, single_ix, q16, K_LARGE), 10)
+    cand_s = torch.randn(BATCH, SHARDS * 10, device=dev)
+    cand_l = torch.randn(BATCH, SHARDS * K_LARGE, device=dev)
+    cand_i = torch.arange(SHARDS * K_LARGE, device=dev,
+                          dtype=torch.int32).expand(BATCH, -1)
+    fields["profile"] = {
+        "search": overlap_profile(
+            lambda: ps.search_sharded(None, six, q16, 10, dmesh)),
+        "single_search": overlap_profile(
+            lambda: flat.search(None, single_ix, q16, 10)),
+        "search_k_large": overlap_profile(
+            lambda: ps.search_sharded(None, six, q16, K_LARGE, dmesh), 10),
+        "merge": profile_calls(lambda: topk_ops.merge_topk(
+            cand_s, cand_i[:, :SHARDS * 10], 10)),
+        "merge_k_large": profile_calls(lambda: topk_ops.merge_topk(
+            cand_l, cand_i, K_LARGE)),
+    }
+    # K3 on every shard: the profiler's window may miss a launch at its
+    # edges, so the 10 calls must show at least 9 calls' worth
+    if fields["profile"]["search_k_large"]["own_kernels_per_call"].get(
+            "topr_ring_kernel", 0) * 10 < 9 * SHARDS:
+        raise AssertionError(f"K3 did not run on every shard: {fields}")
+    fields["shard0_kernels"] = shard_kernel_rows("flat", six.local[0],
+                                                 batches[0])
+    out["flat"] = fields
+
+    # --- the replicated flat index: 4 replicas of one index on one card
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rix = ps.ReplicatedIndex(replicas=ps.replicate(single_ix, dmesh.devices),
+                             family="flat")
+    reset_launches()
+    err = max(compare_topk(-d, i, -d1, i1, **TOL) for (d1, i1), (d, i) in
+              zip(ref10, (ps.search_replicated(None, rix, b, 10, dmesh)
+                          for b in batches)))
+    count()
+    torch.cuda.synchronize()
+    corpus_gb = emb.numel() * emb.element_size() / 1e9
+    out["replicate"] = {
+        "max_abs_err_k10": err, "corpus_gb": corpus_gb,
+        "peak_growth_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
+        "replica_storages": len({x.vectors.data_ptr()
+                                 for x in rix.replicas}),
+        "search_ms_per_batch": cuda_ms(
+            lambda: ps.search_replicated(None, rix, q16, 10, dmesh), 20)}
+    if out["replicate"]["peak_growth_gb"] >= corpus_gb or \
+            out["replicate"]["replica_storages"] != 1:
+        raise AssertionError(f"the replicas do not share: {out['replicate']}")
+    del rix, ref_large
+    torch.cuda.empty_cache()
+
+    # --- IVF-Flat (K4, K5): the single index's probe budget, split
+    reset_launches()
+    reruns0 = counter("ivf_flat.certificate_reruns")
+    sivf, fields = built(lambda: ps.build_sharded(
+        "ivf_flat", IVFFlatParams(dtype="bfloat16"), emb, dmesh))
+    sp = IVFFlatSearchParams(n_probes=SHARD_PROBES)
+    rec = recall_at_k(sweep(lambda b: ps.search_sharded(sp, sivf, b, 10,
+                                                        dmesh)), ref_ids, 10)
+    windows = {ix.max_list_size for ix in sivf.local}
+    err = 0.0
+    for b in batches[:8]:  # K5's top 10 are K4's
+        d, i = ps.search_sharded(sp, sivf, b, K_LARGE, dmesh)
+        d10, i10 = ps.search_sharded(sp, sivf, b, 10, dmesh)
+        err = max(err, compare_topk(-d[:, :10], i[:, :10], -d10, i10, **TOL))
+    fields.update({
+        "n_lists_per_shard": sivf.local[0].n_lists,
+        "common_window": sorted(windows),
+        "max_list_per_shard": [int(ix.list_counts.max()) for ix in sivf.local],
+        "recall_at_10": rec, "single_recall_at_10": single["ivf_recall"],
+        "k_large_top10_max_abs_err": err,
+        "certificate_reruns":
+            counter("ivf_flat.certificate_reruns") - reruns0})
+    if len(windows) != 1 or rec < 0.9 or rec < single["ivf_recall"] - 0.01:
+        raise AssertionError(f"sharded IVF-Flat: {fields}")
+    count()
+    fields["search_ms_per_batch"] = cuda_ms(
+        lambda: ps.search_sharded(sp, sivf, q16, 10, dmesh), 20)
+    fields["single_search_ms_per_batch"] = single["ivf_ms"]
+    fields["search_ms_per_batch_k_large"] = cuda_ms(
+        lambda: ps.search_sharded(sp, sivf, q16, K_LARGE, dmesh), 10)
+    fields["profile"] = {"search": overlap_profile(
+        lambda: ps.search_sharded(sp, sivf, q16, 10, dmesh))}
+    fields["shard0_kernels"] = shard_kernel_rows("ivf_flat", sivf.local[0],
+                                                 batches[0])
+    out["ivf_flat"] = fields
+    del sivf
+    torch.cuda.empty_cache()
+
+    # --- IVF-PQ (K6) at default params, refine REFINE_TUNED
+    reset_launches()
+    spq, fields = built(lambda: ps.build_sharded(
+        "ivf_pq", IVFPQParams(), emb, dmesh))
+    sp = IVFPQSearchParams(n_probes=SHARD_PROBES, refine_ratio=REFINE_TUNED)
+    rec = recall_at_k(sweep(lambda b: ps.search_sharded(sp, spq, b, 10,
+                                                        dmesh)), ref_ids, 10)
+    fields.update({"n_lists_per_shard": spq.local[0].n_lists,
+                   "common_window": sorted({ix.max_list_size
+                                            for ix in spq.local}),
+                   "recall_at_10": rec,
+                   "single_recall_at_10": single["pq_recall"]})
+    if rec < 0.9 or rec < single["pq_recall"] - 0.02:
+        raise AssertionError(f"sharded IVF-PQ: {fields}")
+    count()
+    fields["search_ms_per_batch"] = cuda_ms(
+        lambda: ps.search_sharded(sp, spq, q16, 10, dmesh), 20)
+    fields["single_search_ms_per_batch"] = single["pq_ms"]
+    fields["shard0_kernels"] = shard_kernel_rows("ivf_pq", spq.local[0],
+                                                 batches[0])
+    out["ivf_pq"] = fields
+    del spq
+    torch.cuda.empty_cache()
+
+    # --- CAGRA: no hand kernel; the merged post-filter for allow=. This
+    # corpus's kNN graph falls apart into one component a centre, so a
+    # query's centre is reached only from an entry medoid inside it: the
+    # single index's N/1000 bootstrap lists hold about one centre each, but
+    # the default N/1000 of a shard's rows (a quarter as many lists) mixes
+    # several, and the beam misses most centres. That recall is reported;
+    # the gate holds the shards at the single index's list count.
+    sp = CagraSearchParams(itopk_size=64)
+    scg = ps.build_sharded("cagra", CagraParams(dtype="bfloat16"), emb, dmesh)
+    default_recall = recall_at_k(
+        sweep(lambda b: ps.search_sharded(sp, scg, b, 10, dmesh)), ref_ids, 10)
+    del scg
+    torch.cuda.empty_cache()
+    scg, fields = built(lambda: ps.build_sharded(
+        "cagra", CagraParams(dtype="bfloat16", build_nlists=ROWS // 1000),
+        emb, dmesh))
+    got = sweep(lambda b: ps.search_sharded(sp, scg, b, 10, dmesh))
+    distinct(got)
+    rec = recall_at_k(got, ref_ids, 10)
+    mask = np.arange(ROWS) % 3 != 0
+    fids = sweep(lambda b: ps.search_sharded(sp, scg, b, 10, dmesh,
+                                             allow=mask))
+    if not mask[fids[fids >= 0]].all():
+        raise AssertionError("the sharded post-filter leaked a row")
+    fields.update({"build_nlists": ROWS // 1000, "recall_at_10": rec,
+                   "single_recall_at_10": single["cagra_recall"],
+                   "default_build_nlists_recall_at_10": default_recall,
+                   "allow_results": int((fids >= 0).sum())})
+    if rec < CAGRA_RECALL_FLOOR:
+        raise AssertionError(f"sharded CAGRA: {fields}")
+    cycle = itertools.cycle(batches)
+    fields["search_ms_per_batch"] = cuda_ms(
+        lambda: ps.search_sharded(sp, scg, next(cycle), 10, dmesh),
+        len(batches))
+    fields["single_search_ms_per_batch"] = single["cagra_ms"]
+    out["cagra"] = fields
+    del scg
+    torch.cuda.empty_cache()
+
+    # --- placements: encode_sharded inside Retriever.build, save and load
+    t0 = time.perf_counter()
+    small = Retriever.build(Corpus(passages=list(texts)), enc, family="flat",
+                            params=bf16, placement="shard", dmesh=dmesh,
+                            encode_batch_size=256)
+    out["encode_sharded_build_s"] = time.perf_counter() - t0
+    for sel in planted_batches():
+        check_top1(small.retrieve_batch([texts[i] for i in sel], k=10),
+                   list(sel))
+    out["encode_sharded_max_abs_diff"] = float(np.abs(
+        small.corpus.embeddings - enc.encode(list(texts), batch_size=256)
+    ).max())
+    if not out["encode_sharded_max_abs_diff"] < 1e-4:
+        raise AssertionError(f"encode_sharded vs encode: {out}")
+    del small
+    reset_launches()
+    sel = [i for i in range(PLANTED) if planted[i] < SHARD_SAVED_ROWS][:BATCH]
+    r1 = Retriever.build(
+        Corpus(passages=passages[:SHARD_SAVED_ROWS],
+               embeddings=emb[:SHARD_SAVED_ROWS]), enc, family="flat",
+        params=bf16, placement="shard", dmesh=dmesh)
+    queries = [texts[i] for i in sel]
+    want = r1.retrieve_ids(queries, 10)
+    saved = {"rows": SHARD_SAVED_ROWS}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as tmp:
+        t0 = time.perf_counter()
+        r1.save(tmp)
+        saved["save_s"] = time.perf_counter() - t0
+        saved["saved_gb"] = sum(os.path.getsize(os.path.join(tmp, f))
+                                for f in os.listdir(tmp)) / 1e9
+        t0 = time.perf_counter()
+        back = Retriever.load(tmp, enc, dmesh=dmesh)
+        torch.cuda.synchronize()
+        saved["load_s"] = time.perf_counter() - t0
+        got = back.retrieve_ids(queries, 10)
+        if not (np.array_equal(got[1], want[1])
+                and np.array_equal(got[0], want[0])):
+            raise AssertionError("the loaded sharded retriever answers "
+                                 "otherwise")
+        t0 = time.perf_counter()
+        two = Retriever.load(tmp, enc, dmesh=DeviceMesh([dev] * 2))
+        torch.cuda.synchronize()
+        saved["load_onto_2_positions_s"] = time.perf_counter() - t0
+        if two.index.num_shards != 2:
+            raise AssertionError("the reload did not rebuild on 2 positions")
+        check_top1(two.retrieve_batch(queries, k=10),
+                   [int(planted[i]) for i in sel])
+    out["save_load"] = saved
+    del r1, back, two
+    count()
+
+    # --- elastic: position 1 fails, the index heals on the other three
+    reset_launches()
+    eix = elastic.ElasticShardedIndex("flat", bf16, corpus_host=emb,
+                                      dmesh=DeviceMesh([dev] * SHARDS),
+                                      max_retries=0)
+    eix.monitor = elastic.DeviceHealthMonitor(fail_device_ids={1})
+    t0 = time.perf_counter()
+    healed = eix.heal()
+    torch.cuda.synchronize()
+    out["heal"] = {"healed": healed, "seconds": time.perf_counter() - t0,
+                   "positions_after": eix.dmesh.num_devices}
+    _, got = eix.search(None, q16, 1)
+    if not healed or eix.dmesh.num_devices != SHARDS - 1 or \
+            got[:, 0].tolist() != [int(p) for p in planted[:BATCH]]:
+        raise AssertionError(f"heal: {out['heal']}, top-1 {got[:, 0]}")
+    del eix
+    count()
+
+    # --- the daemon over the sharded flat retriever
+    reset_launches()
+    out["daemon"] = shard_daemon_checks(
+        r, planted, texts, list(range(BATCH, BATCH + 8 * BATCH)), rng)
+    count()
+    del r, single_ix
+    torch.cuda.empty_cache()
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"the sharded paths never launched {missing}")
+    out["launches"] = launches
+    return out
+
+
 def make_qwen_encoders(seed: int, dev):
     """(512-token encoder, 8,192-token encoder, model): two encoders over
     one QwenModel at the published Qwen3-Embedding-0.6B widths with seeded
@@ -1995,6 +2620,7 @@ def qwen_main_path(seed: int, dev):
     from cuvs_rag_tpu_torch.models.encoder import get_detailed_instruct
     from cuvs_rag_tpu_torch.ops import attention_kernels as ak
     from cuvs_rag_tpu_torch.ops import flat_kernels as fk
+    from cuvs_rag_tpu_torch.parallel.mesh import DeviceMesh
     from cuvs_rag_tpu_torch.rag.corpus import Corpus
     from cuvs_rag_tpu_torch.rag.pipeline import Retriever
     from cuvs_rag_tpu_torch.utils.compare import compare_topk
@@ -2050,6 +2676,13 @@ def qwen_main_path(seed: int, dev):
                        family="flat", params=retriever.params)
     for i, t in enumerate(long_texts):
         check_top1([long_r.retrieve(t, k=10)], [int(planted[QWEN_PLANTED + i])])
+    # the data-parallel encode over two mesh positions of the card: the
+    # first 16 texts split 8 and 8 against their encode as one batch
+    sharded_emb = torch.from_numpy(enc.encode_sharded(
+        texts[:BATCH], DeviceMesh([dev] * 2), batch_size=BATCH)).to(dev)
+    cos_sharded = float((sharded_emb * planted_emb[:BATCH]).sum(1).min())
+    if cos_sharded < 0.999:
+        raise AssertionError(f"encode_sharded vs encode: cosine {cos_sharded}")
     launches = read_launches(ATTN_KERNELS + ("flat_topk_exact",))
     hook.remove()
     by_shape = {}
@@ -2108,6 +2741,7 @@ def qwen_main_path(seed: int, dev):
         "alone_vs_batch_max_abs_diff": alone_diff,
         "cosine_vs_plain_attention_16x512": cos_short,
         "cosine_vs_plain_attention_1x8192": cos_long,
+        "cosine_encode_sharded_2_positions_16x512": cos_sharded,
         "planted_mean_pairwise_sqdist": float(pair[off].mean()),
         "planted_min_pairwise_sqdist": float(pair[off].min()),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -2775,7 +3409,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     ivf_out, ivf_r = ivf_main_path(enc, emb, passages, planted, texts,
-                                   flat_ids, rng)
+                                   flat_ids, flat_r.index, rng)
     emit("ivf_main", gpu=gpu, seconds=time.perf_counter() - t0, **ivf_out)
 
     t0 = time.perf_counter()
@@ -2809,7 +3443,20 @@ def main() -> int:
     for row in kernels:  # the serving path's launches join the main paths'
         row["launches"] += sum(serve_out[key].get(row["name"], 0) for key in (
             "launches", "hybrid_launches", "faiss_launches"))
-    del flat_r, passages
+    del flat_r
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shard_out = shard_main_path(enc, emb, passages, planted, texts, {
+        "ivf_recall": ivf_out["corpus_like_recall_at_10"],
+        "ivf_ms": e2e["ivf_search_ms_per_batch"],
+        "pq_recall": pq_out["corpus_like_recall_at_10_refine_64"],
+        "pq_ms": e2e["pq_search_ms_per_batch_refine_64"],
+        "cagra_recall": cagra_out["corpus_like_recall_at_10_itopk_64"],
+        "cagra_ms": cagra_out["search_ms_per_batch_itopk_64"]})
+    emit("shard_main", gpu=gpu, seconds=time.perf_counter() - t0, **shard_out)
+    for row in kernels:  # and so do the sharded paths'
+        row["launches"] += shard_out["launches"].get(row["name"], 0)
+    del passages
     torch.cuda.empty_cache()
     stream_out, stream_rows, read_rate = stream_timing(emb, args.seed)
     del emb

@@ -162,10 +162,27 @@ def build(params: CagraParams, dataset, *, device=None) -> CagraIndex:
         clock.mark("graph")
         return out
 
-    ivf_ix = ivf_flat.build(
-        IVFFlatParams(n_lists=params.build_nlists, metric=params.metric,
-                      dtype="bfloat16"), data)
+    parts = [block, ivf_flat.build(_bootstrap_params(params), data)]
+    del block
     clock.mark("ivf_bootstrap")
+    return _build_from_ivf(params, parts, n, clock)
+
+
+def _bootstrap_params(params: CagraParams) -> IVFFlatParams:
+    """The IVF-Flat index whose probed lists give each row its candidates."""
+    return IVFFlatParams(n_lists=params.build_nlists, metric=params.metric,
+                         dtype="bfloat16")
+
+
+def _build_from_ivf(params: CagraParams, parts: list, n: int,
+                    clock: "_PhaseClock") -> CagraIndex:
+    """Phases A and B of the IVF-bootstrapped build. `parts` is [padded
+    storage block of n live rows, its IVF-Flat bootstrap], handed over so
+    that this frame holds their last references: the layout is freed
+    before phase B allocates, and the block once the augmented rows
+    exist."""
+    block, ivf_ix = parts
+    parts.clear()
     if params.metric == Metric.COSINE:
         block = dist_ops.l2_normalize(block)
     inter_deg, final_deg = _degrees(params, block.shape[0])
@@ -186,6 +203,29 @@ def build(params: CagraParams, dataset, *, device=None) -> CagraIndex:
     return CagraIndex(vectors=aug, sqnorms=sq, graph=graph,
                       entry_centroids=entry_centroids, entry_rows=entry_rows,
                       n_valid=n, metric=params.metric, data_dim=data_dim)
+
+
+def build_sharded_local(params: CagraParams, sc, dmesh,
+                        seed: int = 0) -> list:
+    """The per-shard graph indexes of a ShardedCorpus: the exact graph per
+    shard at `exact` size, else every shard's IVF-Flat bootstrap in one
+    two-phase sharded build (ivf_flat.build_sharded_local), then each
+    shard's graph phases. The cagra.build.<phase>_s gauges hold the last
+    shard's seconds."""
+    from cuvs_rag_tpu_torch.index import ivf_flat
+
+    if _resolve_algo(params, sc.per_shard) == "exact":
+        return [build_local(params, blk, int(nv))
+                for blk, nv in zip(sc.data, sc.n_valid)]
+    boot = ivf_flat.build_sharded_local(_bootstrap_params(params), sc, dmesh,
+                                        seed=seed)
+    out = []
+    for i, (blk, nv) in enumerate(zip(sc.data, sc.n_valid)):
+        parts = [blk.to(_storage(params, blk.dtype)), boot[i]]
+        boot[i] = None
+        out.append(_build_from_ivf(params, parts, int(nv),
+                                   _PhaseClock(blk.device)))
+    return out
 
 
 class _PhaseClock:

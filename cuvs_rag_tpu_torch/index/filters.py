@@ -27,11 +27,6 @@ import torch
 
 from cuvs_rag_tpu_torch.ops import distance as dist_ops
 
-# What each unported index type's filtering waits for (ROADMAP.md queue 1).
-_PENDING = {
-    "ShardedIndex": "slice 6 (multi-GPU, filtered_view_sharded)",
-}
-
 
 def allow_from_ids(n: int, ids) -> np.ndarray:
     """(n,) bool mask allowing exactly `ids` (out-of-range ids ignored)."""
@@ -105,10 +100,9 @@ def view_traced(index, allow: torch.Tensor):
 
 def _unsupported(index) -> Exception:
     name = type(index).__name__
-    if name in _PENDING:
-        return NotImplementedError(
-            f"filtering {name} is not ported yet: it arrives with ROADMAP "
-            f"{_PENDING[name]}")
+    if name in ("ShardedIndex", "ReplicatedIndex"):
+        return TypeError(f"{name} takes its views and filtered searches "
+                         "through parallel/search.view and search")
     if name == "CagraIndex":
         return TypeError("CAGRA filtering is post-filter only: use "
                          "filters.search")

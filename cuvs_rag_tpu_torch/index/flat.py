@@ -78,6 +78,30 @@ def build(params: FlatParams, dataset, *, device=None) -> FlatIndex:
     )
 
 
+def build_local(params: FlatParams, block: torch.Tensor,
+                n_valid: int) -> FlatIndex:
+    """The exact index of one shard (parallel/search.build_sharded): a
+    padded (per_shard, D) block whose rows past `n_valid` are dead, kept on
+    its device and, where the storage dtype is the block's own, shared with
+    it. A shard with n_valid 0 answers -1 / inf."""
+    per = block.shape[0]
+    dtype = base.storage_dtype(params.dtype, block.dtype)
+    vectors = block
+    if params.metric == Metric.COSINE:
+        vectors = dist_ops.l2_normalize(vectors)
+    tile_n = params.tile_n if per % params.tile_n == 0 else per
+    if dtype == torch.int8:
+        vectors, scales = dist_ops.quantize_rows(vectors)
+        sq = dist_ops.sqnorms(vectors) * scales ** 2
+    else:
+        vectors = vectors.to(dtype)
+        scales = torch.ones(per, dtype=torch.float32, device=vectors.device)
+        sq = dist_ops.sqnorms(vectors)
+    return FlatIndex(vectors=vectors, sqnorms=sq, scales=scales,
+                     n_valid=int(n_valid), metric=params.metric,
+                     tile_n=tile_n)
+
+
 def extend(index: FlatIndex, new_vectors) -> FlatIndex:
     """Append rows; new rows get ids n_valid..n_valid+B-1."""
     if new_vectors.ndim != 2 or new_vectors.shape[1] != index.dim:
@@ -209,6 +233,20 @@ def search_scores(
     )
 
 
+def search_scores_large(search_params, index: FlatIndex,
+                        queries: torch.Tensor, k: int):
+    """The certified large-k scan (K3, 32 < k <= 8192): (scores desc, ids,
+    (Q,) certified). An uncertified row must be recomputed by the caller
+    (search re-runs the exact scan; parallel/search ANDs the shards'
+    certificates first)."""
+    if index.metric == Metric.COSINE:
+        queries = dist_ops.l2_normalize(queries)
+    return flat_kernels.flat_topk_large(
+        index.vectors, index.sqnorms, queries, index.n_valid, index.scales,
+        k=k, metric=_kernel_metric(index.metric),
+    )
+
+
 def default_search_params():
     return None
 
@@ -241,13 +279,11 @@ def search(
         base.as_tensor(queries, index.device), index.dim
     )
     if _use_kernel_large(index, k, search_params):
-        q = dist_ops.l2_normalize(queries) \
-            if index.metric == Metric.COSINE else queries
-        scores, ids, certified = flat_kernels.flat_topk_large(
-            index.vectors, index.sqnorms, q, index.n_valid, index.scales,
-            k=k, metric=_kernel_metric(index.metric),
-        )
+        scores, ids, certified = search_scores_large(
+            search_params, index, queries, k)
         if bool(certified.all()):
+            q = dist_ops.l2_normalize(queries) \
+                if index.metric == Metric.COSINE else queries
             return dist_ops.scores_to_distances(
                 scores, dist_ops.sqnorms(q), index.metric
             ), ids

@@ -176,3 +176,56 @@ def deleted_row_ids(index: Any) -> np.ndarray:
     from cuvs_rag_tpu_torch.index.ivf_flat import deleted_ids
 
     return deleted_ids(index)
+
+
+def save_sharded(prefix: str, sindex: Any) -> None:
+    """Persist a parallel/search.ShardedIndex as `{prefix}_part{i}.npz` (each
+    shard's save_index) and `{prefix}.json` (family, total, offsets,
+    num_shards): the JAX package's files, loadable by either package."""
+    for i, part in enumerate(sindex.local):
+        save_index(f"{prefix}_part{i}.npz", part)
+    with open(f"{prefix}.json", "w") as f:
+        json.dump({
+            "family": sindex.family,
+            "total": sindex.total,
+            "offsets": [int(o) for o in sindex.offsets],
+            "num_shards": sindex.num_shards,
+        }, f)
+
+
+def load_sharded(prefix: str, dmesh, params: Any = None) -> Any:
+    """Restore a sharded index saved by either package's save_sharded onto
+    `dmesh`. A mesh of the saved size restores exactly, part i on the i-th
+    position's device. Another size recovers the rows (recover_rows, on
+    the mesh's first device) and rebuilds them on the new mesh with
+    `params`, which are then required; tombstones are applied again."""
+    from cuvs_rag_tpu_torch.parallel import search as psearch
+
+    with open(f"{prefix}.json") as f:
+        meta = json.load(f)
+    s = meta["num_shards"]
+    offsets = np.asarray(meta["offsets"], np.int64)
+    if dmesh.num_devices == s:
+        parts = [load_index(f"{prefix}_part{i}.npz", device=dev)
+                 for i, dev in enumerate(dmesh.devices)]
+        return psearch.ShardedIndex(
+            local=psearch.Shards(parts), offsets=offsets,
+            family=meta["family"], total=meta["total"])
+    if params is None:
+        raise ValueError(
+            f"checkpoint has {s} shards but mesh has {dmesh.num_devices} "
+            "devices; pass `params` to rebuild on the new mesh")
+    rows, gone = [], []
+    for i in range(s):
+        part = load_index(f"{prefix}_part{i}.npz", device=dmesh.first)
+        rows.append(recover_rows(part))
+        gone.append(deleted_row_ids(part) + offsets[i])
+    rows = torch.cat(rows)
+    if rows.shape[0] != meta["total"]:
+        raise ValueError(
+            f"sharded checkpoint is corrupt: recovered {rows.shape[0]} rows, "
+            f"meta says {meta['total']}")
+    out = psearch.build_sharded(meta["family"], params, rows, dmesh)
+    del rows
+    gone = np.concatenate(gone)
+    return psearch.delete_sharded(out, gone) if gone.size else out

@@ -203,6 +203,93 @@ def build(params: IVFFlatParams, dataset, seed: int = 0, *,
                    capacity=capacity, max_list=max_list)
 
 
+@dataclasses.dataclass
+class _ShardPlan:
+    """Phase A of a shard's build: its prepared rows, which are live, its
+    coarse quantizer, the rows' lists and the lists' (C,) counts."""
+
+    vectors: torch.Tensor
+    valid: torch.Tensor
+    n_valid: int
+    centroids: torch.Tensor
+    labels: torch.Tensor
+    counts: np.ndarray
+
+
+def _plan_shard(params: IVFFlatParams, block, n_valid: int, n_lists: int,
+                seed: int) -> _ShardPlan:
+    """k-means on the shard's leading `kmeans_sample` live rows (pad rows
+    weigh 0) from a generator seeded by `seed`, then the capacity-bounded
+    assignment of its live rows, as `build` does for a whole corpus."""
+    vectors = _prep(params, block, None)
+    per = vectors.shape[0]
+    valid = torch.arange(per, device=vectors.device) < n_valid
+    sample_n = min(per, max(params.kmeans_sample, n_lists))
+    gen = torch.Generator(device=vectors.device).manual_seed(seed)
+    centroids, _ = kmeans_ops.kmeans(
+        vectors[:sample_n].to(_train_dtype(vectors)),
+        valid[:sample_n].float(), gen, n_clusters=n_lists,
+        iters=params.kmeans_iters)
+    labels, counts = ivf_ops.labels_with_counts(
+        vectors, centroids, n_valid, params.balance_factor, valid)
+    return _ShardPlan(vectors, valid, int(n_valid), centroids, labels, counts)
+
+
+def _lay_out_shard(params: IVFFlatParams, plan: _ShardPlan, *, capacity,
+                   max_list) -> IVFFlatIndex:
+    """Phase B: the shard's sorted-CSR layout (int8: residual SQ8)."""
+    return _layout(plan.vectors, plan.labels, plan.valid, plan.centroids,
+                   plan.n_valid, params.metric,
+                   base.storage_dtype(params.dtype, plan.vectors.dtype),
+                   capacity=capacity, max_list=max_list)
+
+
+def build_local(params: IVFFlatParams, block: torch.Tensor, n_valid: int,
+                *, n_lists: int, max_list_size: int,
+                seed: int = 0) -> IVFFlatIndex:
+    """The index of one padded (per_shard, D) block whose rows past
+    `n_valid` are dead, at a given probe window: rows of a list longer
+    than `max_list_size` are truncated (build_sharded_local picks the
+    window from every shard's counts, so none is)."""
+    plan = _plan_shard(params, block, n_valid, n_lists, seed)
+    return _lay_out_shard(
+        params, plan, max_list=max_list_size,
+        capacity=ivf_ops.capacity_for(block.shape[0], n_lists, max_list_size))
+
+
+def shard_n_lists(params, sc, default) -> int:
+    """Lists a shard: `params.n_lists`, else `default` of the mean shard
+    size, at most that mean."""
+    avg_valid = max(1, sc.total // sc.num_shards)
+    return min(params.n_lists or default(avg_valid), avg_valid)
+
+
+def common_window(plans) -> Tuple[int, int]:
+    """(max_list_size, capacity) shared by every shard: the window covers
+    the longest list of any shard, so no row is truncated and the scan
+    kernels see one window across the mesh."""
+    gmax = max(int(p.counts.max()) for p in plans)
+    max_list = topk_ops.round_up(max(gmax, 8), ivf_ops.ALIGN)
+    per = plans[0].vectors.shape[0]
+    return max_list, ivf_ops.capacity_for(per, plans[0].counts.shape[0],
+                                          max_list)
+
+
+def build_sharded_local(params: IVFFlatParams, sc, dmesh,
+                        seed: int = 0) -> list:
+    """The per-shard indexes of a ShardedCorpus, each on its block's
+    device, in two phases: phase A trains every shard's own coarse
+    quantizer (the same seed on every shard) and assigns its rows; the
+    longest list of any shard then fixes one probe window and one capacity
+    for all; phase B lays each shard out at them."""
+    n_lists = shard_n_lists(params, sc, default_n_lists)
+    plans = [_plan_shard(params, blk, int(nv), n_lists, seed)
+             for blk, nv in zip(sc.data, sc.n_valid)]
+    max_list, capacity = common_window(plans)
+    return [_lay_out_shard(params, p, capacity=capacity, max_list=max_list)
+            for p in plans]
+
+
 def build_from_chunks(params: IVFFlatParams, chunk_fn, n: int, d: int, *,
                       n_chunks: int, seed: int = 0,
                       device=None) -> IVFFlatIndex:

@@ -13,8 +13,6 @@ with an even pq_dim packs two subspaces a byte; flat 8-bit codes
 (two_level=False) and 4-bit with an odd pq_dim keep one byte per stream.
 Packed codes are scanned by the K6 CUDA kernel (ops/pq_kernels.py),
 unpacked ones by a torch.gather scan (ops/pq.scan_probed_lists_pq).
-
-`build_sharded_local` (the multi-device build) is not ported yet.
 """
 
 from __future__ import annotations
@@ -126,38 +124,42 @@ def _packs(levels: int, n_codes: int, m: int) -> bool:
     return levels == 2 or (n_codes <= 16 and m % 2 == 0)
 
 
-def _train_coarse(sample, raw_dtype, n_lists, params, gen):
-    """Coarse k-means on the fp32 sample, scored in the storage dtype (the
-    same rule as ivf_flat)."""
+def _train_coarse(sample, raw_dtype, n_lists, params, gen, weights=None):
+    """Coarse k-means on the fp32 sample (rows weighed by 0/1 `weights`),
+    scored in the storage dtype (the same rule as ivf_flat)."""
     coarse = sample.to(torch.bfloat16) if raw_dtype == torch.bfloat16 \
         else sample
-    centroids, _ = kmeans_ops.kmeans(coarse, None, gen, n_clusters=n_lists,
+    centroids, _ = kmeans_ops.kmeans(coarse, weights, gen,
+                                     n_clusters=n_lists,
                                      iters=params.kmeans_iters)
     return centroids
 
 
-def _train_pq_quantizers(params, sample, centroids, gen, *, m, n_codes):
+def _train_pq_quantizers(params, sample, centroids, gen, *, m, n_codes,
+                         weights=None):
     """Residual PQ codebooks (+ optional OPQ rotation) on the leading
-    `pq_train_sample` rows of the fp32 `sample`: (rotation, codebooks,
-    levels). Codebooks train in fp32 whatever the storage: their entries
-    ARE the reconstruction values."""
+    `pq_train_sample` rows of the fp32 `sample` (weighed by 0/1 `weights`):
+    (rotation, codebooks, levels). Codebooks train in fp32 whatever the
+    storage: their entries ARE the reconstruction values."""
     levels = _levels(params)
-    pq_sample = sample[:min(sample.shape[0], params.pq_train_sample)]
+    pq_n = min(sample.shape[0], params.pq_train_sample)
+    pq_sample = sample[:pq_n]
+    w = None if weights is None else weights[:pq_n]
     res = pq_sample - centroids[
         kmeans_ops.assign_clusters(pq_sample, centroids).long()]
     if params.opq:
         rotation = pq_ops.train_opq_rotation(
-            res, None, gen, m=m, n_codes=n_codes, iters=params.opq_iters)
+            res, w, gen, m=m, n_codes=n_codes, iters=params.opq_iters)
         res = res @ rotation.T
     else:
         rotation = torch.zeros((0, 0), dtype=torch.float32,
                                device=sample.device)
     if levels == 2:
         codebooks = pq_ops.train_two_level_codebooks(
-            res, None, gen, m=m, iters=params.pq_kmeans_iters)
+            res, w, gen, m=m, iters=params.pq_kmeans_iters)
     else:
         codebooks = pq_ops.train_codebooks(
-            res, None, gen, m=m, n_codes=n_codes,
+            res, w, gen, m=m, n_codes=n_codes,
             iters=params.pq_kmeans_iters)
     return rotation, codebooks, levels
 
@@ -267,6 +269,64 @@ def build(params: IVFPQParams, dataset, seed: int = 0, *,
         n_valid=n, metric=params.metric, max_list_size=max_list, dim=d,
         levels=levels,
     )
+
+
+def _plan_shard(params: IVFPQParams, block, n_valid: int, n_lists: int,
+                m: int, seed: int):
+    """Phase A of a shard's build (ivf_flat._ShardPlan, plus the fp32
+    training sample, its weights and the shard's generator, which phase B
+    continues): coarse k-means on the shard's leading `kmeans_sample` rows
+    (pad rows weigh 0), then the capacity-bounded assignment."""
+    vectors = _prep(block, params.metric, m, None)
+    per = vectors.shape[0]
+    valid = torch.arange(per, device=vectors.device) < n_valid
+    sample_n = min(per, max(params.kmeans_sample, n_lists))
+    sample = vectors[:sample_n].float()
+    weights = valid[:sample_n].float()
+    gen = torch.Generator(device=vectors.device).manual_seed(seed)
+    centroids = _train_coarse(sample, vectors.dtype, n_lists, params, gen,
+                              weights)
+    labels, counts = ivf_ops.labels_with_counts(
+        vectors, centroids, n_valid, params.balance_factor, valid)
+    plan = ivf_flat_mod._ShardPlan(vectors, valid, int(n_valid), centroids,
+                                   labels, counts)
+    return plan, sample, weights, gen
+
+
+def build_sharded_local(params: IVFPQParams, sc, dmesh,
+                        seed: int = 0) -> list:
+    """The per-shard indexes of a ShardedCorpus, in ivf_flat's two phases:
+    phase A trains every shard's coarse quantizer (one seed) and assigns
+    its rows; one probe window and capacity then cover every shard's
+    longest list; phase B trains each shard's residual codebooks (and OPQ
+    rotation), encodes its rows and lays them out."""
+    d = sc.dim
+    m = params.pq_dim or default_pq_dim(d)
+    n_codes = 2 ** params.pq_bits
+    n_lists = ivf_flat_mod.shard_n_lists(params, sc, default_n_lists)
+    shards = [_plan_shard(params, blk, int(nv), n_lists, m, seed)
+              for blk, nv in zip(sc.data, sc.n_valid)]
+    max_list, capacity = ivf_flat_mod.common_window([p for p, *_ in shards])
+    out = []
+    for plan, sample, weights, gen in shards:
+        rotation, codebooks, levels = _train_pq_quantizers(
+            params, sample, plan.centroids, gen, m=m, n_codes=n_codes,
+            weights=weights)
+        codes, norm_corr = _encode_chunked(
+            plan.vectors, plan.labels, plan.centroids, codebooks,
+            rotation if params.opq else None, levels)
+        sorted_codes, row_ids, offsets, counts, raw, raw_sq, sorted_corr = \
+            _pq_layout(codes, plan.vectors, plan.labels, plan.valid,
+                       norm_corr, n_lists=n_lists, capacity=capacity,
+                       max_list_size=max_list, store_raw=params.store_raw)
+        out.append(IVFPQIndex(
+            codes=sorted_codes, row_ids=row_ids, centroids=plan.centroids,
+            centroid_sqnorms=dist_ops.sqnorms(plan.centroids),
+            codebooks=codebooks, list_offsets=offsets, list_counts=counts,
+            raw_vectors=raw, raw_sqnorms=raw_sq, norm_corr=sorted_corr,
+            rotation=rotation, n_valid=plan.n_valid, metric=params.metric,
+            max_list_size=max_list, dim=d, levels=levels))
+    return out
 
 
 def build_from_chunks(params: IVFPQParams, chunk_fn, n: int, d: int, *,

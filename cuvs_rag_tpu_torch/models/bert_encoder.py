@@ -17,6 +17,7 @@ parity the tests hold it to.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -27,6 +28,7 @@ import torch
 from torch import nn
 
 from cuvs_rag_tpu_torch.index.base import resolve_device
+from cuvs_rag_tpu_torch.models.encoder import encode_over_mesh, model_on
 
 
 @dataclasses.dataclass(frozen=True)
@@ -290,6 +292,7 @@ class TorchSentenceEncoder:
                                      param if param.device.type != "cpu"
                                      else None)
         self.model = model.to(self.device).eval()
+        self._replicas = {}  # the weights on other devices (encode_sharded)
         self.tokenizer = tokenizer
         self.pooling = pooling
         self.normalize = normalize
@@ -322,8 +325,9 @@ class TorchSentenceEncoder:
         return cls(cfg, model, tok, device=device, **kwargs)
 
     @torch.no_grad()
-    def _forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        hidden = self.model(ids, mask)
+    def _forward(self, ids: torch.Tensor, mask: torch.Tensor,
+                 model=None) -> torch.Tensor:
+        hidden = (model or self.model)(ids, mask)
         if self.pooling == "cls":
             emb = hidden[:, 0]
         else:
@@ -356,3 +360,23 @@ class TorchSentenceEncoder:
 
     def encode(self, texts, batch_size: int = 64) -> np.ndarray:
         return self.encode_device(texts, batch_size).cpu().numpy()
+
+    def _tokenize(self, texts):
+        enc = self.tokenizer(list(texts), padding="max_length",
+                             truncation=True, max_length=self.max_length,
+                             return_tensors="np")
+        return np.asarray(enc["input_ids"]), np.asarray(enc["attention_mask"])
+
+    def encode_sharded(self, texts, dmesh, batch_size: int = 256
+                       ) -> np.ndarray:
+        """Data-parallel encode over a parallel/mesh.DeviceMesh: each batch
+        is split over the mesh's positions, each part on its position's
+        device and stream, the weights copied once per distinct device
+        (models/encoder.encode_over_mesh). Returns host fp32, as corpus
+        embeddings are stored; query-time work uses encode_device."""
+        return encode_over_mesh(
+            texts, dmesh, batch_size, self._tokenize,
+            lambda dev: functools.partial(
+                self._forward, model=model_on(self._replicas, self.model,
+                                       dev)),
+            self.dim)

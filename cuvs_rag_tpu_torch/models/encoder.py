@@ -225,3 +225,53 @@ def make_encoder(name: str = "hashing", *, device=None, **kwargs):
     from cuvs_rag_tpu_torch.models.bert_encoder import TorchSentenceEncoder
 
     return TorchSentenceEncoder.from_pretrained(name, device=device, **kwargs)
+
+
+def encode_over_mesh(texts: Sequence[str], dmesh, batch_size: int,
+                     tokenize, forward_on, dim: int) -> np.ndarray:
+    """Data-parallel encode: each step of texts (a multiple of the mesh
+    size, at most `batch_size` where that allows) is tokenized once, the
+    last text repeated as padding, and cut into one equal part a mesh
+    position; each part runs on its position's device and stream
+    (DeviceMesh.fan_out). tokenize(texts) -> (ids, mask) numpy arrays;
+    forward_on(device) -> fn(ids, mask) -> (B, dim) embeddings, with the
+    encoder's weights on that device. Returns host fp32 (N, dim)."""
+    import torch
+
+    n_dev = dmesh.num_devices
+    step = max(n_dev, (batch_size // n_dev) * n_dev)
+    out = []
+    for i in range(0, len(texts), step):
+        batch = list(texts[i:i + step])
+        n_real = len(batch)
+        batch.extend([batch[-1]] * ((-n_real) % n_dev))
+        ids, mask = tokenize(batch)
+        per = len(batch) // n_dev
+
+        def work(p):
+            dev = dmesh.devices[p]
+            sl = slice(p * per, (p + 1) * per)
+            return (forward_on(dev)(
+                torch.as_tensor(ids[sl], dtype=torch.long, device=dev),
+                torch.as_tensor(mask[sl], dtype=torch.long, device=dev),
+            ).float(),)
+
+        parts = dmesh.fan_out(work, range(n_dev))
+        out.append(torch.cat([p[0] for p in parts])[:n_real].cpu().numpy())
+    if not out:
+        return np.zeros((0, dim), np.float32)
+    return np.concatenate(out).astype(np.float32, copy=False)
+
+
+def model_on(replicas: dict, model, device):
+    """`model` on `device`: the model itself on its own device, else one
+    copy per device, kept in `replicas` (positions of a mesh that share a
+    device share its weights)."""
+    import copy
+
+    home = next(model.parameters()).device
+    if device == home:
+        return model
+    if device not in replicas:
+        replicas[device] = copy.deepcopy(model).to(device)
+    return replicas[device]

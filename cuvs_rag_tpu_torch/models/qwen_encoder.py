@@ -28,6 +28,7 @@ Deliberate differences from the JAX package:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict
 
@@ -36,6 +37,7 @@ import torch
 from torch import nn
 
 from cuvs_rag_tpu_torch.index.base import resolve_device
+from cuvs_rag_tpu_torch.models.encoder import encode_over_mesh, model_on
 from cuvs_rag_tpu_torch.ops.attention_kernels import flash_attention
 
 
@@ -236,6 +238,7 @@ class QwenEmbeddingEncoder:
                                      param if param.device.type != "cpu"
                                      else None)
         self.model = model.to(self.device).eval()
+        self._replicas = {}  # the weights on other devices (encode_sharded)
         for p in self.model.parameters():
             p.requires_grad_(False)
             # matrices in `dtype`, norm weights in fp32
@@ -258,8 +261,9 @@ class QwenEmbeddingEncoder:
         return cls(cfg, model, tok, device=device, **kwargs)
 
     @torch.no_grad()
-    def _forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        hidden = self.model(ids, mask)
+    def _forward(self, ids: torch.Tensor, mask: torch.Tensor,
+                 model=None) -> torch.Tensor:
+        hidden = (model or self.model)(ids, mask)
         emb = last_token_pool(hidden, mask).float()
         return emb / torch.clamp(
             torch.linalg.vector_norm(emb, dim=-1, keepdim=True), min=1e-12)
@@ -288,7 +292,21 @@ class QwenEmbeddingEncoder:
     def encode(self, texts, batch_size: int = 16) -> np.ndarray:
         return self.encode_device(texts, batch_size).cpu().numpy()
 
-    def encode_sharded(self, texts, dmesh, batch_size: int = 64) -> np.ndarray:
-        raise NotImplementedError(
-            "data-parallel encode is not ported yet: it arrives with ROADMAP "
-            "slice 6 (multi-GPU)")
+    def _tokenize(self, texts):
+        enc = self.tokenizer(list(texts), padding="longest", truncation=True,
+                             max_length=self.max_length, return_tensors="np")
+        return np.asarray(enc["input_ids"]), np.asarray(enc["attention_mask"])
+
+    def encode_sharded(self, texts, dmesh, batch_size: int = 64
+                       ) -> np.ndarray:
+        """Data-parallel encode over a parallel/mesh.DeviceMesh: each batch
+        is padded to its longest text and split over the mesh's positions,
+        each part on its position's device and stream, the weights copied
+        once per distinct device (models/encoder.encode_over_mesh). Returns
+        host fp32."""
+        return encode_over_mesh(
+            texts, dmesh, batch_size, self._tokenize,
+            lambda dev: functools.partial(
+                self._forward, model=model_on(self._replicas, self.model,
+                                       dev)),
+            self.dim)

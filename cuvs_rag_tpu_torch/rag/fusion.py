@@ -43,7 +43,8 @@ object the hybrid has not seen before takes each engine's `allow=` path,
 and only a mask object seen again (the serving daemon's named views) is
 baked into cached filtered views (the reference baked one for every new
 mask); shared embeddings that live on a device grow there. Sharded and
-replicated engines wait for ROADMAP slice 6.
+replicated engines take their views through parallel/search.view, as
+single ones do.
 """
 
 from __future__ import annotations
@@ -63,13 +64,6 @@ from cuvs_rag_tpu_torch.rag.pipeline import (
 # metrics where the reported "distance" is a similarity (higher = better);
 # see ops/distance.scores_to_distances — sqeuclidean reports true distances
 _SIMILARITY_METRICS = ("inner_product", "cosine", "bm25")
-
-# What each unported placement waits for (ROADMAP.md queue 1).
-_PENDING = {
-    "ShardedIndex": "slice 6 (multi-GPU, filtered_view_sharded)",
-    "ReplicatedIndex": "slice 6 (multi-GPU)",
-}
-
 
 def _engine_higher_better(r) -> bool:
     """Score orientation for z-score fusion. Build params carry the
@@ -384,11 +378,6 @@ class HybridRetriever:
         ix = getattr(r, "index", None)
         if ix is None or getattr(r, "family", "") == "cagra":
             return None
-        name = type(ix).__name__
-        if name in _PENDING:
-            raise NotImplementedError(
-                f"hybrid engines over a {name} are not ported yet: they "
-                f"arrive with ROADMAP {_PENDING[name]}")
         key = (ei, id(allow), id(ix))
         with self._state_lock:
             hit = self._view_cache.get(key)
@@ -401,9 +390,9 @@ class HybridRetriever:
                 return None
         if hit is not None:
             return hit[2]
-        from cuvs_rag_tpu_torch.index import filters as filters_lib
+        from cuvs_rag_tpu_torch.parallel import search as psearch
 
-        view = filters_lib.filtered_view(ix, allow)
+        view = psearch.view(ix, allow)
         # evict entries baked over a RETIRED index first (extend/delete
         # swapped it) — each pins a full device-resident index, so FIFO
         # alone could hold several superseded multi-GB generations in HBM.

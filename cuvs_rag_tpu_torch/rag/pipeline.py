@@ -1,13 +1,15 @@
 """RAG retrieval pipeline: encode → search → assemble context.
 
-The counterpart of the JAX package's `rag/pipeline.py` for one device and
-the four index families (flat, IVF-Flat, IVF-PQ, CAGRA): query texts are
-encoded on the index's device, the embeddings go to the family's `search`
-without leaving it (through a filtered view when `allow=` is given, or
-CAGRA's post-filter), and the returned ids become passages. An IVF-PQ
-index without a raw store refines out of core, from the corpus' embedding
-store on the host. The sharded and replicated placements arrive with their
-ROADMAP slice and raise NotImplementedError until then.
+The counterpart of the JAX package's `rag/pipeline.py` for the four index
+families (flat, IVF-Flat, IVF-PQ, CAGRA) and three placements: query texts
+are encoded on the index's device, the embeddings go to the family's
+`search` without leaving it (through a filtered view when `allow=` is
+given, or CAGRA's post-filter), and the returned ids become passages. An
+IVF-PQ index without a raw store refines out of core, from the corpus'
+embedding store on the host. placement="shard" splits the rows over a
+parallel/mesh.DeviceMesh and "replicate" copies the index to every mesh
+position (parallel/search.py); both encode an unembedded corpus with
+`encode_sharded`.
 """
 
 from __future__ import annotations
@@ -22,26 +24,17 @@ import numpy as np
 import torch
 
 from cuvs_rag_tpu_torch.index import base
-from cuvs_rag_tpu_torch.index import cagra
-from cuvs_rag_tpu_torch.index import filters
-from cuvs_rag_tpu_torch.index import flat
 from cuvs_rag_tpu_torch.index import io as index_io
-from cuvs_rag_tpu_torch.index import ivf_flat
-from cuvs_rag_tpu_torch.index import ivf_pq
+from cuvs_rag_tpu_torch.parallel import search as psearch
+from cuvs_rag_tpu_torch.parallel.mesh import DeviceMesh
 from cuvs_rag_tpu_torch.rag import corpus as corpus_mod
 from cuvs_rag_tpu_torch.rag.corpus import Corpus
 from cuvs_rag_tpu_torch.rag.host_store import MemmapStore
 from cuvs_rag_tpu_torch.utils import config as config_mod
 from cuvs_rag_tpu_torch.utils.metrics import default_registry as metrics
 
-# What each unported placement waits for (ROADMAP.md queue 1).
-_PENDING = {
-    "shard": "slice 6 (multi-GPU)",
-    "replicate": "slice 6 (multi-GPU)",
-}
-
-FAMILIES = {"flat": flat, "ivf_flat": ivf_flat, "ivf_pq": ivf_pq,
-            "cagra": cagra}
+FAMILIES = psearch.FAMILIES
+PLACEMENTS = ("single", "shard", "replicate")
 
 _PARAM_CLASSES = (
     "FlatParams", "FlatSearchParams",
@@ -68,17 +61,42 @@ def _params_from_meta(meta):
     return getattr(config_mod, meta["cls"])(**meta["fields"])
 
 
-def _require_ported(family: str, placement: str = "single") -> None:
-    for key in (family, placement):
-        if key in _PENDING:
-            raise NotImplementedError(
-                f"{key!r} is not ported yet: it arrives with ROADMAP "
-                f"{_PENDING[key]}"
-            )
+def _check(family: str, placement: str = "single") -> None:
     if family not in FAMILIES:
         raise ValueError(f"unknown family {family!r}")
-    if placement != "single":
+    if placement not in PLACEMENTS:
         raise ValueError(f"unknown placement {placement!r}")
+
+
+def encode_sharded(encoder, texts: Sequence[str],
+                   dmesh: Optional[DeviceMesh] = None, *,
+                   batch_size: int = 256,
+                   workers: Optional[int] = None) -> np.ndarray:
+    """Data-parallel corpus encode for any encoder -> host fp32 (N, D).
+
+    An encoder with its own `encode_sharded` (TorchSentenceEncoder,
+    QwenEmbeddingEncoder) splits each batch over the mesh's positions.
+    Any other encoder gets threads: `workers` (default the mesh size, else
+    4) each encode a contiguous slice, joined in order; inputs no longer
+    than one batch stay serial."""
+    texts = list(texts)
+    own = getattr(encoder, "encode_sharded", None)
+    if own is not None:
+        return np.asarray(own(texts, dmesh or DeviceMesh(),
+                              batch_size=batch_size), np.float32)
+    n_workers = workers or (dmesh.num_devices if dmesh is not None else 4)
+    if n_workers <= 1 or len(texts) <= batch_size:
+        return np.asarray(encoder.encode(texts, batch_size=batch_size),
+                          np.float32)
+    from concurrent.futures import ThreadPoolExecutor
+
+    chunk = -(-len(texts) // n_workers)
+    slices = [texts[i:i + chunk] for i in range(0, len(texts), chunk)]
+    with ThreadPoolExecutor(max_workers=n_workers) as ex:
+        parts = list(ex.map(
+            lambda sl: np.asarray(encoder.encode(sl, batch_size=batch_size),
+                                  np.float32), slices))
+    return np.concatenate(parts, axis=0)
 
 
 def _index_device(device, encoder, embeddings=None) -> torch.device:
@@ -122,12 +140,16 @@ class Retriever:
     """encoder + index + passages. Build via `Retriever.build(...)`."""
 
     def __init__(self, encoder, index: Any, corpus: Corpus, *, family: str,
+                 dmesh: Optional[DeviceMesh] = None,
                  search_params: Any = None, params: Any = None):
         self.encoder = encoder
         self.index = index
         self.corpus = corpus
         self.family = family
+        self.dmesh = dmesh
         self.search_params = search_params
+        # kept for what rebuilds: a sharded extend re-shards, and indexes
+        # do not carry their build params
         self.params = params
 
     # -- construction ----------------------------------------------------
@@ -135,25 +157,41 @@ class Retriever:
     @classmethod
     def build(cls, corpus: Corpus, encoder, *, family: str = "flat",
               params: Any = None, placement: str = "single",
+              dmesh: Optional[DeviceMesh] = None,
               search_params: Any = None, encode_batch_size: int = 64,
               device=None) -> "Retriever":
         """Build over `corpus`, encoding its passages when it carries no
         embeddings. Embeddings may be a numpy array (stored as fp32, as the
-        JAX package does) or a tensor (kept in its own float dtype). The
-        index lives on `device`; None means the embeddings' own device for
-        a tensor, else the encoder's `device`, else the card."""
-        _require_ported(family, placement)
+        JAX package does) or a tensor (kept in its own float dtype).
+
+        placement "single": the index lives on `device`; None means the
+        embeddings' own device for a tensor, else the encoder's `device`,
+        else the card. "shard" / "replicate": the index spreads over
+        `dmesh` (None: every visible card), and an unembedded corpus is
+        encoded with `encode_sharded` over it."""
+        _check(family, placement)
+        if placement != "single":
+            dmesh = dmesh or DeviceMesh()
         if corpus.embeddings is None:
-            corpus.embeddings = encoder.encode(
-                corpus.passages, batch_size=encode_batch_size
-            )
+            if placement == "single":
+                corpus.embeddings = encoder.encode(
+                    corpus.passages, batch_size=encode_batch_size)
+            else:
+                corpus.embeddings = encode_sharded(
+                    encoder, corpus.passages, dmesh,
+                    batch_size=max(encode_batch_size, 1))
         emb = corpus.embeddings
         if isinstance(emb, np.ndarray):
             emb = np.asarray(emb, dtype=np.float32)
-        device = _index_device(device, encoder, emb)
         params = params if params is not None else _default_params(family)
-        index = FAMILIES[family].build(params, emb, device=device)
-        return cls(encoder, index, corpus, family=family,
+        if placement == "shard":
+            index = psearch.build_sharded(family, params, emb, dmesh)
+        elif placement == "replicate":
+            index = psearch.build_replicated(family, params, emb, dmesh)
+        else:
+            index = FAMILIES[family].build(
+                params, emb, device=_index_device(device, encoder, emb))
+        return cls(encoder, index, corpus, family=family, dmesh=dmesh,
                    search_params=search_params, params=params)
 
     # -- retrieval -------------------------------------------------------
@@ -172,10 +210,10 @@ class Retriever:
                        allow=None, *, index=None) -> List[RetrievalResult]:
         """`allow` (optional): an (n_passages,) bool mask, numpy or tensor —
         metadata-filtered retrieval through a filtered view of the index
-        (index/filters.py). Results are always ⊆ allow.
+        (parallel/search.search). Results are always ⊆ allow.
 
         `index` (optional): search this index instead of `self.index`: a
-        view of the same corpus baked beforehand (`filters.filtered_view`),
+        view of the same corpus baked beforehand (`parallel/search.view`),
         as the serving daemon's named views are, so a request pays no bake."""
         dists, idx, dt = self._search_arrays(queries, k, allow, index)
         results = []
@@ -200,16 +238,9 @@ class Retriever:
         t0 = time.time()
         base_index = self.index if index is None else index
         q = encode_on_device(self.encoder, list(queries), base_index.device)
-        mod = FAMILIES[self.family]
-        if allow is not None and self.family == "cagra":
-            # CAGRA has no filtered view: the post-filter of filters.search
-            dists, idx = filters.search(self.search_params, base_index, q, k,
-                                        allow)
-        else:
-            index = base_index if allow is None \
-                else filters.filtered_view(base_index, allow)
-            dists, idx = mod.search(self.search_params, index, q, k,
-                                    **self._out_of_core_refine(mod))
+        dists, idx = psearch.search(
+            self.search_params, base_index, q, k, self.dmesh, allow=allow,
+            **self._out_of_core_refine(FAMILIES[self.family]))
         if isinstance(dists, torch.Tensor):  # a host re-rank returns numpy
             dists, idx = dists.cpu().numpy(), idx.cpu().numpy()
         dt = time.time() - t0
@@ -242,9 +273,10 @@ class Retriever:
 
     def save(self, directory: str) -> None:
         """Index + corpus text/titles + embeddings + build/search params, in
-        the JAX package's layout (either package loads the other's). A
-        disk-backed embedding store (MemmapStore) is recorded by path, not
-        copied."""
+        the JAX package's layout (either package loads the other's): a
+        sharded index as index_part{i}.npz + index.json (io.save_sharded),
+        a replicated one as its single index. A disk-backed embedding store
+        (MemmapStore) is recorded by path, not copied."""
         os.makedirs(directory, exist_ok=True)
         with open(os.path.join(directory, "corpus.jsonl"), "w") as f:
             for i, p in enumerate(self.corpus.passages):
@@ -263,25 +295,41 @@ class Retriever:
                 os.path.join(directory, "embeddings"), np.asarray(emb)
             )
             emb_meta = {"kind": "npy"}
-        index_io.save_index(os.path.join(directory, "index.npz"), self.index)
+        if isinstance(self.index, psearch.ShardedIndex):
+            placement = "shard"
+            index_io.save_sharded(os.path.join(directory, "index"),
+                                  self.index)
+        elif isinstance(self.index, psearch.ReplicatedIndex):
+            placement = "replicate"
+            index_io.save_index(os.path.join(directory, "index.npz"),
+                                self.index.index)
+        else:
+            placement = "single"
+            index_io.save_index(os.path.join(directory, "index.npz"),
+                                self.index)
         with open(os.path.join(directory, "retriever.json"), "w") as f:
             json.dump({
                 "format": 1,
                 "family": self.family,
-                "placement": "single",
+                "placement": placement,
                 "params": _params_to_meta(self.params),
                 "search_params": _params_to_meta(self.search_params),
                 "embeddings": emb_meta,
             }, f)
 
     @classmethod
-    def load(cls, directory: str, encoder, *, device=None) -> "Retriever":
-        """Restore a `save()`d retriever with a caller-supplied encoder, onto
-        `device` (None: the encoder's `device`, else the card)."""
+    def load(cls, directory: str, encoder, *, device=None,
+             dmesh: Optional[DeviceMesh] = None) -> "Retriever":
+        """Restore a `save()`d retriever with a caller-supplied encoder. A
+        single index goes onto `device` (None: the encoder's `device`, else
+        the card); a sharded or replicated one onto `dmesh` (None: every
+        visible card). A sharded index restores exactly on a mesh of its
+        size and is REBUILT from its rows with the saved build params on
+        another (io.load_sharded)."""
         with open(os.path.join(directory, "retriever.json")) as f:
             meta = json.load(f)
-        _require_ported(meta["family"], meta["placement"])
-        device = _index_device(device, encoder)
+        placement = meta["placement"]
+        _check(meta["family"], placement)
         passages, titles = [], []
         with open(os.path.join(directory, "corpus.jsonl")) as f:
             for line in f:
@@ -296,15 +344,28 @@ class Retriever:
             emb = MemmapStore.open(emb_meta["path"])
         elif emb_meta is not None:
             emb = corpus_mod.load_embeddings(os.path.join(directory, "embeddings"))
-        index = index_io.load_index(
-            os.path.join(directory, "index.npz"), device=device
-        )
+        params = _params_from_meta(meta["params"])
+        if placement == "shard":
+            dmesh = dmesh or DeviceMesh()
+            index = index_io.load_sharded(os.path.join(directory, "index"),
+                                          dmesh, params)
+        elif placement == "replicate":
+            dmesh = dmesh or DeviceMesh()
+            ix = index_io.load_index(os.path.join(directory, "index.npz"),
+                                     device=dmesh.first)
+            index = psearch.ReplicatedIndex(
+                replicas=psearch.replicate(ix, dmesh.devices),
+                family=meta["family"])
+        else:
+            index = index_io.load_index(
+                os.path.join(directory, "index.npz"),
+                device=_index_device(device, encoder))
         return cls(
             encoder, index,
             Corpus(passages=passages, embeddings=emb, titles=titles),
-            family=meta["family"],
+            family=meta["family"], dmesh=dmesh,
             search_params=_params_from_meta(meta["search_params"]),
-            params=_params_from_meta(meta["params"]),
+            params=params,
         )
 
     def extend(self, texts: Optional[Sequence[str]] = None, *, vectors=None,
@@ -373,13 +434,30 @@ class Retriever:
         rag/fusion.HybridRetriever grows engines that share one corpus
         object through it. As `extend`, it consumes `self.index` (an
         IVF-Flat layout may be grown in place): the caller swaps the result
-        in."""
-        return FAMILIES[self.family].extend(
-            self.index, base.as_tensor(vectors, self.index.device))
+        in. A sharded index re-shards and rebuilds with `self.params`
+        (parallel/search.extend_sharded)."""
+        vectors = base.as_tensor(vectors, self.index.device)
+        if isinstance(self.index, psearch.ShardedIndex):
+            if self.params is None:
+                raise ValueError(
+                    "sharded extend rebuilds the index and needs its build "
+                    "params: build through Retriever.build (which keeps "
+                    "them) or set retriever.params first")
+            return psearch.extend_sharded(self.index, vectors, self.dmesh,
+                                          self.params)
+        if isinstance(self.index, psearch.ReplicatedIndex):
+            return psearch.extend_replicated(self.index, vectors)
+        return FAMILIES[self.family].extend(self.index, vectors)
 
     def delete(self, ids) -> None:
-        """Remove passages by corpus index (tombstone; id-stable)."""
-        self.index = FAMILIES[self.family].delete(self.index, ids)
+        """Remove passages by corpus index (tombstone; id-stable), in every
+        placement."""
+        if isinstance(self.index, psearch.ShardedIndex):
+            self.index = psearch.delete_sharded(self.index, ids)
+        elif isinstance(self.index, psearch.ReplicatedIndex):
+            self.index = psearch.delete_replicated(self.index, ids)
+        else:
+            self.index = FAMILIES[self.family].delete(self.index, ids)
 
     def assemble_context(self, query: str, k: int = 5,
                          separator: str = "\n\n") -> str:

@@ -16,7 +16,8 @@ and reply formats. Where it differs: a coalesced batch is searched at its
 own query count and at max(k + |deny|) of its requests, with no padding to
 a power of two (the reference padded both so that XLA compiled one program
 per bucket; here a shape costs nothing to change); query tensors go to the
-index's own device; /healthz and /stats name that device and the card.
+index's own device (a mesh's first, for a sharded or replicated index);
+/healthz and /stats name every device of the index and the card.
 
 Endpoints:
   POST /v1/search   {"texts": [...], "k": 5}            — encode + retrieve
@@ -302,15 +303,13 @@ class SearchService:
         return out
 
     def _search_one_index(self, index, q, kmax, allow=None):
-        """A raw-vector search of `index` (single placement: the sharded
-        and replicated ones arrive with ROADMAP slice 6)."""
-        from cuvs_rag_tpu_torch.index import filters as filters_lib
-        from cuvs_rag_tpu_torch.rag.pipeline import FAMILIES
+        """A raw-vector search of `index`, in any placement; `allow` is the
+        mask of a post-filter family (cagra)."""
+        from cuvs_rag_tpu_torch.parallel import search as psearch
 
         r = self.retriever
-        if allow is not None:  # post-filter family (cagra)
-            return filters_lib.search(r.search_params, index, q, kmax, allow)
-        return FAMILIES[r.family].search(r.search_params, index, q, kmax)
+        return psearch.search(r.search_params, index, q, kmax, r.dmesh,
+                              allow=allow)
 
     def _run_vectors(self, items):
         """items: [(q_array, k, deny, view_entry)]; one search per distinct
@@ -469,7 +468,7 @@ class SearchService:
                 "build_ms": entry["build_ms"], "replaced": exists}
 
     def _bake_view(self, mask):
-        from cuvs_rag_tpu_torch.index import filters as filters_lib
+        from cuvs_rag_tpu_torch.parallel import search as psearch
 
         r = self.retriever
         if not hasattr(r, "index") or getattr(r, "family", None) in (
@@ -480,7 +479,7 @@ class SearchService:
             # all three cases the mask rides allow= at search time
             return {"kind": "mask", "obj": mask}
         return {"kind": "index",
-                "obj": filters_lib.filtered_view(r.index, mask)}
+                "obj": psearch.view(r.index, mask)}
 
     def drop_view(self, name: str) -> bool:
         with self._views_lock:
@@ -646,9 +645,10 @@ class SearchService:
                     self._views[name] = entry
 
     def device(self) -> dict:
-        """Where the searches run: the (first dense) index's device and
-        the card's name; the host for a lexical-only retriever."""
-        dev = _service_device(self.retriever)
+        """Where the searches run: the (first dense) index's device (a
+        mesh's first, where the candidates merge) and the card's name; the
+        host for a lexical-only retriever."""
+        dev = _service_devices(self.retriever)[0]
         if dev.type == "cuda":
             name = torch.cuda.get_device_name(dev)
         else:
@@ -662,7 +662,7 @@ class SearchService:
         out = {
             "family": getattr(r, "family", "unknown"),
             "corpus_size": len(r.corpus),
-            "devices": [str(_service_device(r))],
+            "devices": [str(d) for d in _service_devices(r)],
             **self.device(),
             "placement": type(getattr(r, "index", r)).__name__,
             "views": n_views,
@@ -673,12 +673,15 @@ class SearchService:
         return out
 
 
-def _service_device(r) -> torch.device:
+def _service_devices(r) -> list:
+    """The (first dense) index's devices: every mesh position of a sharded
+    or replicated index, else its one device; the host for a lexical-only
+    retriever."""
     for e in getattr(r, "retrievers", [r]):
         ix = getattr(e, "index", None)
         if ix is not None:
-            return ix.device
-    return torch.device("cpu")
+            return list(getattr(ix, "devices", [ix.device]))
+    return [torch.device("cpu")]
 
 
 def _host(x) -> np.ndarray:
@@ -706,8 +709,10 @@ def make_handler(service: SearchService):
         def do_GET(self):
             try:
                 if self.path == "/healthz":
-                    self._reply(200, {"status": "ok", "devices": 1,
-                                      **service.device()})
+                    self._reply(200, {
+                        "status": "ok",
+                        "devices": len(_service_devices(service.retriever)),
+                        **service.device()})
                 elif self.path == "/stats":
                     self._reply(200, service.stats())
                 elif self.path == "/metrics":

@@ -48,7 +48,7 @@ class SearchConfig:
     # k*2 per shard (improved_multi_gpu_rag.py:247), but over-fetch provably
     # cannot change the merged result for ANY family — a candidate outside a
     # shard's local top-k has >= k better rows in that shard alone, hence
-    # globally (parallel/search._shard_k; measured identical ids at 2M,
+    # globally (parallel/search.search_sharded; measured identical ids at 2M,
     # PERF.md sharded-quality section) — so the default is 1.0.
     over_fetch: float = 1.0
     metric: str = Metric.SQEUCLIDEAN

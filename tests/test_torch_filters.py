@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from cuvs_rag_tpu.index import filters as jfilters
@@ -28,6 +29,7 @@ from cuvs_rag_tpu_torch.index import flat as tflat
 from cuvs_rag_tpu_torch.index import io as tio
 from cuvs_rag_tpu_torch.index import ivf_flat as tivf
 from cuvs_rag_tpu_torch.index import ivf_pq as tpq
+from cuvs_rag_tpu_torch.utils.config import FlatParams as tflat_params
 from cuvs_rag_tpu_torch.utils.config import (IVFFlatSearchParams,
                                              IVFPQSearchParams)
 from torch_parity import compare_topk
@@ -131,11 +133,28 @@ def test_bad_masks_and_unported_families_raise(built):
     with pytest.raises(ValueError, match=f"\\({N},\\)"):
         tfilters.filtered_view(tix, np.ones(N - 1, bool))
 
-    class ShardedIndex:
-        pass
+    # a sharded index (once refused as unported) filters through
+    # parallel/search.search: the JAX package's ids, inside the mask;
+    # index/filters stays single-index and names the dispatcher
+    from cuvs_rag_tpu.parallel import search as jps
+    from cuvs_rag_tpu.parallel.mesh import DeviceMesh as JMesh
+    from cuvs_rag_tpu_torch.parallel import search as tps
+    from cuvs_rag_tpu_torch.parallel.mesh import DeviceMesh
 
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tfilters.search(None, ShardedIndex(), None, 5, np.ones(N, bool))
+    q, _ = built
+    x = tio.recover_rows(tix).float().numpy()
+    allow = np.arange(N) % 3 != 0
+    jmesh = JMesh(jax.devices()[:4])
+    jsix = jps.build_sharded("flat", JFlatParams(tile_n=64), x, jmesh)
+    want = jps.search_sharded(None, jsix, jnp.asarray(q), 5, jmesh,
+                              allow=allow)
+    tsix = tps.build_sharded("flat", tflat_params(tile_n=64), x,
+                             DeviceMesh(["cpu"] * 4))
+    d, i = tps.search(None, tsix, q, 5, allow=allow)
+    compare_topk(-d, i, -np.asarray(want[0]), np.asarray(want[1]), **TOL)
+    assert allow[i.numpy()].all()
+    with pytest.raises(TypeError, match="parallel/search"):
+        tfilters.search(None, tsix, q, 5, allow)
     with pytest.raises(TypeError):
         tfilters.view_traced(object(), torch.ones(N, dtype=torch.bool))
 

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from cuvs_rag_tpu.models.encoder import HashingEncoder as JHashingEncoder
 from cuvs_rag_tpu.rag import fusion as jfusion
 from cuvs_rag_tpu.rag import lexical as jlex
@@ -235,14 +237,29 @@ def test_save_and_load_both_ways(tmp_path, method):
 
 
 def test_unported_placements_raise_naming_slice_6():
-    _, th = _hybrids()
+    """A hybrid whose dense engine is sharded over 4 CPU positions (once
+    refused as unported) fuses the JAX hybrid's ids over a sharded engine,
+    with and without an allow mask seen twice (the second time a baked
+    sharded view)."""
+    from cuvs_rag_tpu.parallel import search as jps
+    from cuvs_rag_tpu.parallel.mesh import DeviceMesh as JMesh
+    from cuvs_rag_tpu_torch.parallel import search as tps
+    from cuvs_rag_tpu_torch.parallel.mesh import DeviceMesh
 
-    class ShardedIndex:
-        device = torch.device("cpu")
-
-    th.retrievers[0].index = ShardedIndex()
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        th.retrieve_batch(["t1"], 3, allow=np.ones(240, bool))
+    jh, th = _hybrids()
+    emb = np.asarray(jh.retrievers[0].corpus.embeddings)
+    jmesh, tmesh = JMesh(jax.devices()[:4]), DeviceMesh(["cpu"] * 4)
+    jr, tr = jh.retrievers[0], th.retrievers[0]
+    jr.index = jps.build_sharded("flat", jr.params, emb, jmesh)
+    jr.dmesh = jmesh
+    tr.index = tps.build_sharded("flat", tr.params, emb, tmesh)
+    tr.dmesh = tmesh
+    assert _fused(th, _queries(), 5) == _fused(jh, _queries(), 5)
+    allow = np.arange(240) % 4 != 1
+    for _ in range(2):
+        got = _fused(th, _queries(), 5, allow=allow)
+        assert got == _fused(jh, _queries(), 5, allow=allow)
+        assert all(allow[i] for row in got for i in row)
 
 
 def test_concurrent_batches_equal_serial():

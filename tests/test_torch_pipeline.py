@@ -186,14 +186,41 @@ def test_allow_filtered_retrieval_matches_jax(encoders, family):
     assert batch[1].passages[0].index == 1
 
 
-def test_unported_families_and_placements_raise(encoders):
-    _, tencoder = encoders
+def test_unported_families_and_placements_raise(encoders, monkeypatch):
+    """The shard and replicate placements (once refused as unported) give
+    the JAX Retriever's passages on 4-position meshes, through delete and
+    extend; a mesh left to its default means every visible card, never the
+    CPU; unknown families and placements raise."""
+    from cuvs_rag_tpu.parallel.mesh import DeviceMesh as JMesh
+    from cuvs_rag_tpu_torch.parallel.mesh import DeviceMesh
+
+    jencoder, tencoder = encoders
+    passages = _passages()
+    queries = _queries(passages)
+    for family, placement, kw, sp in (
+            ("flat", "shard", dict(tile_n=64), None),
+            ("ivf_flat", "replicate", dict(n_lists=8), "IVFFlatSearchParams")):
+        name = _PARAMS[family]
+        jr = JRetriever.build(
+            JCorpus(passages=list(passages)), jencoder, family=family,
+            params=getattr(jconfig, name)(**kw), placement=placement,
+            dmesh=JMesh(jax.devices()[:4]),
+            search_params=sp and getattr(jconfig, sp)(n_probes=8))
+        tr = Retriever.build(
+            Corpus(passages=list(passages)), tencoder, family=family,
+            params=getattr(tconfig, name)(**kw), placement=placement,
+            dmesh=DeviceMesh(["cpu"] * 4),
+            search_params=sp and getattr(tconfig, sp)(n_probes=8))
+        for r in (jr, tr):
+            r.delete([3, 200])
+            r.extend(["fresh text t3 t4"])
+        _assert_same(tr, jr, queries + ["fresh text t3 t4"], 8)
     corpus = Corpus(passages=["a", "b"])
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         Retriever.build(corpus, tencoder, placement="shard")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        Retriever.build(corpus, tencoder, family="cagra",
-                        placement="replicate")
+    with pytest.raises(ValueError, match="unknown placement"):
+        Retriever.build(corpus, tencoder, placement="spread")
     with pytest.raises(ValueError, match="unknown family"):
         Retriever.build(corpus, tencoder, family="hnsw")
 
@@ -263,6 +290,8 @@ def test_import_leaves_jax_out():
         "from cuvs_rag_tpu_torch import native\n"
         "from cuvs_rag_tpu_torch.rag import datasets, fusion, lexical, server\n"
         "from cuvs_rag_tpu_torch.index import faiss_io\n"
+        "from cuvs_rag_tpu_torch.parallel import aggregator, elastic, mesh\n"
+        "from cuvs_rag_tpu_torch.parallel import search, shard\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'cuvs_rag_tpu')]\n"
         "assert not bad, bad\n"

@@ -272,11 +272,24 @@ def test_random_init_is_seeded():
 
 
 def test_encode_sharded_waits_for_the_multi_gpu_slice(pair):
-    _, _, _, tcfg, tmodel = pair
+    """encode_sharded (once refused as unported) splits each step of texts
+    over the mesh's positions and equals encode and the JAX package's
+    encode_sharded on the same weights, in order, within 1e-4 (the same
+    forward on other batch groupings)."""
+    from cuvs_rag_tpu.parallel.mesh import DeviceMesh as JMesh
+    from cuvs_rag_tpu_torch.parallel.mesh import DeviceMesh
+
+    fcfg, _, params, tcfg, tmodel = pair
     enc = tq.QwenEmbeddingEncoder(tcfg, tmodel, StubTok(), device="cpu",
                                   dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        enc.encode_sharded(TEXTS, None)
+    texts = TEXTS * 3 + ["one more"]
+    got = enc.encode_sharded(texts, DeviceMesh(["cpu"] * 4), batch_size=8)
+    assert got.dtype == np.float32 and got.shape == (len(texts), tcfg.hidden_size)
+    np.testing.assert_allclose(got, enc.encode(texts), rtol=0, atol=1e-4)
+    fenc = fq.QwenEmbeddingEncoder(fcfg, params, StubTok(),
+                                   dtype=jnp.float32)
+    want = fenc.encode_sharded(texts, JMesh(jax.devices()[:4]), batch_size=8)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
 
 def test_make_encoder_dispatches_qwen_checkpoints(tmp_path, monkeypatch):
