@@ -181,9 +181,28 @@ def deleted_row_ids(index: Any) -> np.ndarray:
 def save_sharded(prefix: str, sindex: Any) -> None:
     """Persist a parallel/search.ShardedIndex as `{prefix}_part{i}.npz` (each
     shard's save_index) and `{prefix}.json` (family, total, offsets,
-    num_shards): the JAX package's files, loadable by either package."""
+    num_shards): the JAX package's files, loadable by either package.
+
+    A parallel/distributed.DistributedIndex (one rank's shards) is saved
+    by every rank at once: each writes only its own shards' part files,
+    under their global numbers; after a barrier rank 0 writes the
+    manifest, and a second barrier holds every rank until it exists."""
+    from cuvs_rag_tpu_torch.parallel import distributed
+
+    if isinstance(sindex, distributed.DistributedIndex):
+        for j, part in enumerate(sindex.local.local):
+            save_index(f"{prefix}_part{sindex.first_shard + j}.npz", part)
+        distributed.barrier()
+        if sindex.rank == 0:
+            _write_manifest(prefix, sindex)
+        distributed.barrier()
+        return
     for i, part in enumerate(sindex.local):
         save_index(f"{prefix}_part{i}.npz", part)
+    _write_manifest(prefix, sindex)
+
+
+def _write_manifest(prefix: str, sindex: Any) -> None:
     with open(f"{prefix}.json", "w") as f:
         json.dump({
             "family": sindex.family,
@@ -198,14 +217,38 @@ def load_sharded(prefix: str, dmesh, params: Any = None) -> Any:
     `dmesh`. A mesh of the saved size restores exactly, part i on the i-th
     position's device. Another size recovers the rows (recover_rows, on
     the mesh's first device) and rebuilds them on the new mesh with
-    `params`, which are then required; tombstones are applied again."""
+    `params`, which are then required; tombstones are applied again.
+
+    In a process group (parallel/distributed.init_from_env) `dmesh` is the
+    rank's local mesh and every rank calls this: where world_size x its
+    positions equals the saved shards, each rank reads only its own part
+    files and gets a DistributedIndex; otherwise every rank recovers all
+    the rows and the rebuild runs across the ranks
+    (distributed.build_sharded)."""
+    from cuvs_rag_tpu_torch.parallel import distributed
     from cuvs_rag_tpu_torch.parallel import search as psearch
 
     with open(f"{prefix}.json") as f:
         meta = json.load(f)
     s = meta["num_shards"]
     offsets = np.asarray(meta["offsets"], np.int64)
-    if dmesh.num_devices == s:
+    multi = distributed.is_initialized()
+    if multi:
+        rank, world = distributed.rank_and_world()
+        n_here = world * dmesh.num_devices
+    else:
+        n_here = dmesh.num_devices
+    if n_here == s:
+        if multi:
+            n_local = dmesh.num_devices
+            first = rank * n_local
+            parts = [load_index(f"{prefix}_part{first + j}.npz", device=dev)
+                     for j, dev in enumerate(dmesh.devices)]
+            n_valid = np.diff(np.minimum(
+                np.append(offsets, meta["total"]), meta["total"])).clip(0)
+            return distributed.local_index(
+                meta["family"], parts, offsets, n_valid, meta["total"],
+                rank, world, n_local)
         parts = [load_index(f"{prefix}_part{i}.npz", device=dev)
                  for i, dev in enumerate(dmesh.devices)]
         return psearch.ShardedIndex(
@@ -213,7 +256,7 @@ def load_sharded(prefix: str, dmesh, params: Any = None) -> Any:
             family=meta["family"], total=meta["total"])
     if params is None:
         raise ValueError(
-            f"checkpoint has {s} shards but mesh has {dmesh.num_devices} "
+            f"checkpoint has {s} shards but mesh has {n_here} "
             "devices; pass `params` to rebuild on the new mesh")
     rows, gone = [], []
     for i in range(s):
@@ -225,7 +268,12 @@ def load_sharded(prefix: str, dmesh, params: Any = None) -> Any:
         raise ValueError(
             f"sharded checkpoint is corrupt: recovered {rows.shape[0]} rows, "
             f"meta says {meta['total']}")
-    out = psearch.build_sharded(meta["family"], params, rows, dmesh)
+    if multi:
+        out = distributed.build_sharded(meta["family"], params, rows, dmesh)
+        delete = distributed.delete
+    else:
+        out = psearch.build_sharded(meta["family"], params, rows, dmesh)
+        delete = psearch.delete_sharded
     del rows
     gone = np.concatenate(gone)
-    return psearch.delete_sharded(out, gone) if gone.size else out
+    return delete(out, gone) if gone.size else out

@@ -259,16 +259,19 @@ def build_local(params: IVFFlatParams, block: torch.Tensor, n_valid: int,
 
 def shard_n_lists(params, sc, default) -> int:
     """Lists a shard: `params.n_lists`, else `default` of the mean shard
-    size, at most that mean."""
-    avg_valid = max(1, sc.total // sc.num_shards)
+    size (over every process's shards), at most that mean."""
+    avg_valid = max(1, sc.total // sc.mesh_shards)
     return min(params.n_lists or default(avg_valid), avg_valid)
 
 
-def common_window(plans) -> Tuple[int, int]:
+def common_window(plans, reduce_max=None) -> Tuple[int, int]:
     """(max_list_size, capacity) shared by every shard: the window covers
     the longest list of any shard, so no row is truncated and the scan
-    kernels see one window across the mesh."""
+    kernels see one window across the mesh. `reduce_max` (a corpus
+    sharded across processes) takes the longest over every process."""
     gmax = max(int(p.counts.max()) for p in plans)
+    if reduce_max is not None:
+        gmax = reduce_max(gmax)
     max_list = topk_ops.round_up(max(gmax, 8), ivf_ops.ALIGN)
     per = plans[0].vectors.shape[0]
     return max_list, ivf_ops.capacity_for(per, plans[0].counts.shape[0],
@@ -285,7 +288,7 @@ def build_sharded_local(params: IVFFlatParams, sc, dmesh,
     n_lists = shard_n_lists(params, sc, default_n_lists)
     plans = [_plan_shard(params, blk, int(nv), n_lists, seed)
              for blk, nv in zip(sc.data, sc.n_valid)]
-    max_list, capacity = common_window(plans)
+    max_list, capacity = common_window(plans, sc.reduce_max)
     return [_lay_out_shard(params, p, capacity=capacity, max_list=max_list)
             for p in plans]
 

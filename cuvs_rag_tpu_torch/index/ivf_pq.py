@@ -306,7 +306,8 @@ def build_sharded_local(params: IVFPQParams, sc, dmesh,
     n_lists = ivf_flat_mod.shard_n_lists(params, sc, default_n_lists)
     shards = [_plan_shard(params, blk, int(nv), n_lists, m, seed)
               for blk, nv in zip(sc.data, sc.n_valid)]
-    max_list, capacity = ivf_flat_mod.common_window([p for p, *_ in shards])
+    max_list, capacity = ivf_flat_mod.common_window(
+        [p for p, *_ in shards], sc.reduce_max)
     out = []
     for plan, sample, weights, gen in shards:
         rotation, codebooks, levels = _train_pq_quantizers(

@@ -7,9 +7,20 @@ k-means++ with Gumbel top-B draws, and clusters are split biggest-with-
 smallest. These are plain large products outside any kernel, so they go to
 `torch.matmul` (fp32 operands, TF32 off: see ops/distance.py).
 
-Scoring precision follows storage precision: bf16 data is scored on its
-bf16 values (upcast exactly to fp32 operands, fp32 accumulation); centroid
-state and the update sums stay fp32.
+Scoring precision follows storage precision for the data: bf16 data is
+scored on its bf16 values (upcast exactly to fp32 operands, fp32
+accumulation). Centroids are scored as the fp32 values they are, with the
+fp32 norms of those values; the update sums stay fp32.
+
+Deliberate difference (a fault of the JAX package, ROADMAP §3): the JAX
+package rounds the centroids to bf16 for the product of a bf16 corpus but
+subtracts the fp32 centroids' norms, a bias of ~0.5 a centroid at D = 768
+that decides which centroid a row takes where the centroids of one dense
+cluster are near-equidistant, and a split's 1e-3 perturbation rounds away.
+Lists then run from empty to the balance cap, and the cap spills rows into
+other clusters' lists: on the CLI's 2M x 768 bf16 corpus IVF-Flat needed
+1,764 of 2,000 lists for recall 0.95, and CAGRA, whose bootstrap is bf16,
+did not reach it.
 
 Deliberate difference: `assign_topk_clusters` takes the exact `torch.topk`
 for every cluster count, where the JAX package takes `approx_max_k` from 64
@@ -37,7 +48,7 @@ def _score_dtype(data: torch.Tensor) -> torch.dtype:
 
 def _chunk_scores(x, cents_s, c_sq, sdt) -> torch.Tensor:
     """(chunk, C) sqeuclidean scores 2 x.c - ||c||^2 of rows `x` (any dtype,
-    cast per chunk to the scoring dtype) against scoring-dtype centroids."""
+    cast per chunk to the scoring dtype) against fp32 centroids."""
     return dist_ops.scores_from_tile(x.to(sdt), cents_s, c_sq,
                                      "sqeuclidean")
 
@@ -49,7 +60,7 @@ def assign_topk_clusters(data: torch.Tensor, centroids: torch.Tensor,
     n = data.shape[0]
     sdt = _score_dtype(data)
     c_sq = dist_ops.sqnorms(centroids)
-    cents = centroids.to(sdt)
+    cents = centroids.float()
     labels = torch.empty((n, t), dtype=torch.int32, device=data.device)
     margins = torch.empty(n, dtype=torch.float32, device=data.device)
     for i in range(0, n, chunk):
@@ -194,7 +205,7 @@ def assign_clusters_batched(data: torch.Tensor, centroids: torch.Tensor,
     dist_ops._check_fp32_matmul(data)
     sdt = _score_dtype(data)
     c_sq = (centroids.float() ** 2).sum(dim=2)
-    cents_t = centroids.to(sdt).float().transpose(1, 2)
+    cents_t = centroids.float().transpose(1, 2)
     chunk = _batched_chunk(m, centroids.shape[1], chunk)
     labels = torch.empty((m, n), dtype=torch.int32, device=data.device)
     for i in range(0, n, chunk):
@@ -252,7 +263,7 @@ def kmeans_batched(data: torch.Tensor, row_weights, gen: torch.Generator, *,
     for j in range(1, nb):
         prev = centroids[:, (j - 1) * b:j * b]
         d2 = (x_sq[:, :, None]
-              - 2.0 * _bmm_rows(data, prev.to(sdt).float().transpose(1, 2))
+              - 2.0 * _bmm_rows(data, prev.transpose(1, 2))
               + (prev * prev).sum(dim=2)[:, None, :])
         min_d = torch.minimum(min_d, d2.min(dim=2).values)
         logits = torch.where((w > 0) & (min_d > 0), torch.log(min_d + 1e-30),
@@ -266,7 +277,7 @@ def kmeans_batched(data: torch.Tensor, row_weights, gen: torch.Generator, *,
     code_iota = torch.arange(n_clusters, device=dev)
     for it in range(iters):
         c_sq = (centroids * centroids).sum(dim=2)
-        cents_t = centroids.to(sdt).float().transpose(1, 2)
+        cents_t = centroids.transpose(1, 2)
         sums = torch.zeros((m, n_clusters, d), dtype=torch.float32, device=dev)
         counts = torch.zeros((m, n_clusters), dtype=torch.float32, device=dev)
         for i in range(0, n, step):

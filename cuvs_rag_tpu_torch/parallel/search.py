@@ -439,6 +439,27 @@ def search_sharded(search_params, sindex: ShardedIndex, queries, k: int,
     IVF families search a cached filtered view (exact); CAGRA over-fetches
     the merge 4x (up to itopk_size) and post-filters it. A mask reused
     across many searches can be baked once with filtered_view_sharded."""
+    queries, scores, idx = search_sharded_scores(
+        search_params, sindex, queries, k, dmesh, allow)
+    return scores_to_distances(sindex.metric, queries, scores), idx
+
+
+def scores_to_distances(metric: str, queries: torch.Tensor,
+                        scores: torch.Tensor) -> torch.Tensor:
+    """A merged (Q, k) score block as the metric's distances."""
+    qn = dist_ops.l2_normalize(queries) \
+        if metric == Metric.COSINE else queries
+    return dist_ops.scores_to_distances(
+        scores, dist_ops.sqnorms(qn.float()), metric)
+
+
+def search_sharded_scores(search_params, sindex: ShardedIndex, queries,
+                          k: int, dmesh: Optional[DeviceMesh] = None,
+                          allow=None):
+    """search_sharded before the scores become distances -> (the queries
+    as validated on the merging device, (Q, k) merged scores, larger is
+    better, (Q, k) global ids): what parallel/distributed.py gathers
+    across processes and merges again."""
     dmesh = _mesh_of(sindex, dmesh)
     mod = FAMILIES[sindex.family]
     queries = index_base.validate_queries(
@@ -472,10 +493,7 @@ def search_sharded(search_params, sindex: ShardedIndex, queries, k: int,
             lambda ix, q: mod.search_scores(sp, ix, q, kk))
     if mask is not None:
         scores, idx = _postfilter_merged(scores, idx, mask, k)
-    qn = dist_ops.l2_normalize(queries) \
-        if sindex.metric == Metric.COSINE else queries
-    return dist_ops.scores_to_distances(
-        scores, dist_ops.sqnorms(qn.float()), sindex.metric), idx
+    return queries, scores, idx
 
 
 def search_sharded_batched(search_params, sindex: ShardedIndex, queries,

@@ -15,7 +15,7 @@ offsets step by each shard's row count (the memory_based strategy).
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -30,16 +30,30 @@ class ShardedCorpus:
 
     data: block i on the mesh's i-th device. n_valid: (S,) int32, real rows
     per block (the rest is zero padding). offsets: (S,) int32, the global
-    row id of each block's first row. total: the corpus size N."""
+    row id of each block's first row. total: the corpus size N.
+
+    One process's part of a corpus sharded across processes
+    (parallel/distributed.py) holds only that process's blocks, with their
+    global offsets and the global `total`; `global_shards` counts every
+    process's blocks, and `reduce_max(x)` returns the largest x of all the
+    processes (one collective), so that every shard's build agrees on one
+    probe window. Both are unset in one process."""
 
     data: List[torch.Tensor]
     n_valid: np.ndarray
     offsets: np.ndarray
     total: int
+    global_shards: int = 0
+    reduce_max: Optional[Callable[[int], int]] = None
 
     @property
     def num_shards(self) -> int:
         return len(self.data)
+
+    @property
+    def mesh_shards(self) -> int:
+        """Shards across every process (num_shards in one process)."""
+        return self.global_shards or self.num_shards
 
     @property
     def per_shard(self) -> int:

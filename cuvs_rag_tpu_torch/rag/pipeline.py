@@ -181,7 +181,9 @@ class Retriever:
                     encoder, corpus.passages, dmesh,
                     batch_size=max(encode_batch_size, 1))
         emb = corpus.embeddings
-        if isinstance(emb, np.ndarray):
+        if not isinstance(emb, torch.Tensor):
+            # a host array, or a row store (rag/host_store.MemmapStore)
+            # read whole, as the JAX package reads it
             emb = np.asarray(emb, dtype=np.float32)
         params = params if params is not None else _default_params(family)
         if placement == "shard":

@@ -37,11 +37,18 @@ def _as(dtype, a):
     return j, to_torch(j)
 
 
+def _jax_scored(xj):
+    """The JAX package's assignment input for the port's scoring: the port
+    scores bf16 rows against the fp32 centroids (ops/kmeans.py, ROADMAP §3),
+    which is the JAX package's fp32 path on the rows' exact fp32 values."""
+    return xj.astype(jnp.float32)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_assign_clusters_identical(dtype):
     x, cent = _blobs(1)
     xj, xt = _as(dtype, x)
-    want = jkm.assign_clusters(xj, jnp.asarray(cent))
+    want = jkm.assign_clusters(_jax_scored(xj), jnp.asarray(cent))
     got = tkm.assign_clusters(xt, torch.from_numpy(cent))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -52,7 +59,7 @@ def test_assign_topk_clusters_identical(dtype):
     """Below 64 clusters the JAX package takes the exact top_k too."""
     x, cent = _blobs(2)
     xj, xt = _as(dtype, x)
-    wl, wm = jkm.assign_topk_clusters(xj, jnp.asarray(cent), t=4)
+    wl, wm = jkm.assign_topk_clusters(_jax_scored(xj), jnp.asarray(cent), t=4)
     gl, gm = tkm.assign_topk_clusters(xt, torch.from_numpy(cent), t=4)
     np.testing.assert_array_equal(gl.numpy(), np.asarray(wl))
     np.testing.assert_allclose(gm.numpy(), np.asarray(wm), rtol=1e-5, atol=1e-4)
@@ -280,3 +287,37 @@ def test_kmeans_quality_matches_jax():
     # every blob maps to one centroid
     for b in range(10):
         assert len(np.unique(lt.numpy()[true == b])) == 1
+
+
+def test_bf16_kmeans_keeps_dense_topics_in_their_lists():
+    """A bf16 IVF build over dense topics (20 lists a topic, 100 rows a
+    list, D = 384) keeps every topic's rows in its own lists and no list at
+    the balance cap. The port scores bf16 rows against fp32 centroids; the
+    JAX package rounds the centroids to bf16 but subtracts their fp32
+    norms (ROADMAP §3, ref), and on the same corpus its lists reach the
+    cap, rows spilling into other topics' lists."""
+    from cuvs_rag_tpu.index import ivf_flat as jivf_flat
+    from cuvs_rag_tpu.utils import config as jconfig
+    from cuvs_rag_tpu_torch.index import ivf_flat
+    from cuvs_rag_tpu_torch.rag import datasets
+    from cuvs_rag_tpu_torch.utils.config import IVFFlatParams
+
+    n, topics, lists = 20_000, 10, 200
+    x, labels, centers = datasets.synthetic_topic_corpus(n, 384,
+                                                         n_topics=topics)
+    cap = 2 * n // lists  # balance_factor 2
+    ix = ivf_flat.build(IVFFlatParams(dtype="bfloat16", n_lists=lists), x,
+                        device="cpu")
+    counts = ix.list_counts.numpy()
+    assert counts.min() > 0 and counts.max() < cap
+    topic_of_list = torch.cdist(ix.centroids, torch.from_numpy(centers)
+                                ).argmin(1).numpy()
+    rid = ix.row_ids.numpy()
+    offs = ix.list_offsets.numpy()
+    for lst in range(lists):
+        rows = rid[offs[lst]:offs[lst] + counts[lst]]
+        assert (labels[rows] == topic_of_list[lst]).all(), lst
+    jcounts = np.asarray(jivf_flat.build(
+        jconfig.IVFFlatParams(dtype="bfloat16", n_lists=lists),
+        jnp.asarray(x)).list_counts)
+    assert jcounts.max() == cap  # the JAX package's lists hit the cap

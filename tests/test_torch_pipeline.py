@@ -292,6 +292,17 @@ def test_import_leaves_jax_out():
         "from cuvs_rag_tpu_torch.index import faiss_io\n"
         "from cuvs_rag_tpu_torch.parallel import aggregator, elastic, mesh\n"
         "from cuvs_rag_tpu_torch.parallel import search, shard\n"
+        "from cuvs_rag_tpu_torch.parallel import distributed\n"
+        "from cuvs_rag_tpu_torch.utils import memory, profiling\n"
+        "from cuvs_rag_tpu_torch.eval import bench, benchlog, plots\n"
+        "from cuvs_rag_tpu_torch.eval import sweeps, topic_recall, tune\n"
+        "from cuvs_rag_tpu_torch import main\n"
+        "from cuvs_rag_tpu_torch.infra import multihost_worker\n"
+        "import runpy, os\n"
+        "ex = os.path.join('cuvs_rag_tpu_torch', 'examples')\n"
+        "for f in sorted(os.listdir(ex)):\n"
+        "    if f.endswith('.py') and f != '__init__.py':\n"
+        "        runpy.run_path(os.path.join(ex, f), run_name='import')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'cuvs_rag_tpu')]\n"
         "assert not bad, bad\n"
