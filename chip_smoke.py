@@ -720,15 +720,17 @@ def ragged_pq_index(x, gen, device):
 
 def pq_parity_phase(n_rows: int, seed: int, device="cuda") -> dict:
     """K6 vs its plain version at N_PROBES probes, for 16 queries and for
-    one: on IVF-PQ indexes (default params, no raw store) of a clustered
-    `n_rows`-row corpus in both packed code forms, two-level 8-bit (with
-    the cross-term correction) and 4-bit (without), 1% of rows deleted, and
-    on `ragged_pq_index`. Row ids and the -inf pattern must be equal; scores
-    within PQ_TOL."""
+    one, in both id modes (`pq_hold`): on IVF-PQ indexes (default params,
+    no raw store) of a clustered `n_rows`-row corpus in both packed code
+    forms, two-level 8-bit (with the cross-term correction) and 4-bit
+    (without), 1% of rows deleted, and on `ragged_pq_index`, whose layouts
+    take the words route (32-bit code loads); then on the ragged layout
+    cut to a cap that is no multiple of 4 (5 slots short) and on it with
+    every window start shifted by 3, which take the bytes route. Row ids and the -inf
+    pattern must be equal; scores within PQ_TOL; both routes taken."""
     import torch
 
     from cuvs_rag_tpu_torch.index import ivf_pq
-    from cuvs_rag_tpu_torch.ops import pq_kernels as pk
     from cuvs_rag_tpu_torch.utils.config import IVFPQParams
 
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -744,28 +746,36 @@ def pq_parity_phase(n_rows: int, seed: int, device="cuda") -> dict:
     cases.append(("ragged",) + ragged_pq_index(x, gen, device))
     del x
     out = {"k6": 0.0, "cases": 0, "windows": {}, "streams": {},
-           "live_slots": {}}
+           "live_slots": {}, "routes": {"words": 0, "bytes": 0}}
     for name, ix, qs in cases:
         window = ix.max_list_size
         out["windows"][name] = window
         out["streams"][name] = ix.codes.shape[0]
+        forms = [(name, lambda a: a)]
+        if name == "ragged":
+            cap = ix.codes.shape[1] - 5
+            forms += [
+                ("ragged_cap_no_4", lambda a: (
+                    a[0][:, :cap].contiguous(), a[1][:cap].contiguous(),
+                    None if a[2] is None else a[2][:cap].contiguous())
+                 + a[3:]),
+                ("ragged_shifted_3", lambda a: a[:4] + (a[4] + 3,) + a[5:])]
         for sub in (qs, qs[:1]):
-            args = pq_scan_args(ix, sub)
-            s, i = pk.pq_adc_scores(*args, window=window)
-            torch.cuda.synchronize()
-            ps, pi = pk.pq_adc_scores_plain(*args, window=window)
-            if not torch.equal(i, pi):
-                raise AssertionError(f"K6 row ids differ from plain ({name})")
-            live = torch.isfinite(ps)
-            if not torch.equal(torch.isfinite(s), live) \
-                    or not torch.equal(live, pi >= 0):
-                raise AssertionError(f"K6 -inf pattern differs ({name})")
-            if not live.any() or live.all():
-                raise AssertionError(f"{name}: no live or no dead slot")
-            torch.testing.assert_close(s[live], ps[live], **PQ_TOL)
-            out["k6"] = max(out["k6"], float((s[live] - ps[live]).abs().max()))
-            out["live_slots"][f"{name}_{sub.shape[0]}q"] = int(live.sum())
-            out["cases"] += 1
+            for form, cut in forms:
+                held = pq_hold(cut(pq_scan_args(ix, sub)), dict(window=window))
+                # (one query's shifted windows may hold pads only)
+                if held["live_slots"] == sub.shape[0] * N_PROBES * window or (
+                        held["live_slots"] == 0
+                        and (form == name or sub is qs)):
+                    raise AssertionError(f"{form}: no live or no dead slot")
+                out["k6"] = max(out["k6"], held["max_abs_err"])
+                out["live_slots"][f"{form}_{sub.shape[0]}q"] = \
+                    held["live_slots"]
+                for k, v in held["routes"].items():
+                    out["routes"][k] += v
+                out["cases"] += 1
+    if min(out["routes"].values()) == 0:
+        raise AssertionError(f"K6 took one copy route only: {out['routes']}")
     return out
 
 
@@ -1390,6 +1400,11 @@ def pq_main_path(enc, emb, passages, planted, texts, flat_ids, flat_index,
         ooc, planted, texts, ooc_check, batches=OOC_BATCHES, **loose)
     out["ooc_launches"] = read_launches(PQ_KERNELS)["pq_adc_scores"] - launches0
     queries = [texts[i] for i in planted_batches()[0]]
+    # K6 over the out-of-core index's codes at the batch's probes, both id
+    # modes, against its plain version (these launches are not counted)
+    out["ooc_k6"] = pq_hold(
+        pq_scan_args(ooc_ix, enc.encode_device(queries)),
+        dict(window=ooc_ix.max_list_size))
     want = ooc.retrieve_ids(queries, 10)
     ooc.save(os.path.join(tmp.name, "saved"))
     loaded = Retriever.load(os.path.join(tmp.name, "saved"), enc)
@@ -2116,20 +2131,78 @@ def shard_daemon_checks(retriever, planted, texts, numbers, rng) -> dict:
     return out
 
 
-def pq_hold(args, kw) -> float:
-    """Hold K6 to its plain version: the same ids and -inf pattern, the
-    live scores within PQ_TOL. Returns the largest absolute error."""
+def pq_hold(args, kw) -> dict:
+    """Hold K6 to its plain version in both id modes (row ids, and layout
+    positions as ivf_pq.search_scores asks): the same ids and -inf
+    pattern, the live scores within PQ_TOL, and the blocks the kernel
+    counted by copy route equal to `adc_route_blocks`' reading of the
+    offsets. Returns {"max_abs_err", "routes": {"words", "bytes"} of one
+    call, "live_slots"}."""
     import torch
 
     from cuvs_rag_tpu_torch.ops import pq_kernels as pk
 
-    s, i = pk.pq_adc_scores(*args, **kw)
-    ps, pi = pk.pq_adc_scores_plain(*args, **kw)
-    live = torch.isfinite(ps)
-    if not torch.equal(i, pi) or not torch.equal(torch.isfinite(s), live):
-        raise AssertionError("K6 ids or -inf pattern differ from plain")
-    torch.testing.assert_close(s[live], ps[live], **PQ_TOL)
-    return float((s[live] - ps[live]).abs().max()) if live.any() else 0.0
+    err = 0.0
+    want_routes = pk.adc_route_blocks(args[0], args[4], args[5], **kw)
+    for positions in (False, True):
+        counts = torch.zeros(2, dtype=torch.int64, device=args[0].device)
+        s, i = pk.pq_adc_scores(*args, **kw, positions=positions,
+                                route_counts=counts)
+        routes = dict(zip(pk.ROUTES, counts.tolist()))
+        ps, pi = pk.pq_adc_scores_plain(*args, **kw, positions=positions)
+        live = torch.isfinite(ps)
+        if not torch.equal(i, pi) or not torch.equal(torch.isfinite(s), live) \
+                or not torch.equal(live, pi >= 0):
+            raise AssertionError(f"K6 ids or -inf pattern differ from plain "
+                                 f"(positions={positions})")
+        if routes != want_routes:
+            raise AssertionError(f"K6 took routes {routes}, its offsets "
+                                 f"say {want_routes}")
+        torch.testing.assert_close(s[live], ps[live], **PQ_TOL)
+        if live.any():
+            err = max(err, float((s[live] - ps[live]).abs().max()))
+    return {"max_abs_err": err, "routes": want_routes,
+            "live_slots": int(live.sum())}
+
+
+def pq_positions_hold(ix, q) -> int:
+    """The ADC pass of `ivf_pq.search_scores` (positions written by K6)
+    against K6 handed a position mask over every slot as its row ids, as
+    the search built it before K6 wrote positions: at `pq_scan_args`' shape
+    the same scores and ids, bit for bit. Returns the live slots compared."""
+    import torch
+
+    from cuvs_rag_tpu_torch.ops import pq_kernels as pk
+
+    args = pq_scan_args(ix, q)
+    pos = torch.arange(ix.codes.shape[1], dtype=torch.int32, device=q.device)
+    masked = torch.where(ix.row_ids >= 0, pos, torch.full_like(pos, -1))
+    kw = dict(window=ix.max_list_size)
+    got = pk.pq_adc_scores(*args, **kw, positions=True)
+    want = pk.pq_adc_scores(args[0], masked, *args[2:], **kw)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("K6's positions differ from the position "
+                             "mask's")
+    return int((got[1] >= 0).sum())
+
+
+def pq_shape_row(shape: str, args, kw) -> dict:
+    """K6 at one call shape: held by `pq_hold` (both id modes, the route of
+    every block), then timed through its wrapper (CUDA events: where the
+    host is the slower side, its launch path), on the device (its kernel's
+    own time, torch.profiler) and as the plain version, beside its
+    bound."""
+    from cuvs_rag_tpu_torch.eval.roofline import cuda_ms, device_ms
+    from cuvs_rag_tpu_torch.ops import pq_kernels as pk
+
+    held = pq_hold(args, kw)
+    fn = lambda: pk.pq_adc_scores(*args, **kw, positions=True)  # noqa: E731
+    return {
+        "shape": shape, **held, "plan": list(pk.adc_plan(args[0].shape[0])),
+        "ms": cuda_ms(fn, 20),
+        "device_ms": device_ms(fn, ("pq_adc_kernel",), 20)["pq_adc_kernel"],
+        "plain_ms": cuda_ms(lambda: pk.pq_adc_scores_plain(*args, **kw), 10),
+        **pq_bound(*args, **kw), "library_ms": None}
 
 
 def shard_kernel_rows(family: str, ix, q) -> dict:
@@ -2141,11 +2214,9 @@ def shard_kernel_rows(family: str, ix, q) -> dict:
     and K5 by `large_hold`; K6 by `pq_hold`), timed, and with the route or
     plan the wrapper chose at this shape. Launches made here are not
     counted."""
-    from cuvs_rag_tpu_torch.eval.roofline import cuda_ms
     from cuvs_rag_tpu_torch.index import flat, ivf_flat
     from cuvs_rag_tpu_torch.ops import flat_kernels as fk
     from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
-    from cuvs_rag_tpu_torch.ops import pq_kernels as pk
 
     if family in ("flat", "ivf_flat"):
         dtype, d = ix.vectors.dtype, ix.dim
@@ -2186,15 +2257,9 @@ def shard_kernel_rows(family: str, ix, q) -> dict:
                 "ivf_scan_large", shape, args,
                 dict(kw, k=K_LARGE, n_sub=cfg[0], r_planes=cfg[1]),
                 ivf_bound)}
-    args = pq_scan_args(ix, q, SHARD_PROBES)
-    kw = dict(window=ix.max_list_size)
-    return {"pq_adc_scores": {
-        "shape": f"{q.shape[0]} x {SHARD_PROBES} probes, window "
-                 f"{ix.max_list_size}",
-        "max_abs_err": pq_hold(args, kw),
-        "ms": cuda_ms(lambda: pk.pq_adc_scores(*args, **kw), 20),
-        "plain_ms": cuda_ms(lambda: pk.pq_adc_scores_plain(*args, **kw), 10),
-        **pq_bound(*args, **kw)}}
+    return {"pq_adc_scores": pq_shape_row(
+        f"{q.shape[0]} x {SHARD_PROBES} probes, window {ix.max_list_size}",
+        pq_scan_args(ix, q, SHARD_PROBES), dict(window=ix.max_list_size))}
 
 
 def shard_main_path(enc, emb, passages, planted, texts, single: dict) -> dict:
@@ -2811,11 +2876,9 @@ def cli_kernel_rows(corpus, queries, sub_flat, sub_q16) -> dict:
     Launches made here are not counted."""
     import torch
 
-    from cuvs_rag_tpu_torch.eval.roofline import cuda_ms
     from cuvs_rag_tpu_torch.index import flat, ivf_flat, ivf_pq
     from cuvs_rag_tpu_torch.ops import flat_kernels as fk
     from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
-    from cuvs_rag_tpu_torch.ops import pq_kernels as pk
     from cuvs_rag_tpu_torch.utils.config import (
         FlatParams, IVFFlatParams, IVFPQParams)
 
@@ -2866,16 +2929,11 @@ def cli_kernel_rows(corpus, queries, sub_flat, sub_q16) -> dict:
                 ivf_bound)
     del iv
     px = ivf_pq.build(IVFPQParams(), corpus)
-    a = pq_scan_args(px, q, N_PROBES)
-    kw = dict(window=px.max_list_size)
-    rows["pq_adc_scores"] = {
-        "shape": f"{CLI_QUERIES} x {N_PROBES} probes, window "
-                 f"{px.max_list_size}, pq_dim {px.pq_dim}",
-        "max_abs_err": pq_hold(a, kw),
-        "ms": cuda_ms(lambda: pk.pq_adc_scores(*a, **kw), 20),
-        "plain_ms": cuda_ms(lambda: pk.pq_adc_scores_plain(*a, **kw), 10),
-        **pq_bound(*a, **kw), "library_ms": None}
-    del px, a
+    rows["pq_adc_scores"] = pq_shape_row(
+        f"{CLI_QUERIES} x {N_PROBES} probes, window {px.max_list_size}, "
+        f"pq_dim {px.pq_dim}", pq_scan_args(px, q, N_PROBES),
+        dict(window=px.max_list_size))
+    del px
     torch.cuda.empty_cache()
     return rows
 
@@ -3160,15 +3218,34 @@ def ivf_bound(vectors, sqnorms, scales, q, offs, cnts, *, k, window, **_):
 
 
 def pq_bound(codes, row_ids, corr, luts, offs, cnts, coarse, *, window):
-    """K6 reads this run's live slots (mb code bytes, an id and, when there
-    is one, a correction each), the tables and the (Q, P) offsets, counts
-    and coarse scores, and writes (Q, P, window) scores and ids; one fp32
-    add per live slot and nibble stream."""
-    live = int(cnts.clamp(max=window).sum())
+    """K6 reads each slot of this run's live windows once (mb code bytes,
+    an id and, when there is one, a correction), however many (query,
+    probe) pairs scan it, the tables and the (Q, P) offsets, counts and
+    coarse scores, and writes (Q, P, window) scores and ids; one fp32 add
+    per live slot of each pair and nibble stream. "slots" counts the union
+    of the windows, "pair_slots" a window once for every pair that scans
+    it."""
+    cap = codes.shape[1]
+    off = offs.reshape(-1).long().cpu().numpy()
+    live = np.clip(np.minimum(cnts.reshape(-1).long().cpu().numpy(), window),
+                   0, None)
+    live = np.where(off < 0, 0, np.minimum(live, np.clip(cap - off, 0, None)))
+    pair_slots = int(live.sum())
+    hit = live > 0
+    starts, ends = off[hit], off[hit] + live[hit]
+    order = np.argsort(starts, kind="stable")
+    slots, reach = 0, -1
+    for a, b in zip(starts[order], ends[order]):  # the union of [a, b)
+        a = max(a, reach)
+        if b > a:
+            slots += int(b - a)
+        reach = max(reach, b)
     mb = codes.shape[0]
-    return bound(live * (mb + 4 + (4 if corr is not None else 0))
-                 + nbytes(luts, offs, cnts, coarse) + offs.numel() * window * 8,
-                 2.0 * mb * live, "fp32")
+    return {**bound(slots * (mb + 4 + (4 if corr is not None else 0))
+                    + nbytes(luts, offs, cnts, coarse)
+                    + offs.numel() * window * 8,
+                    2.0 * mb * pair_slots, "fp32"),
+            "slots": slots, "pair_slots": pair_slots}
 
 
 def k1_shape_row(shape: str, args, kw) -> dict:
@@ -3343,15 +3420,12 @@ def timing_phase(flat_r, ivf_r, pq_r, ooc_r, enc, texts, launches: dict):
     rounding bound (K3 and K5 by `large_hold`, with their device ms and
     K3's library call; K4 with the distinct lists its BATCH x N_PROBES
     pairs touch)."""
-    import torch
-
     from cuvs_rag_tpu_torch.eval.roofline import cuda_ms
     from cuvs_rag_tpu_torch.index import flat, ivf_flat, ivf_pq, refine
     from cuvs_rag_tpu_torch.kernels import build
     from cuvs_rag_tpu_torch.ops import ivf as ivf_ops
     from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
     from cuvs_rag_tpu_torch.ops import pq as pq_ops
-    from cuvs_rag_tpu_torch.ops import pq_kernels as pk
     from cuvs_rag_tpu_torch.ops import topk as topk_ops
     from cuvs_rag_tpu_torch.utils.compare import compare_topk
     from cuvs_rag_tpu_torch.utils.config import IVFPQSearchParams
@@ -3500,32 +3574,25 @@ def timing_phase(flat_r, ivf_r, pq_r, ooc_r, enc, texts, launches: dict):
         })
 
     # K6 at the main path's probes: BATCH queries (its row of the kernels
-    # line) and one query
+    # line) and one query; "ms" is the wrapper's (CUDA events), "device_ms"
+    # the kernel's own
     for qs in (q, q1):
         args = pq_scan_args(pq_ix, qs)
         kw = dict(window=pq_ix.max_list_size)
-        s, i = pk.pq_adc_scores(*args, **kw)
-        ps, pi = pk.pq_adc_scores_plain(*args, **kw)
-        live = torch.isfinite(ps)
-        if not torch.equal(i, pi) or not torch.equal(torch.isfinite(s), live):
-            raise AssertionError("K6 ids or -inf pattern differ from plain")
-        torch.testing.assert_close(s[live], ps[live], **PQ_TOL)
-        row = {
-            "name": "pq_adc_scores", "route": "cuda",
-            "source": SOURCES["pq_adc_scores"],
-            "replaces": REPLACES["pq_adc_scores"],
-            "launches": launches["pq_adc_scores"],
-            "max_abs_err": float((s[live] - ps[live]).abs().max()),
-            "ms": cuda_ms(lambda: pk.pq_adc_scores(*args, **kw), 20),
-            "plain_ms": cuda_ms(lambda: pk.pq_adc_scores_plain(*args, **kw), 10),
-            **pq_bound(*args, **kw), "library_ms": None,
-        }
+        row = pq_shape_row(f"{qs.shape[0]} x {N_PROBES} probes, window "
+                           f"{pq_ix.max_list_size}", args, kw)
         if qs is q:
-            rows.append(row)
-            e2e["pq_live_slots_per_batch"] = int(live.sum())
+            rows.append({
+                "name": "pq_adc_scores", "route": "cuda",
+                "source": SOURCES["pq_adc_scores"],
+                "replaces": REPLACES["pq_adc_scores"],
+                "launches": launches["pq_adc_scores"], **row})
+            e2e["pq_live_slots_per_batch"] = row["live_slots"]
+            e2e["pq_positions_equal_mask"] = pq_positions_hold(pq_ix, qs)
         else:
             e2e["pq_adc_one_query"] = {k: row[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bytes", "max_abs_err")}
+                "ms", "device_ms", "plain_ms", "bound_ms", "bytes",
+                "max_abs_err", "routes")}
     return e2e, rows
 
 

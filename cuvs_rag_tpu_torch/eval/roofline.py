@@ -69,28 +69,51 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, names, calls: int = 50, warmup: int = 3) -> dict:
+def device_ms(fn, names, calls: int = 50, warmup: int = 3,
+              attempts: int = 3) -> dict:
     """Device ms a call of the kernels whose names contain each of `names`
     ({name: ms}), over `calls` back-to-back fn() under torch.profiler: the
     kernels' own time, apart from the host's time to launch them (which
-    CUDA events around a loop of calls measure where it is the longer)."""
+    CUDA events around a loop of calls measure where it is the longer).
+    `names` may list alternatives of which a call runs only some; a name
+    that no window records reads 0. The profiler on the card has been seen
+    to drop kernel records: the first call's of a window (K4 read as 49
+    launches of 50 in each of three windows), and more (20 launches read
+    as 5, or as none). So each window is profiled after a step of `calls`
+    calls that the profiler's schedule records and discards, and a window
+    is taken again, up to `attempts` windows, where it records no named
+    kernel or fewer than `calls` launches of a name recorded in any window
+    so far; past that this raises."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys(names, 0.0)
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            for name in names:
-                if name in e.key:
-                    out[name] += e.self_device_time_total / 1e3 / calls
-    return out
+    ran = set()  # names some window recorded: a call runs them
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):  # the discarded step, then the window
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        total = dict.fromkeys(names, 0.0)
+        count = dict.fromkeys(names, 0)
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                for name in names:
+                    if name in e.key:
+                        total[name] += e.self_device_time_total / 1e3
+                        count[name] += e.count
+        ran.update(name for name in names if count[name])
+        if ran and all(count[name] >= calls for name in ran):
+            return {name: total[name] / calls for name in names}
+    raise RuntimeError(f"torch.profiler recorded {count} launches of "
+                       f"{sorted(ran) or list(names)} over {calls} calls in "
+                       f"each of {attempts} windows")
 
 
 def host_us(fn, iters: int = 300, warmup: int = 30) -> float:

@@ -574,16 +574,12 @@ def search_scores(search_params: Optional[IVFPQSearchParams],
     do_refine = sp.refine_ratio > 0 and index.has_raw
     k_adc = _refine_pool(k, sp.refine_ratio) if do_refine else k
 
-    # The ADC pass is handed sorted-layout POSITIONS as its ids, so refine
+    # The ADC pass returns sorted-layout POSITIONS as its ids, so refine
     # gathers raw rows without an id -> position map; positions become row
     # ids at the end.
-    pos_ids = torch.arange(index.codes.shape[-1], dtype=torch.int32,
-                           device=index.device)
     scores, positions = pq_ops.scan_probed_lists_pq(
         queries, probes, index.centroids, coarse_scores, index.codebooks,
-        index.codes,
-        torch.where(index.row_ids >= 0, pos_ids, torch.full_like(pos_ids, -1)),
-        index.list_offsets, index.list_counts,
+        index.codes, index.row_ids, index.list_offsets, index.list_counts,
         max_list_size=index.max_list_size, metric=index.metric, k=k_adc,
         rotation=index.rotation if index.has_opq else None,
         sorted_norm_corr=index.norm_corr if index.levels == 2 else None,

@@ -63,7 +63,8 @@ SIGNATURES = {
     },
     "pq_adc.cu": {
         "pq_adc_scores": [
-            _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _P, _P, _P,
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P, _P, _P,
+            _P,
         ],
     },
     "flash_attn.cu": {

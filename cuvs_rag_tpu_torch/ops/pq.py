@@ -283,7 +283,10 @@ def scan_probed_lists_pq(
     sorted_norm_corr: torch.Tensor | None = None,
     levels: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """ADC search over probed lists. Returns (scores (Q, k), row ids (Q, k)).
+    """ADC search over probed lists. Returns (scores (Q, k), sorted-layout
+    positions (Q, k) int32) of the best k live slots, -1 where fewer than k
+    are live; a slot is live where its row id in `sorted_row_ids` is >= 0,
+    and `sorted_row_ids[position]` is its row id.
 
     queries: (Q, D) fp32 (padded to m*ds). probe_ids: (Q, P).
     sorted_codes: (mb or mv, cap) uint8 STREAM-MAJOR (codes[s, slot]).
@@ -313,7 +316,7 @@ def scan_probed_lists_pq(
     if packed:
         scores, ids = pq_kernels.pq_adc_scores(
             sorted_codes, sorted_row_ids, corr, luts, offs, cnts, coarse,
-            window=max_list_size)
+            window=max_list_size, positions=True)
     else:
         scores, ids = _scan_unpacked(sorted_codes, sorted_row_ids, corr, luts,
                                      offs, cnts, coarse, max_list_size)
@@ -322,8 +325,8 @@ def scan_probed_lists_pq(
 
 
 def _scan_unpacked(codes, row_ids, corr, luts, offs, cnts, coarse, window):
-    """(Q, P, window) masked ADC scores and row ids from (mv, cap) codes of
-    one byte per stream."""
+    """(Q, P, window) masked ADC scores and layout positions from (mv, cap)
+    codes of one byte per stream; live where the row id is >= 0."""
     mv, cap = codes.shape
     q_n, p_n = offs.shape
     col = torch.arange(window, device=codes.device)
@@ -337,9 +340,9 @@ def _scan_unpacked(codes, row_ids, corr, luts, offs, cnts, coarse, window):
             + coarse[q0:q0 + step, :, None]
         if corr is not None:
             s = s - corr[slots]
-        ids = row_ids[slots]
-        live = ((col < cnts[q0:q0 + step].long()[:, :, None]) & (ids >= 0)
-                & (pos < cap))
+        live = ((col < cnts[q0:q0 + step].long()[:, :, None])
+                & (row_ids[slots] >= 0) & (pos < cap))
+        ids = slots.to(torch.int32)
         out_s.append(torch.where(live, s,
                                  torch.full_like(s, topk_ops.NEG_INF)))
         out_i.append(torch.where(live, ids, torch.full_like(ids, -1)))

@@ -433,18 +433,45 @@ def test_ivf_search_launches_each_kernel(cuda_device):
     assert [a - b for a, b in zip(after, before)] == [1, 1]
 
 
-@pytest.mark.parametrize("mb,window,cap", [(48, 1280, 9000), (5, 333, 1001),
-                                           (400, 130, 700)])
-@pytest.mark.parametrize("use_corr", [True, False])
-def test_pq_adc_kernel_matches_plain(cuda_device, mb, window, cap, use_corr):
-    """K6 on random packed codes and tables: any mb (400 streams need more
-    than 48 KB of shared memory), a window and a cap that no tile divides,
-    empty, full and straddling lists, windows that run past the layout's
-    end, and tombstoned slots. Ids and the -inf pattern equal the plain
-    version's exactly; scores within rtol 1e-5 / atol 1e-4 (another
-    summation order)."""
+def _hold_k6(args, window, positions):
+    """Run K6 and its plain version on `args`; hold ids and the -inf
+    pattern equal and live scores within rtol 1e-5 / atol 1e-4, and the
+    blocks the kernel counted by copy route equal to what adc_route_blocks
+    says of these offsets. Returns the route counts of the call."""
     from cuvs_rag_tpu_torch.ops import pq_kernels as pk
 
+    counts = torch.zeros(2, dtype=torch.int64, device=args[0].device)
+    before = pk.pq_adc_scores.launches
+    s, i = pk.pq_adc_scores(*args, window=window, positions=positions,
+                            route_counts=counts)
+    torch.cuda.synchronize()
+    assert pk.pq_adc_scores.launches == before + 1
+    routes = dict(zip(pk.ROUTES, counts.tolist()))
+    assert routes == pk.adc_route_blocks(args[0], args[4], args[5],
+                                         window=window)
+    ps, pi = pk.pq_adc_scores_plain(*args, window=window, positions=positions)
+    assert torch.equal(i, pi)
+    assert torch.equal(torch.isinf(s), torch.isinf(ps))
+    live = ~torch.isinf(ps)
+    assert live.any() and (~live).any()
+    torch.testing.assert_close(s[live], ps[live], rtol=1e-5, atol=1e-4)
+    return routes
+
+
+@pytest.mark.parametrize("mb,window,cap", [(48, 1280, 9000), (5, 333, 1001),
+                                           (400, 130, 700), (96, 1280, 9216),
+                                           (48, 1280, 9216)])
+@pytest.mark.parametrize("use_corr", [True, False])
+def test_pq_adc_kernel_matches_plain(cuda_device, mb, window, cap, use_corr):
+    """K6 on random packed codes and tables, with row ids and with layout
+    positions as ids: any mb (400 streams need more than 48 KB of shared
+    memory; 96 is the CLI's pq_dim), a window and a cap that no tile
+    divides, empty, full and straddling lists, windows that run past the
+    layout's end, and tombstoned slots. A cap that is a multiple of 16 gets
+    windows at multiples of 128, as an index's layout has them, and every
+    block takes the words route; an odd cap takes the bytes route, other
+    caps both. Ids and the -inf pattern equal the plain version's exactly;
+    scores within rtol 1e-5 / atol 1e-4 (another summation order)."""
     g = torch.Generator(device=cuda_device).manual_seed(mb + window)
     q_n, p_n = 7, 5
     kw = dict(generator=g, device=cuda_device)
@@ -457,65 +484,106 @@ def test_pq_adc_kernel_matches_plain(cuda_device, mb, window, cap, use_corr):
     cnts = torch.randint(0, window + 1, (q_n, p_n), **kw).to(torch.int32)
     cnts[0, 0], cnts[0, 1], cnts[1, 0] = 0, window, min(window, 130)
     offs[2, 0], cnts[2, 0] = cap - 3, window  # runs past the layout
+    aligned = cap % 16 == 0
+    if aligned:
+        offs = offs // 128 * 128
+        offs[2, 0] = cap - 128
     coarse = torch.randn((q_n, p_n), **kw)
     args = (codes, row_ids, corr, luts, offs, cnts, coarse)
-    before = pk.pq_adc_scores.launches
-    s, i = pk.pq_adc_scores(*args, window=window)
-    torch.cuda.synchronize()
-    assert pk.pq_adc_scores.launches == before + 1
-    ps, pi = pk.pq_adc_scores_plain(*args, window=window)
-    assert torch.equal(i, pi)
-    assert torch.equal(torch.isinf(s), torch.isinf(ps))
-    live = ~torch.isinf(ps)
-    assert live.any() and (~live).any()
-    torch.testing.assert_close(s[live], ps[live], rtol=1e-5, atol=1e-4)
+    for positions in (False, True):
+        routes = _hold_k6(args, window, positions)
+        if aligned:
+            assert routes["words"] > 0 and routes["bytes"] == 0
+        elif cap % 4:
+            assert routes["words"] == 0 and routes["bytes"] > 0
 
 
 @pytest.mark.parametrize("shift", [0, 1, 2, 3])
 @pytest.mark.parametrize("cap,window", [(9000, 1280), (9001, 1280),
-                                        (9000, 1001), (4099, 37)])
+                                        (9000, 1001), (4099, 37),
+                                        (9008, 1280)])
 def test_pq_adc_kernel_alignment(cuda_device, shift, cap, window):
-    """K6 where a kernel with wider code loads would have to care: window
-    starts at every offset mod 4, an odd cap (stream starts are not 4-byte
-    aligned), windows that are no multiple of 4, lists of 0 rows and of
-    more rows than the window, with and without the correction: ids and
-    the -inf pattern equal the plain version's, scores within rtol 1e-5 /
-    atol 1e-4."""
-    from cuvs_rag_tpu_torch.ops import pq_kernels as pk
-
+    """K6 where its routes must care: window starts at every offset mod 4
+    (at shift 0 the words route where cap is a multiple of 4, the bytes
+    route beside it for the window at cap - 3), an odd cap (stream starts
+    are not 4-byte aligned), windows that are no multiple of 4,
+    lists of 0 rows and of more rows than the window, with and without the
+    correction, 48 and 96 streams, row ids and positions: ids and the -inf
+    pattern equal the plain version's, scores within rtol 1e-5 / atol 1e-4,
+    each block's route as adc_route_blocks predicts."""
     g = torch.Generator(device=cuda_device).manual_seed(cap + window + shift)
-    mb, q_n, p_n = 48, 5, 7
+    q_n, p_n = 5, 7
     kw = dict(generator=g, device=cuda_device)
-    codes = torch.randint(0, 256, (mb, cap), dtype=torch.uint8, **kw)
     row_ids = torch.randint(0, 1 << 20, (cap,), dtype=torch.int32, **kw)
     row_ids[torch.rand(cap, **kw) < 0.05] = -1
-    luts = torch.randn((q_n, p_n, 2 * mb, 16), **kw)
     offs = (torch.randint(0, cap - window // 2, (q_n, p_n), **kw) // 4 * 4
             + shift).to(torch.int32)
     cnts = torch.randint(0, window + 200, (q_n, p_n), **kw).to(torch.int32)
     cnts[0, 0] = 0
     offs[0, -1], cnts[0, -1] = cap - 3, window
     coarse = torch.randn((q_n, p_n), **kw)
-    for corr in (torch.randn(cap, **kw), None):
-        args = (codes, row_ids, corr, luts, offs, cnts, coarse)
-        s, i = pk.pq_adc_scores(*args, window=window)
-        torch.cuda.synchronize()
-        ps, pi = pk.pq_adc_scores_plain(*args, window=window)
-        assert torch.equal(i, pi)
-        live = torch.isfinite(ps)
-        assert torch.equal(torch.isfinite(s), live)
-        torch.testing.assert_close(s[live], ps[live], rtol=1e-5, atol=1e-4)
+    routes = {"words": 0, "bytes": 0}
+    for mb in (48, 96):
+        codes = torch.randint(0, 256, (mb, cap), dtype=torch.uint8, **kw)
+        luts = torch.randn((q_n, p_n, 2 * mb, 16), **kw)
+        for corr in (torch.randn(cap, **kw), None):
+            args = (codes, row_ids, corr, luts, offs, cnts, coarse)
+            for positions in (False, True):
+                for k, v in _hold_k6(args, window, positions).items():
+                    routes[k] += v
+    assert routes["bytes"] > 0
+    assert (routes["words"] > 0) == (cap % 4 == 0 and shift == 0)
+
+
+def test_pq_adc_wrapper_adds_no_sync(cuda_device):
+    """The K6 wrapper never waits for the card: under
+    torch.cuda.set_sync_debug_mode("error") a call in either id mode, with
+    a table that is a misaligned view (copied on the card), raises
+    nothing."""
+    from cuvs_rag_tpu_torch.ops import pq_kernels as pk
+
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    kw = dict(generator=g, device=cuda_device)
+    mb, cap, window, q_n, p_n = 48, 40_960, 1280, 16, 20
+    codes = torch.randint(0, 256, (mb, cap), dtype=torch.uint8, **kw)
+    row_ids = torch.arange(cap, dtype=torch.int32, device=cuda_device)
+    luts = torch.randn((q_n, p_n, 2 * mb, 16), **kw)
+    offs = (torch.randint(0, (cap - window) // 128, (q_n, p_n), **kw)
+            * 128).to(torch.int32)
+    cnts = torch.randint(400, window + 1, (q_n, p_n), **kw).to(torch.int32)
+    coarse = torch.randn((q_n, p_n), **kw)
+    flat = torch.randn(luts.numel() + 1, **kw)
+    odd = flat[1:].view(luts.shape)  # starts 4 bytes into an allocation
+    odd.copy_(luts)
+    args = (codes, row_ids, torch.randn(cap, **kw), luts, offs, cnts, coarse)
+    want = pk.pq_adc_scores(*args, window=window)  # builds and warms up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [pk.pq_adc_scores(*a, window=window, positions=p)
+               for a in (args, args[:3] + (odd,) + args[4:])
+               for p in (False, True)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for s, i in got:
+        assert torch.equal(s, want[0])
+    assert torch.equal(got[0][1], want[1]) and torch.equal(got[2][1], want[1])
+    assert torch.equal(got[1][1], got[3][1]) and (got[1][1] >= 0).any()
 
 
 def test_pq_kernel_matches_plain_on_indexes(cuda_device):
     """K6 on real IVF-PQ layouts (two-level with the correction, 4-bit
     without, 1% deleted, and the ragged index with empty lists and a list
-    of one row), 16 queries and one: ids and -inf pattern equal, scores
-    within rtol 1e-5 / atol 1e-4."""
+    of one row, also cut to a cap that is no multiple of 4 and with its
+    windows shifted by 3), 16 queries and one, row ids and positions: ids
+    and -inf pattern equal, scores within rtol 1e-5 / atol 1e-4, both of
+    the kernel's routes taken."""
     import chip_smoke
 
     out = chip_smoke.pq_parity_phase(60_000, seed=0, device=cuda_device)
-    assert out["cases"] == 6 and out["k6"] <= 1e-3
+    assert out["cases"] == 10 and out["k6"] <= 1e-3
+    assert min(out["routes"].values()) > 0
 
 
 def test_ivf_pq_search_launches_the_kernel(cuda_device):

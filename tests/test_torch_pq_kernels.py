@@ -65,12 +65,13 @@ def _oracle(nibbles, row_ids, corr, luts, offs, cnts, coarse, use_corr,
     return out_s, out_i
 
 
-def _plain(packed, row_ids, corr, luts, offs, cnts, coarse, window=WINDOW):
+def _plain(packed, row_ids, corr, luts, offs, cnts, coarse, window=WINDOW,
+           positions=False):
     t = torch.from_numpy
     before = pk.pq_adc_scores.launches
     s, i = pk.pq_adc_scores(
         t(packed), t(row_ids), None if corr is None else t(corr), t(luts),
-        t(offs), t(cnts), t(coarse), window=window)
+        t(offs), t(cnts), t(coarse), window=window, positions=positions)
     assert pk.pq_adc_scores.launches == before  # no kernel on a CPU tensor
     assert s.dtype == torch.float32 and i.dtype == torch.int32
     return s.numpy(), i.numpy()
@@ -170,3 +171,93 @@ def test_ablation_variants_apply_to_the_source():
     assert len(set(made.values())) == len(made)
     with pytest.raises(RuntimeError):
         k6_ablation.variants(source.replace("row_ids[slot]", "row_ids[j]"))
+
+
+def _position_cases(fixture):
+    """The fixtures of the tests above: the planted one, offsets shifted by
+    3 with a window past the layout's end, and an odd cap with ragged
+    windows and shifts (tombstones and pads at every seventh slot)."""
+    nibbles, packed, row_ids, corr, luts, offs, cnts, coarse = fixture
+    yield packed, row_ids, corr, luts, offs, cnts, coarse, WINDOW
+    window = 77
+    o = offs.copy() + 3
+    o[2, 0] = CAP - 10
+    c = np.minimum(cnts, window)
+    c[2, 0] = window
+    yield packed, row_ids, corr, luts, o, c, coarse, window
+    cap = CAP - 1
+    for shift in (1, 2):
+        o = offs.copy() + shift
+        c = cnts.copy()
+        c[3, 0], c[3, 1] = 0, 130 + 50
+        o[4, 2], c[4, 2] = cap - 5, 130
+        yield (np.ascontiguousarray(packed[:, :cap]), row_ids[:cap],
+               corr[:cap], luts, o, c, coarse, 130)
+
+
+def test_plain_positions_mode(fixture):
+    """positions=True: ids are the slot's layout position where the row-id
+    mode gives a row id and -1 elsewhere (tombstones, pads, past the list or
+    the layout); scores are the row-id mode's, bit for bit."""
+    n_cases = 0
+    for packed, row_ids, corr, luts, offs, cnts, coarse, window in \
+            _position_cases(fixture):
+        s, i = _plain(packed, row_ids, corr, luts, offs, cnts, coarse, window)
+        ps, pi = _plain(packed, row_ids, corr, luts, offs, cnts, coarse,
+                        window, positions=True)
+        np.testing.assert_array_equal(ps, s)
+        slot = offs.astype(np.int64)[:, :, None] + np.arange(window)
+        np.testing.assert_array_equal(pi, np.where(i >= 0, slot, -1))
+        assert (pi >= 0).any() and (pi == -1).any()
+        # a live slot's position names its row
+        np.testing.assert_array_equal(row_ids[pi[pi >= 0]], i[pi >= 0])
+        n_cases += 1
+    assert n_cases == 4
+
+
+def test_positions_are_int32():
+    """The kernel's positions are int32: a layout past 2^31 - 1 slots is
+    refused before anything runs (checked on the shape of a tensor that is
+    never read)."""
+    codes = torch.empty((1, 1), dtype=torch.uint8).expand(1, 1 << 31)
+    args = (codes, torch.empty((1,), dtype=torch.int32).expand(1 << 31),
+            None, torch.zeros((1, 1, 2, 16)), torch.zeros((1, 1), dtype=torch.int32),
+            torch.zeros((1, 1), dtype=torch.int32), torch.zeros((1, 1)))
+    with pytest.raises(ValueError, match="int32"):
+        pk.pq_adc_scores_plain(*args, window=8, positions=True)
+
+
+@pytest.mark.parametrize("mb", [1, 5, 48, 96, pk._MAX_MB])
+def test_adc_plan(mb):
+    """K6's block plan: chunks of 512 window slots, four a thread (128
+    threads); a block's shared memory is the (2 mb, 16) fp32 table and a
+    16-byte barrier, within 227 KB up to _MAX_MB streams (the main path's
+    48: 6 KB, the CLI's 96: 12 KB); past them the plan raises."""
+    assert pk.adc_plan(mb) == (512, 128, 128 * mb + 16)
+    assert pk.adc_plan(mb)[2] <= 227 * 1024
+    if mb == pk._MAX_MB:
+        assert pk.adc_plan(mb)[2] + 128 > 227 * 1024  # one stream more
+        with pytest.raises(ValueError, match="byte streams"):
+            pk.adc_plan(mb + 1)
+
+
+def test_route_blocks(fixture):
+    """adc_route_blocks counts the blocks that read codes as the kernel
+    decides: windows at multiples of 4 of a cap that is a multiple of 4
+    take the words route, shifted windows or an odd cap the bytes route,
+    and empty lists and chunks past a list read nothing."""
+    _, packed, _, _, _, offs, cnts, _ = fixture
+    t = torch.from_numpy
+    codes = t(packed)
+    chunk = pk.adc_plan(MB)[0]
+    live = np.minimum(cnts, WINDOW)
+    blocks = int(((live + chunk - 1) // chunk).sum())
+    assert codes.data_ptr() % 16 == 0 and CAP % 16 == 0
+    for shift, route in ((0, "words"), (4, "words"), (1, "bytes"),
+                         (2, "bytes")):
+        o = offs + shift  # a window past the layout's end is cut there
+        assert pk.adc_route_blocks(codes, t(o), t(cnts), window=WINDOW) == {
+            "words": 0, "bytes": 0, route: blocks}
+    odd = t(np.ascontiguousarray(packed[:, :CAP - 1]))
+    assert pk.adc_route_blocks(odd, t(offs), t(cnts), window=WINDOW) == {
+        "words": 0, "bytes": blocks}

@@ -148,7 +148,8 @@ def _layout(rng, code_rows, cap=2048, n_lists=10, window=256):
 @pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
 def test_scan_probed_lists_pq_matches(data, form, metric):
     """Fixed codebooks, a hand-made layout: the packed forms take the K6
-    wrapper's plain version here, the one-byte form the gather scan."""
+    wrapper's plain version here, the one-byte form the gather scan. The
+    port returns layout positions; their row ids are the JAX package's."""
     x, cb, cb256, cb2 = data
     rng = np.random.default_rng(6)
     book, levels, code_rows = {
@@ -177,8 +178,44 @@ def test_scan_probed_lists_pq_matches(data, form, metric):
         rotation=None if rot is None else _t(rot),
         sorted_norm_corr=None if corr is None else _t(corr), **kw)
     assert got[0].shape == (9, 50) and got[1].dtype == torch.int32
-    compare_topk(*got, *want, **TOL)
+    pos = got[1].long()
+    ids = torch.where(pos >= 0, _t(row_ids)[pos.clamp(min=0)], -1)
+    compare_topk(got[0], ids, *want, **TOL)
     assert (to_numpy(got[1]) >= -1).all()
+
+
+@pytest.mark.parametrize("form", ["two_level", "four_bit", "flat8"])
+def test_scan_positions_match_the_position_mask(data, form):
+    """The port's positions equal the JAX package's scan handed
+    where(row_ids >= 0, arange(cap), -1) as its row ids, the position mask
+    its search builds: the packed forms through the K6 wrapper's plain
+    version, the one-byte form through the gather scan."""
+    x, cb, cb256, cb2 = data
+    rng = np.random.default_rng(8)
+    book, levels, code_rows = {"two_level": (cb2, 2, M),
+                               "four_bit": (cb, 1, M // 2),
+                               "flat8": (cb256, 1, M)}[form]
+    codes, row_ids, offsets, counts, window = _layout(rng, code_rows)
+    cap = codes.shape[1]
+    corr = rng.standard_normal(cap).astype(np.float32) if levels == 2 else None
+    cents = rng.standard_normal((10, D)).astype(np.float32)
+    q = x[:9]
+    probes = np.stack([rng.permutation(10)[:6] for _ in range(9)]).astype(np.int32)
+    coarse = rng.standard_normal((9, 6)).astype(np.float32)
+    kw = dict(max_list_size=window, metric="sqeuclidean", k=50, levels=levels)
+    masked = np.where(row_ids >= 0, np.arange(cap, dtype=np.int32), -1)
+    want = jpq.scan_probed_lists_pq(
+        jnp.asarray(q), jnp.asarray(probes), jnp.asarray(cents),
+        jnp.asarray(coarse), jnp.asarray(book), jnp.asarray(codes),
+        jnp.asarray(masked), jnp.asarray(offsets), jnp.asarray(counts),
+        sorted_norm_corr=None if corr is None else jnp.asarray(corr), **kw)
+    got = tpq.scan_probed_lists_pq(
+        _t(q), _t(probes), _t(cents), _t(coarse), _t(book), _t(codes),
+        _t(row_ids), _t(offsets), _t(counts),
+        sorted_norm_corr=None if corr is None else _t(corr), **kw)
+    compare_topk(*got, *want, **TOL)
+    pos = to_numpy(got[1])
+    assert (pos >= 0).any() and (row_ids[pos[pos >= 0]] >= 0).all()
 
 
 def _mse(x, book, levels):

@@ -165,3 +165,73 @@ def test_gather_plan_covers_every_chunk_once(m, seg_chunks, max_blocks,
             for lane in range(lanes):
                 seen[seg, lane:seg_chunks:lanes] += 1
     assert (seen == 1).all()
+
+
+def test_device_ms_retakes_windows_with_dropped_records(monkeypatch):
+    """eval/roofline.device_ms on a profiler that drops kernel records: each
+    window follows a step the schedule discards; a window that records no
+    named kernel, or fewer than `calls` launches of a name some window
+    recorded, is taken again; a full window gives the per-call sum of each
+    name, 0 for an alternative no window recorded; when every window falls
+    short it raises. (The profiler is faked: no card here.)"""
+    from torch.autograd import DeviceType
+
+    from cuvs_rag_tpu_torch.eval import roofline
+
+    class Event:
+        def __init__(self, key, count, us):
+            self.key, self.count = key, count
+            self.self_device_time_total = us
+            self.device_type = DeviceType.CUDA
+
+    def run(windows, names, calls=20):
+        taken = []
+
+        class Profile:
+            def __init__(self, activities, schedule):
+                self.events = windows[len(taken)]
+                self.steps = 0
+                taken.append(self)
+
+            def step(self):
+                self.steps += 1
+
+            def __enter__(self):
+                return self
+
+            def __exit__(self, *exc):
+                return False
+
+            def key_averages(self):
+                return [Event(*e) for e in self.events]
+
+        monkeypatch.setattr(torch.profiler, "profile", Profile)
+        monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+        got = roofline.device_ms(lambda: None, names, calls)
+        # a discarded step before each window
+        assert all(p.steps == 2 for p in taken)
+        return got, len(taken)
+
+    k6 = ("pq_adc_kernel",)
+    assert run([[("pq_adc_kernel(a)", 5, 50.0)],
+                [("pq_adc_kernel(a)", 20, 200.0)]], k6) == (
+        {"pq_adc_kernel": 0.01}, 2)
+    # two kernels a call, one name each: the per-call sum of each
+    assert run([[("scan_kernel", 20, 400.0), ("merge_kernel", 20, 40.0)]],
+               ("scan", "merge")) == ({"scan": 0.02, "merge": 0.002}, 1)
+    # alternatives of which a call runs one (K4's scans), and the merge
+    k4 = ("ring_kernel", "scan_kernel", "merge_kernel")
+    assert run([[("scan_kernel", 20, 400.0), ("merge_kernel", 20, 40.0)]],
+               k4) == ({"ring_kernel": 0.0, "scan_kernel": 0.02,
+                        "merge_kernel": 0.002}, 1)
+    # a merge short in one window, then missing from the next: both taken
+    # again, since a call runs it
+    assert run([[("ring_kernel", 20, 100.0), ("merge_kernel", 6, 12.0)],
+                [("ring_kernel", 20, 100.0)],
+                [("ring_kernel", 20, 100.0), ("merge_kernel", 20, 40.0)]],
+               k4) == ({"ring_kernel": 0.005, "scan_kernel": 0.0,
+                        "merge_kernel": 0.002}, 3)
+    for windows in ([[("pq_adc_kernel", 5, 60.0)], [], [("x", 1, 1.0)]],
+                    [[], [], [("pq_adc_kernel", 4, 48.0)]], [[], [], []]):
+        with pytest.raises(RuntimeError, match="3 windows"):
+            run(windows, k6 + ("absent",))
