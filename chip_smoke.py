@@ -152,6 +152,35 @@ is non-zero):
                one NCCL rank a visible card) running the multi-process
                worker, every rank's MULTIHOST OK checksum against the numpy
                oracle, the per-rank checkpoint in a temporary directory.
+ 18. bench_main — cuvs_rag_tpu_torch.bench (the JAX package's bench.py
+               ported) in this process at its full size: the headline over
+               2,000,000 x 768 bf16 and every row; the line's metric is
+               bench.py's and its keys exactly bench.py's (no row
+               skipped); the headline, k = 2,000 and the clustered
+               corpus's exact searches equal the fp64 exact top-k of the
+               same rows (utils/compare.hold_exact_search: distances
+               within the search's rounding, ids up to ties within it);
+               K2 (int8 x int8), K4 and K5 at the rows' shapes against
+               their plain versions (bench_kernel_rows).
+ 19. north_star_main — scripts/bench_10m at 10,000,000 x 768, int8
+               IVF-Flat over 4,096 lists built from 80 streamed chunks:
+               recall@10 at nprobe 10 >= 0.95 (BASELINE.json's target);
+               K4 (int8) at each nprobe against its plain version; the
+               streamed ground truth over the first 2M rows and one
+               flat.search of them both held by hold_exact_search.
+ 20. capacity_main — scripts/bench_pq_capacity at CAP_ROWS x 768: a
+               codes-only IVF-PQ (OPQ, 8,192 lists), the card's rows in a
+               MemmapStore in a temporary directory, refine x16 on the
+               host: refined recall@10 at 20 probes >= 0.95, the refined
+               distances exact for their ids, peak device memory beside
+               the raw rows' bytes; K6 over its index against its plain
+               version.
+ 21. scripts_main — items 5-12 of scripts/ (batch-1 latency, k = 2,000,
+               int8 flat, int8 IVF-Flat, IVF-PQ 8 / 4 bits, filters, the
+               tuner, the family curves) at 400,000 x 768, their lines
+               parsed and their exact halves held as in bench_main.
+     Phases 18-21's launches join the kernels line's (not those of the
+     kernel rows held after each).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -2186,23 +2215,26 @@ def pq_positions_hold(ix, q) -> int:
     return int((got[1] >= 0).sum())
 
 
-def pq_shape_row(shape: str, args, kw) -> dict:
+def pq_shape_row(shape: str, args, kw, profile: bool = True) -> dict:
     """K6 at one call shape: held by `pq_hold` (both id modes, the route of
     every block), then timed through its wrapper (CUDA events: where the
-    host is the slower side, its launch path), on the device (its kernel's
-    own time, torch.profiler) and as the plain version, beside its
-    bound."""
+    host is the slower side, its launch path), with `profile` on the
+    device (its kernel's own time, torch.profiler), and as the plain
+    version, beside its bound."""
     from cuvs_rag_tpu_torch.eval.roofline import cuda_ms, device_ms
     from cuvs_rag_tpu_torch.ops import pq_kernels as pk
 
     held = pq_hold(args, kw)
     fn = lambda: pk.pq_adc_scores(*args, **kw, positions=True)  # noqa: E731
-    return {
-        "shape": shape, **held, "plan": list(pk.adc_plan(args[0].shape[0])),
-        "ms": cuda_ms(fn, 20),
-        "device_ms": device_ms(fn, ("pq_adc_kernel",), 20)["pq_adc_kernel"],
-        "plain_ms": cuda_ms(lambda: pk.pq_adc_scores_plain(*args, **kw), 10),
-        **pq_bound(*args, **kw), "library_ms": None}
+    out = {"shape": shape, **held,
+           "plan": list(pk.adc_plan(args[0].shape[0])), "ms": cuda_ms(fn, 20)}
+    if profile:
+        out["device_ms"] = device_ms(fn, ("pq_adc_kernel",),
+                                     20)["pq_adc_kernel"]
+    return {**out,
+            "plain_ms": cuda_ms(lambda: pk.pq_adc_scores_plain(*args, **kw),
+                                10),
+            **pq_bound(*args, **kw), "library_ms": None}
 
 
 def shard_kernel_rows(family: str, ix, q) -> dict:
@@ -2878,7 +2910,6 @@ def cli_kernel_rows(corpus, queries, sub_flat, sub_q16) -> dict:
 
     from cuvs_rag_tpu_torch.index import flat, ivf_flat, ivf_pq
     from cuvs_rag_tpu_torch.ops import flat_kernels as fk
-    from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
     from cuvs_rag_tpu_torch.utils.config import (
         FlatParams, IVFFlatParams, IVFPQParams)
 
@@ -2906,27 +2937,8 @@ def cli_kernel_rows(corpus, queries, sub_flat, sub_q16) -> dict:
         (sx.vectors, sx.sqnorms, sub_q16, sx.n_valid, sx.scales),
         dict(k=K_LARGE, metric=sq), flat_bound)
     iv = ivf_flat.build(IVFFlatParams(dtype="bfloat16"), corpus)
-    kw = dict(window=iv.max_list_size, metric=sq)
-    route = ik.ivf_route(iv.vectors.dtype, CLI_DIM)
-    for name, qs, k in (("ivf_scan", q, 10), ("ivf_scan_large", q16,
-                                             K_LARGE)):
-        p = ivf_flat.probe(iv, qs, N_PROBES)[0].long()
-        a = (iv.vectors, iv.sqnorms, iv.scales, qs, iv.list_offsets[p],
-             iv.list_counts[p])
-        shape = (f"{qs.shape[0]} x {N_PROBES} probes, window "
-                 f"{iv.max_list_size}, {iv.n_lists} lists")
-        if name == "ivf_scan":
-            rows[name] = {**ivf_shape_row(shape, a, dict(kw, k=k)),
-                          "route": route}
-        else:
-            cfg = ik.large_k_config(iv.max_list_size, CLI_DIM, k)
-            if cfg is None:
-                raise AssertionError(
-                    f"K5 takes no window of {iv.max_list_size} at D = "
-                    f"{CLI_DIM}")
-            rows[name] = large_shape_row(
-                name, shape, a, dict(kw, k=k, n_sub=cfg[0], r_planes=cfg[1]),
-                ivf_bound)
+    rows["ivf_scan"] = ivf_kernel_row(iv, q, N_PROBES, 10)
+    rows["ivf_scan_large"] = ivf_kernel_row(iv, q16, N_PROBES, K_LARGE)
     del iv
     px = ivf_pq.build(IVFPQParams(), corpus)
     rows["pq_adc_scores"] = pq_shape_row(
@@ -2936,6 +2948,37 @@ def cli_kernel_rows(corpus, queries, sub_flat, sub_q16) -> dict:
     del px
     torch.cuda.empty_cache()
     return rows
+
+
+def ivf_kernel_row(iv, qs, n_probes: int, k: int, profile: bool = True
+                   ) -> dict:
+    """K4 (k <= 32) or K5 over the IVF-Flat index `iv` at queries `qs` and
+    `n_probes` probes, its arguments formed as ivf_flat.search forms them
+    (int8 rows with their probes' coarse term): held and timed by
+    `ivf_shape_row` (K4, with its route) or `large_shape_row` (K5, with
+    its plan)."""
+    from cuvs_rag_tpu_torch.index import ivf_flat
+    from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
+
+    probes, coarse_ip = ivf_flat.probe(iv, qs, n_probes)
+    p = probes.long()
+    a = (iv.vectors, iv.sqnorms, iv.scales, qs.float(), iv.list_offsets[p],
+         iv.list_counts[p])
+    kw = dict(window=iv.max_list_size, metric="sqeuclidean",
+              coarse_ip=coarse_ip, k=k)
+    shape = (f"{qs.shape[0]} x {n_probes} probes, k = {k}, window "
+             f"{iv.max_list_size}, {iv.n_lists} lists, "
+             f"{str(iv.vectors.dtype)[6:]} x {iv.dim}")
+    if k <= ik.MAX_KERNEL_K:
+        return {**ivf_shape_row(shape, a, kw, profile),
+                "route": ik.ivf_route(iv.vectors.dtype, iv.dim)}
+    cfg = ik.large_k_config(iv.max_list_size, iv.dim, k)
+    if cfg is None:
+        raise AssertionError(f"K5 takes no window of {iv.max_list_size} at "
+                             f"D = {iv.dim}")
+    return large_shape_row("ivf_scan_large", shape, a,
+                           dict(kw, n_sub=cfg[0], r_planes=cfg[1]), ivf_bound,
+                           profile)
 
 
 def cli_main_path() -> dict:
@@ -3135,6 +3178,273 @@ def multiproc_main_path() -> dict:
             "checkpoint_files": files, "torchrun_seconds": seconds}
 
 
+# ---------------------------------------------- measurement entry points ---
+# cuvs_rag_tpu_torch/bench.py and scripts/, run in this process.
+# bench_main and north_star_main run at their full sizes. capacity_main
+# runs at CAP_ROWS: its memmap store is written to disk, and a chip
+# machine ends a command that writes more than 45 GiB (the full ladder's
+# 60M rows are 92 GB); at 4M rows its 8,192 lists hold ~490 rows each and
+# refined recall sits at the gate. scripts_main runs items 5-12 at
+# SCRIPT_ROWS x 768 with the lists per row of their 2M defaults (above
+# flat's 262,144-row dense threshold, so the flat kernels run). The kernel
+# rows held after bench_main, north_star_main and capacity_main are timed
+# by CUDA events only: late in a run torch.profiler has recorded none of
+# K6's launches in three windows in a row at the capacity shape, and
+# those rows are there for their holds.
+CAP_ROWS = 12_000_000
+CAP_REFINE = 16
+CAP_PROBES = 20
+CAP_RECALL_FLOOR = 0.95  # BASELINE.json's recall@10 target
+NORTH_STAR_RECALL_FLOOR = 0.95  # BASELINE.json's, at nprobe 10
+NORTH_STAR_CHECK_CHUNKS = 16  # 2M rows: one flat index over them fits
+SCRIPT_ROWS = 400_000
+SCRIPT_LISTS = SCRIPT_ROWS // 1000
+SCRIPT_KERNELS = ("flat_topk_exact", "flat_topk_large", "ivf_scan",
+                  "pq_adc_scores")
+
+
+def exact_holder(held: dict):
+    """hold(name, corpus, queries, distances, ids) for the entry points'
+    exact rows: utils/compare.hold_exact_search (the exact top-k in fp64,
+    distances within the search's rounding, ids up to ties within it);
+    records the largest error / allowed under the row's name."""
+    from cuvs_rag_tpu_torch.utils.compare import hold_exact_search
+
+    def hold(name, corpus, queries, dist, ids):
+        held[name] = hold_exact_search(corpus, queries, dist, ids)
+
+    return hold
+
+
+def bench_py_keys() -> set:
+    """The keys of the JAX package's bench.py line's `extra`, read from its
+    source: its _emit's fields and every row it writes."""
+    import re
+
+    src = open(os.path.join(HERE, "bench.py")).read()
+    emit_extra = src[src.index("    extra = {"):]
+    emit_extra = emit_extra[:emit_extra.index("}")]
+    return set(re.findall(r'"([a-z0-9_]+)":', emit_extra)) \
+        | set(re.findall(r'rows\["([a-z0-9_]+)"\]', src))
+
+
+def bench_kernel_rows(args) -> dict:
+    """K2, K4 and K5 at the shapes bench.py's rows give them, over the
+    same builds (bench's seeds and params, made again here), held and
+    timed as `cli_kernel_rows` holds them (K2 int8 x int8 bit for bit by
+    `sketch_hold`, K4 by TOL and `ivf_hold`, K5 by `large_hold`): K2 over
+    the headline corpus's int8 flat index (sketch_int8: 100 queries, k =
+    5), K4 and K5 over the clustered corpus's bf16 IVF-Flat index (ivf_bf16:
+    100 queries x 10 probes, k = 10; ivf_k2000: 100 queries x 20 probes, k
+    = 2,000). Launches made here are not counted."""
+    import torch
+
+    from cuvs_rag_tpu_torch import bench
+    from cuvs_rag_tpu_torch.index import flat, ivf_flat
+    from cuvs_rag_tpu_torch.ops import flat_kernels as fk
+    from cuvs_rag_tpu_torch.scripts import common
+    from cuvs_rag_tpu_torch.utils.config import FlatParams, IVFFlatParams
+
+    dev = common.device_of(args)
+    n, d = args.n, args.dim
+    gauss = common.Gaussian(d)
+    ix8 = flat.build(FlatParams(dtype="int8", tile_n=8192), common.make_corpus(
+        bench.SEED + bench.S_CORPUS, n, gauss, dev))
+    q0 = common.make_queries(bench.SEED, bench.S_QUERY, bench.BATCH, gauss,
+                             dev)
+    rows = {"flat_topk_sketch": {
+        **sketch_shape_row(
+            f"{bench.BATCH} x {n} x {d} int8 x int8",
+            (ix8.vectors, ix8.sqnorms, q0, ix8.n_valid, ix8.scales),
+            dict(k=bench.K, metric="sqeuclidean",
+                 tile_c=min(ix8.tile_n, 2048), int8_compute=True)),
+        "route": fk.sketch_route(ix8.vectors.dtype, d)}}
+    del ix8
+    geo = common.clustered(bench.SEED, args.n_lists, d, 0.3, dev)
+    iv = ivf_flat.build(
+        IVFFlatParams(n_lists=args.n_lists, dtype="bfloat16"),
+        common.make_corpus(bench.SEED + bench.S_CLUSTERED, n, geo, dev))
+    qc = common.make_queries(bench.SEED, bench.S_CQUERY, bench.BATCH, geo,
+                             dev)
+    rows["ivf_scan"] = ivf_kernel_row(iv, qc, 10, 10, profile=False)
+    rows["ivf_scan_large"] = ivf_kernel_row(iv, qc, 20, bench.K_LARGE,
+                                            profile=False)
+    del iv
+    torch.cuda.empty_cache()
+    return rows
+
+
+def bench_main_path() -> dict:
+    """cuvs_rag_tpu_torch.bench at its full size (2M x 768, every row):
+    the line's metric is bench.py's at N, D, K, BATCH; its `extra` keys are
+    exactly bench.py's (no row skipped); the headline, k = 2,000 and the
+    clustered corpus's exact searches pass hold_exact_search. Its launches of
+    K1-K6 are the path's."""
+    from cuvs_rag_tpu_torch import bench
+
+    held = {}
+    args = bench.parse_args([])
+    reset_launches()
+    payload = bench.run(args, hold=exact_holder(held))
+    launches = read_launches(CLI_KERNELS)
+    want = bench.metric_name(args.n, args.dim)
+    if payload["metric"] != want:
+        raise AssertionError(f"bench metric {payload['metric']} != {want}")
+    keys = set(payload["extra"])
+    if keys != bench_py_keys():
+        raise AssertionError(
+            f"bench rows differ from bench.py's: missing "
+            f"{sorted(bench_py_keys() - keys)}, extra "
+            f"{sorted(keys - bench_py_keys())}")
+    if sorted(held) != ["clustered_oracle", "exact_k2000", "headline",
+                        "ivf_k2000_exact"]:
+        raise AssertionError(f"exact rows held: {sorted(held)}")
+    return {"line": payload, "exact_err_over_allowed": held,
+            "launches": launches, "kernels": bench_kernel_rows(args)}
+
+
+def north_star_main_path() -> dict:
+    """scripts/bench_10m at 10M x 768 int8, 4,096 lists: recall@10 at
+    nprobe 10 >= NORTH_STAR_RECALL_FLOOR (its launches of K4 are the
+    path's); K4 over its index at each of its probe counts, held against
+    its plain version (`ivf_kernel_row`; launches not counted); then the
+    streamed ground truth (each chunk through flat.search) over the first
+    NORTH_STAR_CHECK_CHUNKS chunks and one flat.search over their
+    concatenation (K1, 100 queries), both held by hold_exact_search, so
+    equal up to ties within their roundings."""
+    import torch
+
+    from cuvs_rag_tpu_torch.index import flat
+    from cuvs_rag_tpu_torch.scripts import bench_10m, common
+    from cuvs_rag_tpu_torch.utils.compare import hold_exact_search
+    from cuvs_rag_tpu_torch.utils.config import FlatParams
+
+    args = bench_10m.parse_args([])
+    reset_launches()
+    out = bench_10m.run(args)
+    launches = read_launches(("ivf_scan",))
+    rec = out["probes"][10]["recall_at_10"]
+    if rec < NORTH_STAR_RECALL_FLOOR:
+        raise AssertionError(f"north star recall@10 at nprobe 10: {rec}")
+    kernels = {f"ivf_scan_nprobe_{p}": ivf_kernel_row(
+        out["index"], out["queries"], p, bench_10m.K, profile=False)
+        for p in out["probes"]}
+    del out["index"]
+    torch.cuda.empty_cache()
+    chunk_fn, rows, queries = bench_10m.setup(args, common.device_of(args))
+    n_check = NORTH_STAR_CHECK_CHUNKS
+    s_d, s_i = common.streamed_ground_truth(chunk_fn, n_check, rows, queries,
+                                            bench_10m.K)
+    whole = torch.cat([chunk_fn(i) for i in range(n_check)])
+    f_d, f_i = flat.search(None, flat.build(FlatParams(), whole), queries,
+                           bench_10m.K)
+    err = {"streamed": hold_exact_search(whole, queries, s_d, s_i),
+           "flat": hold_exact_search(whole, queries, f_d, f_i)}
+    del whole
+    return {"rows": args.n, "dim": args.dim, "n_lists": args.n_lists,
+            "gt_s": out["gt_s"], "build_s": out["build_s"],
+            "layout_gb": out["layout_gb"], "window": out["window"],
+            "k4_route": out["k4_route"],
+            "peak_memory_gb": out["peak_memory_gb"],
+            "probes": out["probes"], "launches": launches,
+            "kernels": kernels, "streamed_gt_rows_checked": n_check * rows,
+            "streamed_gt_and_flat_err_over_allowed": err}
+
+
+def capacity_main_path() -> dict:
+    """scripts/bench_pq_capacity at CAP_ROWS x 768: codes-only
+    build_from_chunks (OPQ, two-level 8-bit, 8,192 lists), a MemmapStore
+    of the card's rows in a temporary directory (rows held bit-equal to
+    their chunks), ADC-only and refined (x16, host re-rank) at 20 probes.
+    Gates: refined recall@10 >= CAP_RECALL_FLOOR; the refined distances
+    equal the exact distances of their ids (TOL). Its K6 launches are the
+    path's. Then K6 over its index at 100 queries x CAP_PROBES probes,
+    held by `pq_hold` (`pq_shape_row`; launches not counted)."""
+    import tempfile
+
+    from cuvs_rag_tpu_torch.scripts import bench_pq_capacity as cap
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = cap.parse_args([
+            "--n", str(CAP_ROWS), "--opq", "--refine-external",
+            str(CAP_REFINE), "--memmap-store", os.path.join(tmp, "rows.bin"),
+            "--probes", str(CAP_PROBES)])
+        reset_launches()
+        out = cap.run(args)
+        launches = read_launches(PQ_KERNELS)
+    ix, q = out.pop("index"), out["queries"]
+    kernels = {"pq_adc_scores": pq_shape_row(
+        f"{q.shape[0]} x {CAP_PROBES} probes, window {ix.max_list_size}, "
+        f"pq_dim {ix.pq_dim}, {ix.n_lists} lists, OPQ",
+        pq_scan_args(ix, q, CAP_PROBES), dict(window=ix.max_list_size),
+        profile=False)}
+    del ix
+    adc, refined = out["points"]
+    if refined["recall_at_k"] < CAP_RECALL_FLOOR:
+        raise AssertionError(
+            f"capacity refined recall@10 {refined['recall_at_k']}")
+    allowed = TOL["atol"] + TOL["rtol"] * refined["distance_scale"]
+    if not refined["distance_error"] <= allowed:
+        raise AssertionError(
+            f"refined distances off their ids' exact ones by "
+            f"{refined['distance_error']} (allowed {allowed})")
+    return {"rows": CAP_ROWS, "dim": args.dim, "n_lists": args.n_lists,
+            "build_s": out["build_s"], "codes_gb": out["codes_gb"],
+            "layout_gb": out["layout_gb"], "raw_bf16_gb": out["raw_bf16_gb"],
+            "peak_memory_gb": out["peak_memory_gb"],
+            "refine_source": out["refine_source"], "adc_only": adc,
+            "refined": refined, "launches": launches, "kernels": kernels}
+
+
+def scripts_main_path() -> dict:
+    """Items 5-12 of scripts/ at SCRIPT_ROWS x 768 (bench_family_curves
+    on its hard geometry), each line parsed; the exact halves of the A/Bs
+    (flat in bench_batch1, bench_int8_flat and bench_filters, K3 in
+    bench_topk_large) pass hold_exact_search. The launches of K1, K3, K4 and
+    K6 over all eight are the path's."""
+    import contextlib
+    import importlib
+    import io
+    import re
+
+    n = ["--n", str(SCRIPT_ROWS)]
+    lists = ["--n-lists", str(SCRIPT_LISTS)]
+    runs = {  # argv, a pattern each printed line set must hold
+        "bench_batch1": (n + lists, r"flat-exact +wall .* device +[0-9.]+"),
+        "bench_topk_large": (["2000"] + n,
+                             r"id agreement@2000: 1\.00000"),
+        "bench_int8_flat": (n, r"int8 vs bf16 id agreement@5: "),
+        "bench_ivf_int8": (n + lists, r"int8 nprobe=20: .* recall@10="),
+        "bench_ivf_pq": (n + lists, r"pq4 refine=16: .* recall@10="),
+        "bench_filters": (n + lists, r"ivf    search .* warm"),
+        "bench_tune": (n + lists, r"\| cagra \| 0\.99 \|"),
+        "bench_family_curves": (["hard", str(SCRIPT_ROWS)],
+                                r"target 0\.95: "),
+    }
+    held = {}
+    hold = exact_holder(held)
+    out = {"rows": SCRIPT_ROWS, "script_seconds": {}}
+    reset_launches()
+    for name, (argv, pattern) in runs.items():
+        mod = importlib.import_module(f"cuvs_rag_tpu_torch.scripts.{name}")
+        args = mod.parse_args(argv)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.run(args, hold=lambda key, *a, _n=name: hold(
+                f"{_n}.{key}", *a))
+        out["script_seconds"][name] = time.perf_counter() - t0
+        text = buf.getvalue()
+        if not re.search(pattern, text):
+            raise AssertionError(f"{name} printed no {pattern!r}:\n{text}")
+        out[name] = text.splitlines()[1:]  # the first names the card
+    out["exact_err_over_allowed"] = held
+    if len(held) != 4:
+        raise AssertionError(f"exact halves held: {sorted(held)}")
+    out["launches"] = read_launches(SCRIPT_KERNELS)
+    return out
+
+
 OWN_KERNELS = ("exact_scan_kernel", "sketch_ring_kernel", "ivf_ring_kernel",
                "ivf_scan_kernel", "merge_partials_kernel", "pq_adc_kernel",
                "flash_attn_wgmma_kernel", "topr_ring_kernel",
@@ -3318,7 +3628,7 @@ def sketch_shape_row(shape: str, args, kw) -> dict:
             "library_ms": sketch_library_ms(args, kw)}
 
 
-def ivf_shape_row(shape: str, args, kw) -> dict:
+def ivf_shape_row(shape: str, args, kw, profile: bool = True) -> dict:
     """K4 at one call shape: held against its plain version (TOL) and
     within `ivf_hold`, then timed beside its bound (`ivf_scan_times`); with
     the distinct non-empty lists that its (query, probe) pairs touch."""
@@ -3334,7 +3644,7 @@ def ivf_shape_row(shape: str, args, kw) -> dict:
             # lists that hold rows have distinct offsets
             "pairs": offs.numel(),
             "distinct_lists": int(offs[cnts > 0].unique().numel()),
-            **ivf_scan_times(args, kw), **ivf_bound(*args, **kw),
+            **ivf_scan_times(args, kw, profile), **ivf_bound(*args, **kw),
             "library_ms": None}
 
 
@@ -3348,33 +3658,37 @@ LARGE_KERNELS = {"flat_topk_large": ("topr_ring_kernel", "topr_scan_kernel",
                                     "topr_merge_kernel")}
 
 
-def ivf_scan_times(args, kw) -> dict:
+def ivf_scan_times(args, kw, profile: bool = True) -> dict:
     """K4 through its wrapper: "ms" by CUDA events around 20 calls (where
     the wrapper's host work a call outlasts the kernels, that is what it
-    measures) and "device_ms", the scan's and the merge's own device time
-    a call (torch.profiler)."""
+    measures) and, with `profile`, "device_ms", the scan's and the merge's
+    own device time a call (torch.profiler)."""
     from cuvs_rag_tpu_torch.eval.roofline import cuda_ms, device_ms
     from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
 
-    return {"ms": cuda_ms(lambda: ik.ivf_scan(*args, **kw), 20),
-            "device_ms": sum(device_ms(lambda: ik.ivf_scan(*args, **kw),
-                                       K4_KERNELS).values())}
+    out = {"ms": cuda_ms(lambda: ik.ivf_scan(*args, **kw), 20)}
+    if profile:
+        out["device_ms"] = sum(device_ms(lambda: ik.ivf_scan(*args, **kw),
+                                         K4_KERNELS).values())
+    return out
 
 
-def large_times(name: str, args, kw) -> dict:
+def large_times(name: str, args, kw, profile: bool = True) -> dict:
     """K3 or K5 through its wrapper: "ms" by CUDA events around 10 calls,
-    "device_ms" its kernels' own device time a call (torch.profiler; by
-    kernel in "device_ms_by_kernel": scan and merge), and
-    for K3 "library_ms", the one library route to the same top-k (a (Q, N)
-    matmul and torch.topk, as K1's; timed as a yardstick only)."""
+    with `profile` "device_ms" its kernels' own device time a call
+    (torch.profiler; by kernel in "device_ms_by_kernel": scan and merge),
+    and for K3 "library_ms", the one library route to the same top-k (a
+    (Q, N) matmul and torch.topk, as K1's; timed as a yardstick only)."""
     from cuvs_rag_tpu_torch.eval.roofline import cuda_ms, device_ms
     from cuvs_rag_tpu_torch.ops import topk as topk_ops
 
     kern = kernel_fns()[name][0]
-    by_kernel = device_ms(lambda: kern(*args, **kw), LARGE_KERNELS[name], 20)
-    out = {"ms": cuda_ms(lambda: kern(*args, **kw), 10),
-           "device_ms": sum(by_kernel.values()),
-           "device_ms_by_kernel": by_kernel, "library_ms": None}
+    out = {"ms": cuda_ms(lambda: kern(*args, **kw), 10), "library_ms": None}
+    if profile:
+        by_kernel = device_ms(lambda: kern(*args, **kw), LARGE_KERNELS[name],
+                              20)
+        out.update(device_ms=sum(by_kernel.values()),
+                   device_ms_by_kernel=by_kernel)
     if name == "flat_topk_large":
         lib = dict(k=kw["k"], metric=kw["metric"])
         out["library_ms"] = cuda_ms(
@@ -3382,7 +3696,8 @@ def large_times(name: str, args, kw) -> dict:
     return out
 
 
-def large_shape_row(name: str, shape: str, args, kw, bound_fn) -> dict:
+def large_shape_row(name: str, shape: str, args, kw, bound_fn,
+                    profile: bool = True) -> dict:
     """K3 or K5 at one call shape: `large_hold`, `large_times` and the
     bound; with the plan the wrapper chose."""
     from cuvs_rag_tpu_torch.ops import flat_kernels as fk
@@ -3405,7 +3720,7 @@ def large_shape_row(name: str, shape: str, args, kw, bound_fn) -> dict:
             n_q, kw["window"], kw["n_sub"], args[4].shape[1], kw["r_planes"],
             args[0].shape[1], args[0].dtype, fk._sm_count(args[0].device))))
     return {"shape": shape, "plan": plan, **large_hold(name, args, kw),
-            **large_times(name, args, kw), **bound_fn(*args, **kw)}
+            **large_times(name, args, kw, profile), **bound_fn(*args, **kw)}
 
 
 def timing_phase(flat_r, ivf_r, pq_r, ooc_r, enc, texts, launches: dict):
@@ -3908,6 +4223,18 @@ def main() -> int:
     multiproc_out = multiproc_main_path()
     emit("multiproc_main", gpu=gpu, seconds=time.perf_counter() - t0,
          **multiproc_out)
+    torch.cuda.empty_cache()
+    for phase, path in (("bench_main", bench_main_path),
+                        ("north_star_main", north_star_main_path),
+                        ("capacity_main", capacity_main_path),
+                        ("scripts_main", scripts_main_path)):
+        t0 = time.perf_counter()
+        out = path()
+        emit(phase, gpu=gpu, seconds=time.perf_counter() - t0, **out)
+        for row in kernels:  # the entry points' launches join the others'
+            row["launches"] += out["launches"].get(row["name"], 0)
+        del out
+        torch.cuda.empty_cache()
 
     kernels += qwen_rows + stream_rows
     k1_shapes = [e2e["flat_topk_exact_one_query"],

@@ -85,3 +85,62 @@ def compare_planes(kp, pp, bound_fn) -> tuple:
     if not worst <= 1.0:
         raise AssertionError(f"planes off by {worst} times the slack")
     return worst, slack
+
+
+def hold_exact_search(corpus, queries, distances, ids,
+                      chunk: int = 262_144) -> float:
+    """Hold a flat search's (Q, k) squared-L2 (distances, ids) over `corpus`
+    (its stored rows, any float dtype) to the exact answer in fp64. Each
+    returned distance must lie within what a flat search's fp32 arithmetic
+    may lose against the fp64 distance of its own row; no row may come
+    twice; and no returned row may lie farther than the exact k-th by more
+    than that, so the set is the exact top-k up to ties within rounding.
+    The allowed error of a (query, row) pair is
+
+        2^-22 * D * (sum_i |q'_i x_i| + |q|^2 + |x|^2) + 2^-23 * |d|
+
+    q' being the query in the storage dtype, as flat search scores it: the
+    D fp32 adds of the product (each losing at most a unit in the last
+    place of a partial sum bounded by sum_i |q'_i x_i|, doubled as the
+    product is), those of the two norms, and the final subtractions.
+    Returns the largest error / allowed; raises AssertionError."""
+    import torch
+
+    dist = torch.as_tensor(distances).to(corpus.device, torch.float64)
+    ids = torch.as_tensor(ids).to(corpus.device, torch.int64)
+    q = queries.to(corpus.device).double()
+    qr = queries.to(corpus.device, corpus.dtype).double()
+    qsq = (q * q).sum(1, keepdim=True)
+    n, d = corpus.shape
+    k = ids.shape[1]
+    kth = torch.full((q.shape[0], min(k, n)), float("inf"),
+                     dtype=torch.float64, device=q.device)
+    for s in range(0, n, chunk):  # the exact k nearest distances, in fp64
+        x = corpus[s:s + chunk].double()
+        dd = qsq + (x * x).sum(1)[None, :] - 2 * qr @ x.T
+        kth = torch.topk(torch.cat([kth, dd], 1), kth.shape[1], dim=1,
+                         largest=False).values
+    kth = kth[:, -1:]
+    if bool((ids[:, :min(k, n)] < 0).any()):
+        raise AssertionError("fewer results than the corpus holds rows")
+    live = ids >= 0
+    srt = torch.where(live, ids, -1 - torch.arange(
+        k, device=ids.device)[None, :].expand_as(ids)).sort(1).values
+    if bool((srt[:, 1:] == srt[:, :-1]).any()):
+        raise AssertionError("a row returned twice")
+    x = corpus[ids.clamp(min=0)].double()
+    d64 = qsq + (x * x).sum(2) - 2 * torch.einsum("qd,qkd->qk", qr, x)
+    mag = torch.einsum("qd,qkd->qk", qr.abs(), x.abs())
+    allowed = 2.0 ** -22 * d * (mag + qsq + (x * x).sum(2)) \
+        + 2.0 ** -23 * d64.abs()
+    ratio = ((dist - d64).abs() / allowed)[live]
+    worst = float(ratio.max()) if ratio.numel() else 0.0
+    if not worst <= 1.0:
+        raise AssertionError(f"a distance is off by {worst} times what the "
+                             "search's roundings allow")
+    far = (d64 > kth + allowed) & live
+    if bool(far.any()):
+        raise AssertionError(
+            f"{int(far.sum())} returned rows lie beyond the exact k-th "
+            "by more than rounding")
+    return worst

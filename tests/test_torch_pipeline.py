@@ -298,6 +298,14 @@ def test_import_leaves_jax_out():
         "from cuvs_rag_tpu_torch.eval import sweeps, topic_recall, tune\n"
         "from cuvs_rag_tpu_torch import main\n"
         "from cuvs_rag_tpu_torch.infra import multihost_worker\n"
+        "from cuvs_rag_tpu_torch import bench\n"
+        "from cuvs_rag_tpu_torch.scripts import common, bench_10m\n"
+        "from cuvs_rag_tpu_torch.scripts import bench_pq_capacity\n"
+        "from cuvs_rag_tpu_torch.scripts import bench_batch1, bench_filters\n"
+        "from cuvs_rag_tpu_torch.scripts import bench_family_curves\n"
+        "from cuvs_rag_tpu_torch.scripts import bench_int8_flat\n"
+        "from cuvs_rag_tpu_torch.scripts import bench_ivf_int8, bench_ivf_pq\n"
+        "from cuvs_rag_tpu_torch.scripts import bench_topk_large, bench_tune\n"
         "import runpy, os\n"
         "ex = os.path.join('cuvs_rag_tpu_torch', 'examples')\n"
         "for f in sorted(os.listdir(ex)):\n"
