@@ -19,6 +19,7 @@ from cuvs_rag_tpu_torch.index import base
 from cuvs_rag_tpu_torch.ops import distance as dist_ops
 from cuvs_rag_tpu_torch.ops import flat_kernels
 from cuvs_rag_tpu_torch.ops import topk as topk_ops
+from cuvs_rag_tpu_torch.utils import profiling
 from cuvs_rag_tpu_torch.utils.config import FlatParams, Metric
 from cuvs_rag_tpu_torch.utils.metrics import default_registry
 
@@ -274,21 +275,23 @@ def search(
     32 < k <= 8192 above the dense threshold takes the certified large-k
     kernel; when any row fails its certificate the exact scan re-runs (and
     `flat.certificate_reruns` counts it), so results are always exact.
+    The call is the span `flat.search`.
     """
-    queries = base.validate_queries(
-        base.as_tensor(queries, index.device), index.dim
-    )
-    if _use_kernel_large(index, k, search_params):
-        scores, ids, certified = search_scores_large(
-            search_params, index, queries, k)
-        if bool(certified.all()):
-            q = dist_ops.l2_normalize(queries) \
-                if index.metric == Metric.COSINE else queries
-            return dist_ops.scores_to_distances(
-                scores, dist_ops.sqnorms(q), index.metric
-            ), ids
-        default_registry.inc("flat.certificate_reruns")
-        return _search_core(search_params, index, queries, k, False)
-    return _search_core(
-        search_params, index, queries, k, _use_kernel(index, k)
-    )
+    with profiling.span("flat.search"):
+        queries = base.validate_queries(
+            base.as_tensor(queries, index.device), index.dim
+        )
+        if _use_kernel_large(index, k, search_params):
+            scores, ids, certified = search_scores_large(
+                search_params, index, queries, k)
+            if bool(certified.all()):
+                q = dist_ops.l2_normalize(queries) \
+                    if index.metric == Metric.COSINE else queries
+                return dist_ops.scores_to_distances(
+                    scores, dist_ops.sqnorms(q), index.metric
+                ), ids
+            default_registry.inc("flat.certificate_reruns")
+            return _search_core(search_params, index, queries, k, False)
+        return _search_core(
+            search_params, index, queries, k, _use_kernel(index, k)
+        )

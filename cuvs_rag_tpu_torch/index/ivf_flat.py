@@ -28,6 +28,7 @@ from cuvs_rag_tpu_torch.ops import ivf as ivf_ops
 from cuvs_rag_tpu_torch.ops import ivf_kernels
 from cuvs_rag_tpu_torch.ops import kmeans as kmeans_ops
 from cuvs_rag_tpu_torch.ops import topk as topk_ops
+from cuvs_rag_tpu_torch.utils import profiling
 from cuvs_rag_tpu_torch.utils.config import (
     IVFFlatParams, IVFFlatSearchParams, Metric)
 from cuvs_rag_tpu_torch.utils.metrics import default_registry
@@ -504,15 +505,19 @@ def probe(index: IVFFlatIndex, queries: torch.Tensor, n_probes: int,
     """((Q, P) probed list ids, (Q, P) coarse_ip or None): the lists each
     query probes and, for int8 residual storage, the per-probe coarse
     inner product mult·q·c that joins the window score (x̂ = c + s·r).
-    `metric` overrides the index's (the kernels' parity checks)."""
+    `metric` overrides the index's (the kernels' parity checks). The call
+    is the span `ivf_flat.probe`."""
     metric = metric or index.metric
-    coarse_scores, probes = ivf_ops.probe_lists(
-        queries, index.centroids, index.centroid_sqnorms, n_probes, metric)
-    coarse_ip = None
-    if index.vectors.dtype == torch.int8:
-        # probe scores are 2q·c - ||c||² (sqeuclidean) or q·c (ip)
-        coarse_ip = coarse_scores + index.centroid_sqnorms[probes.long()] \
-            if metric == Metric.SQEUCLIDEAN else coarse_scores
+    with profiling.span("ivf_flat.probe"):
+        coarse_scores, probes = ivf_ops.probe_lists(
+            queries, index.centroids, index.centroid_sqnorms, n_probes,
+            metric)
+        coarse_ip = None
+        if index.vectors.dtype == torch.int8:
+            # probe scores are 2q·c - ||c||² (sqeuclidean) or q·c (ip)
+            coarse_ip = coarse_scores \
+                + index.centroid_sqnorms[probes.long()] \
+                if metric == Metric.SQEUCLIDEAN else coarse_scores
     return probes, coarse_ip
 
 
@@ -584,20 +589,21 @@ def search(search_params, index: IVFFlatIndex, queries, k: int
     `large_k_config` admits it; a failed certificate (Poisson-rare) re-runs
     scan_probed_lists and counts `ivf_flat.certificate_reruns`, so results
     always equal the exact top-k of the probed lists. Anything else runs
-    scan_probed_lists."""
-    queries = base.validate_queries(base.as_tensor(queries, index.device),
-                                    index.dim)
-    if k <= ivf_kernels.MAX_KERNEL_K:
-        scores, ids = search_scores(search_params, index, queries, k,
-                                    use_kernel=True)
-        return _to_distances(scores, index, queries), ids
-    cfg = ivf_kernels.large_k_config(index.max_list_size, index.dim, k)
-    if cfg is not None:
-        scores, ids, cert = search_scores_large(search_params, index,
-                                                queries, k, *cfg)
-        if bool(cert.all()):
+    scan_probed_lists. The call is the span `ivf_flat.search`."""
+    with profiling.span("ivf_flat.search"):
+        queries = base.validate_queries(
+            base.as_tensor(queries, index.device), index.dim)
+        if k <= ivf_kernels.MAX_KERNEL_K:
+            scores, ids = search_scores(search_params, index, queries, k,
+                                        use_kernel=True)
             return _to_distances(scores, index, queries), ids
-        default_registry.inc("ivf_flat.certificate_reruns")
-    scores, ids = search_scores(search_params, index, queries, k,
-                                use_kernel=False)
-    return _to_distances(scores, index, queries), ids
+        cfg = ivf_kernels.large_k_config(index.max_list_size, index.dim, k)
+        if cfg is not None:
+            scores, ids, cert = search_scores_large(search_params, index,
+                                                    queries, k, *cfg)
+            if bool(cert.all()):
+                return _to_distances(scores, index, queries), ids
+            default_registry.inc("ivf_flat.certificate_reruns")
+        scores, ids = search_scores(search_params, index, queries, k,
+                                    use_kernel=False)
+        return _to_distances(scores, index, queries), ids

@@ -13,6 +13,7 @@ CPU tensor — never a fallback from one to the other:
 
 Each wrapper counts its kernel launches in `<wrapper>.launches`, a plain
 int that a run resets and reads to show which kernels it went through.
+K1's launch call is the span `kernel.launch` (utils/profiling).
 
 Shared input contract (as the TPU kernels'): corpus (N, D) fp32, bf16 or
 int8 rows; corpus_sqnorms (N,) fp32 with tombstoned rows raised past
@@ -35,6 +36,7 @@ import torch
 
 from cuvs_rag_tpu_torch.ops import distance as dist_ops
 from cuvs_rag_tpu_torch.ops import topk as topk_ops
+from cuvs_rag_tpu_torch.utils import profiling
 from cuvs_rag_tpu_torch.utils.config import Metric
 
 MAX_KERNEL_K = 32  # K1/K2 keep a warp-held top-k: one lane per slot
@@ -357,8 +359,10 @@ def flat_topk_exact(corpus, corpus_sqnorms, queries, n_valid,
     part_i = torch.empty((n_q, n_splits, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((n_q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_q, k), dtype=torch.int32, device=dev)
-    with build.device_guard(dev):
-        err = build.load(_SOURCE).flat_exact_topk(
+    lib = build.load(_SOURCE)
+    with build.device_guard(dev), profiling.span(
+            "kernel.launch", kernel="K1", device=dev.index):
+        err = lib.flat_exact_topk(
             _COMBO[corpus.dtype], int(ring), _ptr(queries), _ptr(corpus),
             _ptr(sqnorms), _ptr(scales),
             n_q, d, n, int(n_valid), int(metric == Metric.SQEUCLIDEAN), k,

@@ -8,7 +8,8 @@ CPU tensor — never a fallback from one to the other:
   ivf_scan        (K4) replaces ivf_scan_pallas (k <= 32)
   ivf_scan_large  (K5) replaces ivf_scan_pallas_large (certified large k)
 
-Each wrapper counts its kernel launches in `<wrapper>.launches`.
+Each wrapper counts its kernel launches in `<wrapper>.launches`; K4's
+launch call is the span `kernel.launch` (utils/profiling).
 
 Input contract (ivf_scan_pallas's, without its 128-alignment asserts):
 sorted_vectors (cap, D) fp32, bf16 or int8 residual rows; sorted_sqnorms
@@ -30,6 +31,7 @@ import torch
 from cuvs_rag_tpu_torch.ops import distance as dist_ops
 from cuvs_rag_tpu_torch.ops import flat_kernels
 from cuvs_rag_tpu_torch.ops import topk as topk_ops
+from cuvs_rag_tpu_torch.utils import profiling
 from cuvs_rag_tpu_torch.utils.config import Metric
 
 MAX_KERNEL_K = 32  # K4 keeps a warp-held top-k: one lane per slot
@@ -307,8 +309,10 @@ def ivf_scan(sorted_vectors, sorted_sqnorms, sorted_scales, queries,
     args = [q, flat_kernels._aligned(sorted_vectors.contiguous()),
             sorted_sqnorms, sorted_scales, offs, cnts, coarse]
     args = [t.contiguous() for t in args]  # held until the call returns
-    with build.device_guard(dev):
-        err = build.load(_SOURCE).ivf_scan_topk(
+    lib = build.load(_SOURCE)
+    with build.device_guard(dev), profiling.span(
+            "kernel.launch", kernel="K4", device=dev.index):
+        err = lib.ivf_scan_topk(
             _COMBO[sorted_vectors.dtype], int(route == "ring"),
             *(t.data_ptr() for t in args), q_n, p_n, d, window,
             int(metric == Metric.SQEUCLIDEAN),

@@ -20,6 +20,8 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
+from cuvs_rag_tpu_torch.utils import profiling
+
 
 @dataclasses.dataclass(frozen=True)
 class DeviceInfo:
@@ -121,23 +123,31 @@ class DeviceMesh:
         the inputs were made); the current stream waits for every side
         stream before it reads their outputs, and each output is recorded
         on the stream that reads it, so the caching allocator cannot hand
-        its memory out early. On the CPU the positions run in turn."""
-        if self.first.type != "cuda":
-            return [tuple(t.to(self.first) for t in work(i))
-                    for i in positions]
+        its memory out early. On the CPU the positions run in turn. Each
+        work(i) is the span `fan_out.position` (position, device), the
+        waits and copies to the first device the span `fan_out.join`."""
+        cuda = self.first.type == "cuda"
         launched = []
         for i in positions:
-            side = self.stream(i)
-            side.wait_stream(torch.cuda.current_stream(self.devices[i]))
-            with torch.cuda.stream(side):
-                launched.append((i, side, work(i)))
+            dev = self.devices[i]
+            with profiling.span("fan_out.position", position=i,
+                                device=dev.index):
+                if cuda:
+                    side = self.stream(i)
+                    side.wait_stream(torch.cuda.current_stream(dev))
+                    with torch.cuda.stream(side):
+                        launched.append((i, side, work(i)))
+                else:
+                    launched.append((i, None, work(i)))
         outs = []
-        for i, side, out in launched:
-            reader = torch.cuda.current_stream(self.devices[i])
-            reader.wait_stream(side)
-            for t in out:
-                t.record_stream(reader)
-            outs.append(tuple(t.to(self.first) for t in out))
+        with profiling.span("fan_out.join"):
+            for i, side, out in launched:
+                if side is not None:
+                    reader = torch.cuda.current_stream(self.devices[i])
+                    reader.wait_stream(side)
+                    for t in out:
+                        t.record_stream(reader)
+                outs.append(tuple(t.to(self.first) for t in out))
         return outs
 
     def split_sizes(self, total: int, strategy: str = "even") -> List[int]:

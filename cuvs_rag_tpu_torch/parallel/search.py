@@ -54,6 +54,7 @@ from cuvs_rag_tpu_torch.ops import ivf_kernels
 from cuvs_rag_tpu_torch.ops import topk as topk_ops
 from cuvs_rag_tpu_torch.parallel import shard as shard_lib
 from cuvs_rag_tpu_torch.parallel.mesh import DeviceMesh
+from cuvs_rag_tpu_torch.utils import profiling
 from cuvs_rag_tpu_torch.utils.config import Metric
 from cuvs_rag_tpu_torch.utils.metrics import default_registry
 
@@ -565,16 +566,27 @@ def search(search_params, index, queries, k: int,
     """Search an index in any placement -> ((Q, k) distances, (Q, k) ids).
     `allow` (optional): a bool mask over the index's ids (a filtered view;
     CAGRA's post-filter). `search_kw` goes to a single index's family
-    search (the pipeline's out-of-core refine)."""
+    search (the pipeline's out-of-core refine). The call is the span
+    `search` (family, placement, queries)."""
     if isinstance(index, ShardedIndex):
-        return search_sharded(search_params, index, queries, k, dmesh,
-                              allow=allow)
-    if isinstance(index, ReplicatedIndex):
-        return search_replicated(search_params, index, queries, k, dmesh,
-                                 allow=allow)
-    mod = FAMILIES[family_of(index)]
-    if allow is not None:
-        if mod is cagra_family:
-            return filters_lib.search(search_params, index, queries, k, allow)
-        index = filters_lib.filtered_view(index, allow)
-    return mod.search(search_params, index, queries, k, **search_kw)
+        placement, family = "shard", index.family
+    elif isinstance(index, ReplicatedIndex):
+        placement, family = "replicate", index.family
+    else:
+        placement, family = "single", family_of(index)
+    n_queries = 1 if getattr(queries, "ndim", 2) == 1 else len(queries)
+    with profiling.span("search", family=family, placement=placement,
+                        queries=n_queries):
+        if placement == "shard":
+            return search_sharded(search_params, index, queries, k, dmesh,
+                                  allow=allow)
+        if placement == "replicate":
+            return search_replicated(search_params, index, queries, k,
+                                     dmesh, allow=allow)
+        mod = FAMILIES[family]
+        if allow is not None:
+            if mod is cagra_family:
+                return filters_lib.search(search_params, index, queries, k,
+                                          allow)
+            index = filters_lib.filtered_view(index, allow)
+        return mod.search(search_params, index, queries, k, **search_kw)

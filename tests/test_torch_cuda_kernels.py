@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from cuvs_rag_tpu_torch.utils import profiling  # noqa: E402
+
 pytestmark = pytest.mark.cuda
 
 
@@ -408,12 +410,21 @@ def test_search_launches_each_kernel(cuda_device):
     ix = flat.build(FlatParams(dtype="bfloat16"), x)
     before = [fk.flat_topk_exact.launches, fk.flat_topk_sketch.launches,
               fk.flat_topk_large.launches]
-    for k, sp in ((5, None), (5, FlatSearchParams(approx=True)), (100, None)):
-        _, i = flat.search(sp, ix, x[:4], k)
-        assert i[:, 0].tolist() == [0, 1, 2, 3]
+    profiling.clear()
+    profiling.record_spans(True)
+    try:
+        for k, sp in ((5, None), (5, FlatSearchParams(approx=True)),
+                      (100, None)):
+            _, i = flat.search(sp, ix, x[:4], k)
+            assert i[:, 0].tolist() == [0, 1, 2, 3]
+    finally:
+        profiling.record_spans(False)
     after = [fk.flat_topk_exact.launches, fk.flat_topk_sketch.launches,
              fk.flat_topk_large.launches]
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    # K1's launch call, and only K1's, is the span kernel.launch
+    _hold_launch_spans(profiling.spans(), "flat.search", "K1",
+                       x.device.index, 3)
 
 
 def test_ivf_search_launches_each_kernel(cuda_device):
@@ -426,11 +437,40 @@ def test_ivf_search_launches_each_kernel(cuda_device):
     x = torch.randn((20_000, 64), generator=g, device=cuda_device)
     ix = ivf_flat.build(IVFFlatParams(n_lists=40, dtype="bfloat16"), x)
     before = [ik.ivf_scan.launches, ik.ivf_scan_large.launches]
-    for k in (5, 100):
-        _, i = ivf_flat.search(None, ix, x[:4], k)
-        assert i[:, 0].tolist() == [0, 1, 2, 3]
+    profiling.clear()
+    profiling.record_spans(True)
+    try:
+        for k in (5, 100):
+            _, i = ivf_flat.search(None, ix, x[:4], k)
+            assert i[:, 0].tolist() == [0, 1, 2, 3]
+    finally:
+        profiling.record_spans(False)
     after = [ik.ivf_scan.launches, ik.ivf_scan_large.launches]
     assert [a - b for a, b in zip(after, before)] == [1, 1]
+    # K4's launch call, and not K5's, is the span kernel.launch
+    _hold_launch_spans(profiling.spans(), "ivf_flat.search", "K4",
+                       x.device.index, 2)
+
+
+def _hold_launch_spans(spans, family_span, kernel, device, calls):
+    """One kernel.launch span (kernel, device), inside the first of `calls`
+    family searches; every span inside its parent, in its request."""
+    by_id = {s["id"]: s for s in spans}
+    launches = [s for s in spans if s["name"] == "kernel.launch"]
+    assert [s["attrs"] for s in launches] == [{"kernel": kernel,
+                                               "device": device}]
+    tops = [s for s in spans if s["name"] == family_span]
+    assert len(tops) == calls
+    up = by_id[launches[0]["parent"]]
+    while up["name"] != family_span:
+        up = by_id[up["parent"]]
+    assert up is min(tops, key=lambda s: s["start_ns"])
+    for s in spans:
+        if s["parent"] is not None:
+            p = by_id[s["parent"]]
+            assert p["start_ns"] <= s["start_ns"] <= s["end_ns"] \
+                <= p["end_ns"]
+            assert s["request"] == p["request"]
 
 
 def _hold_k6(args, window, positions):
