@@ -3445,7 +3445,8 @@ def scripts_main_path() -> dict:
     return out
 
 
-OWN_KERNELS = ("exact_scan_kernel", "sketch_ring_kernel", "ivf_ring_kernel",
+OWN_KERNELS = ("exact_scan_kernel", "exact_scan_wide_kernel",
+               "sketch_ring_kernel", "ivf_ring_kernel",
                "ivf_scan_kernel", "merge_partials_kernel", "pq_adc_kernel",
                "flash_attn_wgmma_kernel", "topr_ring_kernel",
                "topr_merge_kernel")

@@ -20,10 +20,12 @@
 // one epilogue FMA (no mask passes), the running selections stay in
 // registers (K1/K2) or shared memory (K3), and partials are small.
 //
-// K1 has three routes, chosen by the wrapper from the storage type and depth
-// (ops/flat_kernels.exact_route):
-// - bf16 and int8 rows whose rows are a multiple of 32 bytes: exact_scan_kernel,
-//   the tensor-core route. Reading 4.88 GB in 1.6 ms needs 48 TFLOP/s of
+// K1 has four routes, chosen by the wrapper from the storage type, the depth
+// and the number of queries (ops/flat_kernels.exact_plan):
+// - bf16 and int8 rows whose rows are a multiple of 32 bytes, at most 16
+//   queries: exact_scan_kernel, the tensor-core route of 16-query tiles
+//   (each tile reads the whole corpus; more queries take the wide route
+//   below). Reading 4.88 GB in 1.6 ms needs 48 TFLOP/s of
 //   multiply-adds, beyond CUDA cores fed from shared memory and 5% of the
 //   tensor cores' bf16 rate, so the product is the easy part and feeding it
 //   is the design:
@@ -62,6 +64,60 @@
 //     shared memory once and is read back as (warp = query, lane = row) into
 //     WarpTopK::offer in ascending row order; sqnorms and scales of a
 //     tile's rows are plain loads started before the tile's products.
+// - the same rows at more than 16 queries: exact_scan_wide_kernel. A tile of
+//   16 queries streams the whole corpus through its own ring, so 100
+//   queries read it 7 times (12.3 ms at 6.29M x 384 bf16 against the 1.45
+//   ms bound). The wide kernel reads it once a pass of up to 128 queries:
+//   each landed chunk feeds every query of the pass. At ~130 multiply-adds
+//   a byte the product now needs ~0.5 ms of the tensor cores' bf16 rate,
+//   and mma.sync would re-read every staged query for every chunk, so:
+//   * The product is wgmma with corpus rows as M (the stage's two 64-row
+//     blocks) and the pass's queries as N, staged once a block as 128-byte-
+//     swizzled K-major panels. The query slots (a multiple of 16) are split
+//     between two warpgroups: each multiplies all 128 rows of a tile for its
+//     own N / 2 queries and selects for them alone, with named barriers of
+//     its own 128 threads, so one warpgroup's selection runs under the
+//     other's products (splitting the rows between them instead, where every
+//     selection waits for both: 2.45-2.50 ms against 2.04-2.06 at 100
+//     queries, each with the selection below in its first form).
+//     bf16 rows are read by the tensor cores straight from the ring (both
+//     operands in shared memory), one product group in flight across
+//     chunks; int8 rows go through ldmatrix and are widened to bf16 in
+//     registers, one 64-row block at a time (their depth order staged as
+//     above). bf16 x bf16 products, fp32 sums: flat_rounding_bound holds.
+//   * The ring is copied by TMA from a warp of its own: one box of 128 rows
+//     x 128 bytes a stage (the 128-byte swizzle wgmma reads; zeros past
+//     the corpus), five stages, mbarriers for landed and released stages; a
+//     stage is released when the products that read it are done. Measured
+//     (the row-split kernel, 100 queries): a cp.async ring copied by every
+//     thread with a barrier a chunk 2.78 ms, TMA 2.65; copies alone 1.67
+//     and 1.59 (one streaming read 1.55). Four stages 2.08, six 2.16, five
+//     2.03 ms (the selection's first form).
+//   * Selection computes what the 16-query kernel's does: a WarpTopK a
+//     query, fed in ascending row order within a split. A 64-row block's
+//     scores pass through shared memory as [query][row]; a query is flagged
+//     where one of them beats its k-th best (kept in shared memory: what
+//     does not beat it cannot enter), and only a flagged query is read back
+//     (~6% of blocks over a split at 100 queries), as (warp = query, lane =
+//     row) into its WarpTopK. Each query's top-k waits in shared memory
+//     between its turns, so the warpgroup deals its flagged queries to its
+//     four warps in turn and no warp waits for a busier one by more than a
+//     query (each warp keeping its own queries' top-k in registers left the
+//     warpgroup waiting on its busiest warp at every block: 2.04-2.06 ms
+//     against 1.89-1.90 at 100 queries). It costs 0.19 ms of 1.89 at 100
+//     queries (1.70 without it), most of it the inserts each split makes,
+//     about k (1 + ln(rows / k)) a query.
+//   * Shared memory decides the width: at 128 queries, k = 10 and D = 384,
+//     96 KB of queries, 80 KB of ring, 36 KB of scores and flags and 10 KB
+//     of top-k, one block an SM; the wrapper cuts the query axis into as
+//     few passes as fit (at k = 10: 128 queries a pass at D <= 384, 64 at
+//     768, 48 at 1,024, 32 at 2,048) and the corpus into one split an SM
+//     over the passes.
+//   Measured (NVIDIA H100 80GB HBM3, 700 W, 6.29M x 384 bf16, k = 10): 100
+//   queries 1.89 ms (7 tiles of the 16-query kernel: 12.28), 128 queries
+//   1.96-2.00, 25 queries 1.65 (two tiles: 2.87-2.95). The fp32 route and the
+//   "cores" route below stay 16 queries wide: no deployment the benchmark
+//   measures runs them.
 // - fp32 rows of a multiple of 16 bytes: the same kernel and ring, but fp32
 //   storage means fp32 math (no TF32, no bf16 split), so the product stays
 //   on the CUDA cores: each thread keeps 2 queries x 4 rows in the
@@ -99,6 +155,7 @@
 // launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -485,6 +542,525 @@ __global__ void __launch_bounds__(THREADS, 2) exact_scan_kernel(
       part_i[o] = top[i].id;
     }
   }
+}
+
+// ------------------------------------------------------------ K1, wide ---
+// exact_scan_wide_kernel: K1 for calls of more than 16 queries, bf16 rows
+// or int8 rows widened to bf16 (the note at the top of the file says why).
+// grid (passes, n_splits): block (p, s) takes queries [p * width, min(n_q,
+// (p + 1) * width)) over the rows of split s, as exact_scan_kernel does.
+// Partials: (n_q, S, k), for merge_partials_kernel.
+constexpr int WIDE_CONSUMERS = 256;   // two warpgroups of products and selection
+constexpr int WIDE_THREADS = WIDE_CONSUMERS + 32;  // and a warp that copies
+constexpr int WIDE_ROWS = 128;        // corpus rows a tile: two wgmma M of 64
+constexpr int WIDE_STAGES = 5;
+constexpr int WIDE_CHUNK = 128;       // a stage's bytes a row: one 128-byte swizzle row
+constexpr int WIDE_STAGE_BYTES = WIDE_ROWS * WIDE_CHUNK;
+constexpr int WIDE_MAX_N = 128;       // query slots a pass: N / 2 accumulators a thread
+constexpr int WIDE_SCORE_PITCH = 68;  // [query][64 rows]: the fragments' stores hit 32 banks
+constexpr int WIDE_ALIGN = 1024;      // the swizzle lives in the address bits
+
+// Dynamic shared memory of the wide kernel at n query slots (a multiple of
+// 16), `panels` query panels of 64 values and k: the alignment slack, the
+// staged queries, the ring, the half-tile of scores, a threshold and a
+// flag a query for each 64-row block, the ring's two barriers a stage,
+// and each query's top-k.
+__host__ __device__ inline int wide_smem_bytes(int n, int panels, int k) {
+  return WIDE_ALIGN + panels * n * 128 + WIDE_STAGES * WIDE_STAGE_BYTES +
+         n * (WIDE_SCORE_PITCH + 3) * 4 + WIDE_STAGES * 2 * 8 + n * k * 8;
+}
+
+// A K-major wgmma operand in 128-byte-swizzled panels: rows of 128 bytes,
+// 8-row groups 1,024 bytes apart.
+__device__ __forceinline__ uint64_t wide_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+// d (64 rows x N queries, fp32) = or += a (64 x 16 bf16, registers) .
+// b (16 x N bf16, shared, K-major), for N = 8, 16, .., 64: a warpgroup's
+// queries. The operands that do not depend on N come first, so the
+// accumulators are %6 onwards.
+template <int N>
+__device__ __forceinline__ void wgmma_wide(float (&d)[N / 2],
+                                           const uint32_t (&a)[4], uint64_t db,
+                                           int accumulate);
+
+#define WIDE_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WIDE_REGS1 "%6, %7, %8, %9"
+#define WIDE_REGS2 WIDE_REGS1 ", %10, %11, %12, %13"
+#define WIDE_REGS3 WIDE_REGS2 ", %14, %15, %16, %17"
+#define WIDE_REGS4 WIDE_REGS3 ", %18, %19, %20, %21"
+#define WIDE_REGS5 WIDE_REGS4 ", %22, %23, %24, %25"
+#define WIDE_REGS6 WIDE_REGS5 ", %26, %27, %28, %29"
+#define WIDE_REGS7 WIDE_REGS6 ", %30, %31, %32, %33"
+#define WIDE_REGS8 WIDE_REGS7 ", %34, %35, %36, %37"
+#define WIDE_OUTS1 WIDE_D4(0)
+#define WIDE_OUTS2 WIDE_OUTS1, WIDE_D4(4)
+#define WIDE_OUTS3 WIDE_OUTS2, WIDE_D4(8)
+#define WIDE_OUTS4 WIDE_OUTS3, WIDE_D4(12)
+#define WIDE_OUTS5 WIDE_OUTS4, WIDE_D4(16)
+#define WIDE_OUTS6 WIDE_OUTS5, WIDE_D4(20)
+#define WIDE_OUTS7 WIDE_OUTS6, WIDE_D4(24)
+#define WIDE_OUTS8 WIDE_OUTS7, WIDE_D4(28)
+// M = N / 8 groups of four accumulators
+#define WIDE_MMA(M, N)                                                        \
+  template <>                                                                 \
+  __device__ __forceinline__ void wgmma_wide<N>(                              \
+      float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db, int accumulate) { \
+    uint32_t a0 = a[0], a1 = a[1], a2 = a[2], a3 = a[3];                      \
+    asm volatile(                                                             \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"                           \
+        "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 "           \
+        "{" WIDE_REGS##M "}, {%0, %1, %2, %3}, %4, p, 1, 1, 0;\n}\n"           \
+        : "+r"(a0), "+r"(a1), "+r"(a2), "+r"(a3), "+l"(db), "+r"(accumulate), \
+          WIDE_OUTS##M);                                                      \
+  }
+WIDE_MMA(1, 8)
+WIDE_MMA(2, 16)
+WIDE_MMA(3, 24)
+WIDE_MMA(4, 32)
+WIDE_MMA(5, 40)
+WIDE_MMA(6, 48)
+WIDE_MMA(7, 56)
+WIDE_MMA(8, 64)
+#undef WIDE_MMA
+
+// d (64 x N) = or += a (64 x 16 bf16, shared, K-major) . b (as above): the
+// same operand numbers as wgmma_wide, %1 - %3 unused.
+template <int N>
+__device__ __forceinline__ void wgmma_wide_ss(float (&d)[N / 2], uint64_t da,
+                                              uint64_t db, int accumulate);
+#define WIDE_MMA_SS(M, N)                                                     \
+  template <>                                                                 \
+  __device__ __forceinline__ void wgmma_wide_ss<N>(                           \
+      float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate) {          \
+    uint32_t u1 = 0, u2 = 0, u3 = 0;                                          \
+    asm volatile(                                                             \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"                           \
+        "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 "           \
+        "{" WIDE_REGS##M "}, %0, %4, p, 1, 1, 0, 0;\n}\n"                      \
+        : "+l"(da), "+r"(u1), "+r"(u2), "+r"(u3), "+l"(db), "+r"(accumulate), \
+          WIDE_OUTS##M);                                                      \
+  }
+WIDE_MMA_SS(1, 8)
+WIDE_MMA_SS(2, 16)
+WIDE_MMA_SS(3, 24)
+WIDE_MMA_SS(4, 32)
+WIDE_MMA_SS(5, 40)
+WIDE_MMA_SS(6, 48)
+WIDE_MMA_SS(7, 56)
+WIDE_MMA_SS(8, 64)
+#undef WIDE_MMA_SS
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// waits until at most N of this warpgroup's committed product groups run
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// The compiler may not move a use of these registers across this point: an
+// asynchronous wgmma reads or writes them from its start to its wait.
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int S>
+__device__ __forceinline__ void keep(uint32_t (&r)[S][4]) {
+#pragma unroll
+  for (int i = 0; i < S; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// The ring's barriers (mbarrier objects in shared memory) and its copies.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+// arrives and expects `bytes` more of copies before the phase completes
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+// One TMA copy of the box at (column c0, row c1) of `map` into shared memory
+// at `dst`; its bytes complete a phase of `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0,
+                                         int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];"
+      ::"r"(dst), "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(bar) : "memory");
+}
+
+// A named barrier of one warpgroup's 128 threads (ids 1 and 2).
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
+}
+// An arrival on `bar` by lane 0 of the warp alone, without a branch (a
+// branch between products and their wait makes ptxas serialize them).
+__device__ __forceinline__ void mbar_arrive_lane0(uint32_t bar, int lane) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, %1, 0;\n@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+      ::"r"(bar), "r"(lane) : "memory");
+}
+
+// MODE 0: bf16 rows, multiplied from the ring in shared memory; 1: int8
+// rows, widened to bf16 in registers. `rows`: the corpus as a 2-D tensor of
+// bytes (row_bytes x n_rows) whose box is one stage, 128-byte swizzled. N:
+// the pass's query slots, a multiple of 16: warpgroup w takes slots
+// [w N / 2, (w + 1) N / 2) over all 128 rows of each tile, as two 64-row
+// products of N / 2 queries; `width` <= N queries a pass; `panels` query
+// panels of 64 values (every chunk's depth, zeros past d); `n_dc` chunks a
+// row.
+template <int MODE, int N>
+__global__ void __launch_bounds__(WIDE_THREADS, 1) exact_scan_wide_kernel(
+    const __grid_constant__ CUtensorMap rows, const __nv_bfloat16* __restrict__ q,
+    const float* __restrict__ sqn, const float* __restrict__ scales, int n_q,
+    int d, long long n_rows, int n_valid, int metric_sq, int k, int width,
+    long long rows_per_split, int n_dc, int panels,
+    float* __restrict__ part_s, int* __restrict__ part_i) {
+  extern __shared__ __align__(128) unsigned char wide_smem[];
+  constexpr bool INT8 = MODE == 1;
+  constexpr int KSTEPS = INT8 ? 8 : 4;  // 16-deep steps a chunk
+  constexpr int NH = N / 2;             // a warpgroup's queries: its products' N
+  unsigned char* base =
+      wide_smem + ((WIDE_ALIGN - (smem_u32(wide_smem) & (WIDE_ALIGN - 1))) & (WIDE_ALIGN - 1));
+  unsigned char* s_q = base;                               // [panels][N][128]
+  unsigned char* s_ring = s_q + panels * N * 128;          // [STAGES][ROWS][128]
+  float* s_sc = reinterpret_cast<float*>(s_ring + WIDE_STAGES * WIDE_STAGE_BYTES);
+  float* s_thr = s_sc + N * WIDE_SCORE_PITCH;              // [N]: each query's k-th best
+  // [2][N]: a score above it, by 64-row block (one block's flags are
+  // cleared while the other's are set)
+  int* s_flag = reinterpret_cast<int*>(s_thr + N);
+  const uint32_t q_a = smem_u32(s_q), ring_a = smem_u32(s_ring);
+  const uint32_t full_a = smem_u32(s_flag + 2 * N);        // [STAGES] mbarriers
+  const uint32_t empty_a = full_a + 8 * WIDE_STAGES;       // [STAGES] mbarriers
+  // [N][k] each query's top-k between its turns in the selection
+  float* s_top = reinterpret_cast<float*>(s_flag + 2 * N + 4 * WIDE_STAGES);
+  int* s_top_id = reinterpret_cast<int*>(s_top + N * k);
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the warp's number by a broadcast: what is decided from it is then the
+  // same in every lane, and wgmma runs unfenced
+  const int warp = __shfl_sync(FULL, tid >> 5, 0);
+  const int wg = warp >> 2, wq = warp & 3;
+  const int q0 = blockIdx.x * width, split = blockIdx.y, n_splits = gridDim.y;
+  const int nq = min(width, n_q - q0);  // this block's queries
+  const long long start = (long long)split * rows_per_split;
+  const long long stop = min(n_rows, start + rows_per_split);
+  const int n_tiles = (int)((stop - start + WIDE_ROWS - 1) / WIDE_ROWS);
+  const int n_chunks = n_tiles * n_dc;
+
+  // The ring: the last warp copies chunk after chunk by TMA, a stage a box
+  // of 128 rows x 128 bytes (piece c of row r lands at c ^ (r % 8): the
+  // 128-byte swizzle; zeros past the corpus). full[s] completes when a
+  // stage's bytes have landed, empty[s] when the 8 product warps are done
+  // with it.
+  if (tid == 0) {
+    for (int s = 0; s < WIDE_STAGES; ++s) {
+      mbar_init(full_a + 8 * s, 1);
+      mbar_init(empty_a + 8 * s, WIDE_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int i = tid; i < N; i += WIDE_THREADS) {
+    s_thr[i] = neg_inf();
+    s_flag[i] = s_flag[N + i] = 0;
+  }
+  for (int i = tid; i < N * k; i += WIDE_THREADS) {
+    s_top[i] = neg_inf();
+    s_top_id[i] = -1;
+  }
+
+  // The pass's queries, once a block, as bf16 panels of 64 values (one
+  // 128-byte row a query, 16-byte pieces XORed with query % 8): zeros past
+  // d and past the pass. With int8 rows a thread's widened registers hold
+  // depths 4t .. 4t + 3 of a 16-step (t = lane % 4) where the product wants
+  // 2t, 2t + 1, 8 + 2t, 9 + 2t: the 32-bit pairs of each 16 values are
+  // staged in that order instead (pair w at (w >> 1) + 4 (w & 1)).
+  const int groups = panels * 4;  // 16-value groups a query row
+  for (int e = tid; e < N * groups; e += WIDE_THREADS) {
+    const int r = e / groups, v0 = (e % groups) * 16;
+    uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
+    if (r < nq && v0 < d) {
+      const uint4* src = reinterpret_cast<const uint4*>(q + (long long)(q0 + r) * d + v0);
+      lo = src[0];
+      hi = src[1];
+    }
+    if (INT8) {
+      const uint4 a = lo, b = hi;
+      lo = make_uint4(a.x, a.z, b.x, b.z);
+      hi = make_uint4(a.y, a.w, b.y, b.w);
+    }
+    const int c = (v0 & 63) >> 3;
+    unsigned char* row = s_q + (v0 >> 6) * N * 128 + r * 128;
+    *reinterpret_cast<uint4*>(row + ((c ^ (r & 7)) << 4)) = lo;
+    *reinterpret_cast<uint4*>(row + (((c + 1) ^ (r & 7)) << 4)) = hi;
+  }
+  // the products read the staged queries through the async proxy
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();  // the last block-wide barrier: the warpgroups go their own ways
+
+  if (warp == WIDE_CONSUMERS / 32) {
+    if (lane == 0) {
+      for (int c = 0; c < n_chunks; ++c) {
+        const int s = c % WIDE_STAGES;
+        // the stage's chunk before this one, c - STAGES, has been read
+        if (c >= WIDE_STAGES) mbar_wait(empty_a + 8 * s, ((c / WIDE_STAGES) - 1) & 1);
+        mbar_expect(full_a + 8 * s, WIDE_STAGE_BYTES);
+        tma_load(ring_a + s * WIDE_STAGE_BYTES, &rows, (c % n_dc) * WIDE_CHUNK,
+                 (int)(start + (long long)(c / n_dc) * WIDE_ROWS), full_a + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // int8 rows: warp (wg, wq)'s ldmatrix address of each 32-byte unit u of
+  // a chunk, rows 16 wq .. + 15 of the 64-row block (matrices: rows 0-7 |
+  // 8-15 x bytes 0-15 | 16-31 of the unit, the A fragment's order)
+  uint32_t a_off[4];
+  {
+    const int r = 16 * wq + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      a_off[u] = r * WIDE_CHUNK + (((2 * u + (lane >> 4)) ^ (lane & 7)) << 4);
+  }
+  // this thread's accumulators: rows my_row and my_row + 8 of each 64-row
+  // block, the warpgroup's queries 8 j + 2 (lane % 4) (+ 1)
+  const int my_row = 16 * wq + (lane >> 2), my_q = 2 * (lane & 3);
+  const int qw = wg * NH;  // the warpgroup's first query slot
+  const int nq_wg = max(0, min(NH, nq - qw));  // its live queries
+
+  const float mult = metric_sq ? 2.0f : 1.0f;
+  float acc[2][NH / 2];  // by 64-row block
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int i = 0; i < NH / 2; ++i) acc[b][i] = 0.f;
+  uint32_t af[INT8 ? KSTEPS : 1][4];  // int8 rows: the widened A fragments
+#pragma unroll
+  for (int i = 0; i < (INT8 ? KSTEPS : 1); ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) af[i][j] = 0u;
+  float scale[4], csq[4];  // rows my_row + 8 h of block b: [2 b + h]
+  int tile = 0, dc = 0;
+
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    const long long row0 = start + (long long)tile * WIDE_ROWS;
+    const int n_live = (int)min((long long)WIDE_ROWS, stop - row0);
+    if (dc == 0) {
+      // this thread's four rows: loaded before the products, used after them
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 64 * (e >> 1) + my_row + 8 * (e & 1);
+        scale[e] = 1.0f;
+        csq[e] = 0.0f;
+        if (r < n_live) {
+          const long long row = row0 + r;
+          scale[e] = scales[row];
+          const float s = sqn[row];
+          const float pen = row < n_valid ? 0.0f : PAD_PENALTY;
+          csq[e] = metric_sq ? s + pen : pen + fmaxf(s - DELETED_THRESHOLD, 0.0f);
+        }
+      }
+    }
+
+    const int stage_i = chunk % WIDE_STAGES;
+    mbar_wait(full_a + 8 * stage_i, (chunk / WIDE_STAGES) & 1);
+    const uint32_t stage = ring_a + stage_i * WIDE_STAGE_BYTES;
+    // the chunk's depths in the warpgroup's staged queries: panel dc (bf16)
+    // or 2 dc, 2 dc + 1 (int8)
+    const uint32_t b0 = q_a + dc * (INT8 ? 2 : 1) * N * 128 + qw * 128;
+    if constexpr (INT8) {
+      // widened in registers, one 64-row block at a time: the products of
+      // the block before must have read af first
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        wg_wait<0>();
+        keep(af);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          uint32_t m[4];
+          ldmatrix_x4(m, stage + 64 * b * WIDE_CHUNK + a_off[u]);
+          widen_int8(m[0], af[2 * u][0], af[2 * u][2]);
+          widen_int8(m[1], af[2 * u][1], af[2 * u][3]);
+          widen_int8(m[2], af[2 * u + 1][0], af[2 * u + 1][2]);
+          widen_int8(m[3], af[2 * u + 1][1], af[2 * u + 1][3]);
+        }
+        keep(af);
+        wg_fence();
+#pragma unroll
+        for (int ks = 0; ks < KSTEPS; ++ks)
+          wgmma_wide<NH>(acc[b], af[ks], wide_desc(b0 + (ks >> 2) * N * 128 + (ks & 3) * 32),
+                         dc > 0 || ks > 0);
+        wg_commit();
+      }
+      mbar_arrive_lane0(empty_a + 8 * stage_i, lane);  // read by ldmatrix
+    } else {
+      // both operands from shared memory: the stage's two 64-row blocks
+      wg_fence();
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+#pragma unroll
+        for (int ks = 0; ks < KSTEPS; ++ks)
+          wgmma_wide_ss<NH>(acc[b], wide_desc(stage + 64 * b * WIDE_CHUNK + ks * 32),
+                            wide_desc(b0 + ks * 32), dc > 0 || ks > 0);
+      wg_commit();
+      wg_wait<1>();  // the chunk before's products are done with its stage
+      if (chunk > 0)
+        mbar_arrive_lane0(empty_a + 8 * ((chunk - 1) % WIDE_STAGES), lane);
+    }
+    if (++dc < n_dc) continue;
+    dc = 0;
+    ++tile;
+
+    wg_wait<0>();
+    keep(acc[0]);
+    keep(acc[1]);
+    // The tile's scores, one 64-row block at a time: fragments -> shared
+    // memory as [query][row]. A query is flagged where one of its scores
+    // beats its k-th best as of the last block (s_thr, which only rises:
+    // what does not beat it cannot enter), and only a flagged query's warp
+    // reads the block back as (warp = query, lane = row) into the
+    // selection, in ascending row order, and leaves its new k-th best. The
+    // warpgroup waits only for its own four warps.
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      int* flag = s_flag + b * N;
+      // the other block's flags, read by every warp before the last barrier
+      if (tid - 128 * wg < NH) s_flag[(1 - b) * N + qw + tid - 128 * wg] = 0;
+#pragma unroll
+      for (int j = 0; j < NH / 8; ++j) {
+        const int qj = qw + 8 * j + my_q;
+        const float2 thr = *reinterpret_cast<const float2*>(s_thr + qj);
+        bool hit0 = false, hit1 = false;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rr = my_row + 8 * (e >> 1);
+          const int h = 2 * b + (e >> 1);
+          float v = mult * (acc[b][4 * j + e] * scale[h]) - csq[h];
+          if (64 * b + rr >= n_live) v = neg_inf();
+          s_sc[(qj + (e & 1)) * WIDE_SCORE_PITCH + rr] = v;
+          if (e & 1) hit1 |= v > thr.y;
+          else hit0 |= v > thr.x;
+        }
+        if (hit0) flag[qj] = 1;
+        if (hit1) flag[qj + 1] = 1;
+      }
+      wg_sync(1 + wg);
+      // The flagged queries are dealt to the warpgroup's four warps in
+      // turn (the r-th to warp r % 4), so no warp waits for a busier one by
+      // more than one query; a query's top-k comes from shared memory into
+      // the warp's WarpTopK and goes back.
+      const unsigned flags_lo = __ballot_sync(FULL, lane < nq_wg && flag[qw + lane]);
+      const unsigned flags_hi = __ballot_sync(
+          FULL, 32 + lane < nq_wg && flag[min(qw + 32 + lane, N - 1)]);
+      int turn = 0;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        unsigned todo = half ? flags_hi : flags_lo;
+        while (todo) {  // the same for the whole warp
+          const int qi = qw + 32 * half + __ffs(todo) - 1;
+          todo &= todo - 1;
+          if ((turn++ & 3) != wq) continue;
+          WarpTopK t;
+          t.s = lane < k ? s_top[qi * k + lane] : neg_inf();
+          t.id = lane < k ? s_top_id[qi * k + lane] : -1;
+          t.thresh = s_thr[qi];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int r = 32 * hh + lane;
+            t.offer(s_sc[qi * WIDE_SCORE_PITCH + r], (int)(row0 + 64 * b + r), k, lane);
+          }
+          if (lane < k) {
+            s_top[qi * k + lane] = t.s;
+            s_top_id[qi * k + lane] = t.id;
+          }
+          if (lane == 0) s_thr[qi] = t.thresh;
+        }
+      }
+      wg_sync(1 + wg);  // the block is read before the next one is written
+    }
+  }
+  // the last selection's top-k are in place (the barrier after it)
+  for (int qi = qw + wq; qi < qw + nq_wg; qi += 4) {
+    if (lane < k) {
+      const long long o = ((long long)(q0 + qi) * n_splits + split) * k + lane;
+      part_s[o] = s_top[qi * k + lane];
+      part_i[o] = s_top_id[qi * k + lane];
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, a driver function, found through the runtime.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, or null where the driver has none.
+EncodeTiled find_encode_tiled() {
+  void* found = nullptr;
+  cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+  const cudaError_t e = cudaGetDriverEntryPointByVersion(
+      "cuTensorMapEncodeTiled", &found, 12000, cudaEnableDefault, &status);
+#else
+  const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &found,
+                                                cudaEnableDefault, &status);
+#endif
+  if (e != cudaSuccess || status != cudaDriverEntryPointSuccess) return nullptr;
+  return reinterpret_cast<EncodeTiled>(found);
+}
+
+// The corpus as the wide kernel's TMA reads it: row_bytes x n_rows bytes,
+// one box a stage (WIDE_CHUNK bytes x WIDE_ROWS rows), 128-byte swizzle,
+// zeros past either edge.
+cudaError_t wide_rows_map(CUtensorMap* map, const void* x, int row_bytes,
+                          long long n_rows) {
+  // looked up once a process; C++ makes the first call the only one
+  static const EncodeTiled encode = find_encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)row_bytes, (cuuint64_t)n_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {WIDE_CHUNK, WIDE_ROWS};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(x), dims,
+                            strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int MODE, int N>
+cudaError_t launch_wide(const CUtensorMap& map, const void* q, const float* sqn,
+                        const float* scales, int n_q, int d, long long n_rows,
+                        int n_valid, int metric_sq, int k, int width,
+                        int passes, long long rows_per_split, int n_splits,
+                        int n_dc, int panels, float* part_s, int* part_i,
+                        cudaStream_t stream) {
+  const int smem = wide_smem_bytes(N, panels, k);
+  static int allowed[MAX_DEVICES] = {};  // this instance's, by device
+  const cudaError_t e = allow_smem(allowed, exact_scan_wide_kernel<MODE, N>, smem);
+  if (e != cudaSuccess) return e;
+  exact_scan_wide_kernel<MODE, N><<<dim3(passes, n_splits), WIDE_THREADS, smem, stream>>>(
+      map, (const __nv_bfloat16*)q, sqn, scales, n_q, d, n_rows, n_valid, metric_sq, k,
+      width, rows_per_split, n_dc, panels, part_s, part_i);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------- K2 / K3 ---
@@ -1103,6 +1679,16 @@ __global__ void __launch_bounds__(THREADS, 2) topr_ring_kernel(
 // over int8 rows (bf16 scoring), 3 int8 x int8 (sketch only).
 enum Combo { F32 = 0, BF16 = 1, I8_BF16 = 2, I8_I8 = 3 };
 
+// K1's merge of the (n_q, n_splits, k) partials of either route.
+inline cudaError_t launch_merge(const float* part_s, const int* part_i, int n_q,
+                                int n_splits, int k, float* out_s, int* out_i,
+                                cudaStream_t stream) {
+  const int warps = 8;
+  merge_partials_kernel<<<(n_q + warps - 1) / warps, 32 * warps, 0, stream>>>(
+      part_s, part_i, n_q, n_splits, k, out_s, out_i);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1158,10 +1744,53 @@ int flat_exact_topk(int combo, int ring, const void* q, const void* x,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int warps = 8;
-  merge_partials_kernel<<<(n_q + warps - 1) / warps, 32 * warps, 0, stream>>>(
-      part_s, part_i, n_q, n_splits, k, out_s, out_i);
-  return (int)cudaGetLastError();
+  return (int)launch_merge(part_s, part_i, n_q, n_splits, k, out_s, out_i, stream);
+}
+
+// K1's wide route (bf16 rows, or int8 rows widened to bf16, of a multiple
+// of 32 bytes; corpus and queries 16-byte aligned): `passes` blocks of
+// `width` <= WIDE_MAX_N queries (the last one shorter) over `n_splits`
+// splits, one block an SM; the wrapper plans both (ops/flat_kernels.exact_plan).
+int flat_exact_wide_topk(int combo, const void* q, const void* x,
+                         const float* sqn, const float* scales, int n_q, int d,
+                         long long n_rows, int n_valid, int metric_sq, int k,
+                         int width, int passes, long long rows_per_split,
+                         int n_splits, float* part_s, int* part_i, float* out_s,
+                         int* out_i, cudaStream_t stream) {
+  const int row_bytes = combo == I8_BF16 ? d : 2 * d;
+  if (k < 1 || k > 32 || n_q < 1 || n_rows < 1 || rows_per_split % WIDE_ROWS != 0 ||
+      (combo != BF16 && combo != I8_BF16) || row_bytes % 32 != 0 ||
+      width < 1 || width > WIDE_MAX_N || (long long)passes * width < n_q ||
+      (long long)(passes - 1) * width >= n_q || (uintptr_t)x % 16 != 0 ||
+      (uintptr_t)q % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int n_dc = (row_bytes + WIDE_CHUNK - 1) / WIDE_CHUNK;
+  const int panels = n_dc * (combo == I8_BF16 ? 2 : 1);
+  const int n = (width + 15) / 16 * 16;
+  if (wide_smem_bytes(n, panels, k) > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  cudaError_t err = wide_rows_map(&map, x, row_bytes, n_rows);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaErrorInvalidValue;
+#define WIDE_CASE(N)                                                         \
+  case N:                                                                    \
+    err = combo == BF16                                                      \
+              ? launch_wide<0, N>(map, q, sqn, scales, n_q, d, n_rows,       \
+                                  n_valid, metric_sq, k, width, passes,      \
+                                  rows_per_split, n_splits, n_dc, panels,    \
+                                  part_s, part_i, stream)                    \
+              : launch_wide<1, N>(map, q, sqn, scales, n_q, d, n_rows,       \
+                                  n_valid, metric_sq, k, width, passes,      \
+                                  rows_per_split, n_splits, n_dc, panels,    \
+                                  part_s, part_i, stream);                   \
+    break;
+  switch (n) {
+    WIDE_CASE(16) WIDE_CASE(32) WIDE_CASE(48) WIDE_CASE(64) WIDE_CASE(80)
+    WIDE_CASE(96) WIDE_CASE(112) WIDE_CASE(128)
+  }
+#undef WIDE_CASE
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_merge(part_s, part_i, n_q, n_splits, k, out_s, out_i, stream);
 }
 
 // ring = 1 takes sketch_ring_kernel (bf16 and int8 rows of a multiple of 32

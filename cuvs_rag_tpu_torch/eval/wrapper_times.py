@@ -6,7 +6,12 @@ the K1 and K6 wrappers costs the host:
 
 CUDA-event ms of K1 at 16 queries and one over 6,290,000 x 384 bf16 rows
 and over 1,000,000 x 1024 bf16 rows, and at 16 queries over 1,048,576 x 384
-rows stored as fp32, bf16 and int8 (k = 10, sqeuclidean); then host
+rows stored as fp32, bf16 and int8 (k = 10, sqeuclidean); the crossover
+sweep of K1's two tensor-core kernels (`crossover`): at 1 to 128 queries
+over the 6,290,000 x 384 bf16 rows and at the CLI's 100 queries over
+2,000,000 x 768, the route `ops/flat_kernels.exact_plan` takes, and from 1
+to 64 queries (and at the CLI's shape) both the 16-query kernel and the
+wide one, each forced by moving the crossover (`_NARROW_MAX_Q`); then host
 microseconds a call (`eval/roofline.host_us`: the launch still in flight)
 and CUDA-event ms of K1 over 4,096 x 384 bf16 rows and of K6
 (`ops/pq_kernels.pq_adc_scores`) at 16 queries x 20 probes, 48 code bytes a
@@ -25,6 +30,58 @@ import argparse
 import json
 import os
 import sys
+
+
+SWEEP_QUERIES = (1, 2, 4, 8, 12, 16, 17, 20, 24, 25, 32, 40, 48, 56, 64, 80,
+                 96, 100, 112, 128)
+BOTH_ROUTES = range(1, 65)  # query counts timed by both kernels
+
+
+def crossover(gen) -> dict:
+    """{shape: {n_q: {"route": .., "ms": .., "narrow_ms": .., "wide_ms":
+    ..}, "plain_ms": {n_q: ..}}}: K1 by the rule's route at each query
+    count, and by both routes where BOTH_ROUTES holds it (CUDA events, 10
+    calls, k = 10); its plain version at 100 queries (3 calls)."""
+    import torch
+
+    from cuvs_rag_tpu_torch.eval.roofline import cuda_ms
+    from cuvs_rag_tpu_torch.index import flat
+    from cuvs_rag_tpu_torch.ops import flat_kernels as fk
+    from cuvs_rag_tpu_torch.utils.config import FlatParams
+
+    def run(ix, x, n_q, narrow_max):
+        saved, fk._NARROW_MAX_Q = fk._NARROW_MAX_Q, narrow_max
+        try:
+            call = (ix.vectors, ix.sqnorms, x[:n_q] + 0.01, ix.n_valid,
+                    ix.scales)
+            return cuda_ms(lambda: fk.flat_topk_exact(
+                *call, k=10, metric="sqeuclidean"), 10)
+        finally:
+            fk._NARROW_MAX_Q = saved
+
+    out = {}
+    for rows, dim, counts in ((6_290_000, 384, SWEEP_QUERIES),
+                              (2_000_000, 768, (100,))):
+        x = torch.nn.functional.normalize(
+            torch.randn((rows, dim), generator=gen, device="cuda"), dim=1)
+        ix = flat.build(FlatParams(dtype="bfloat16"), x)
+        sm = fk._sm_count(x.device)
+        table = out[f"{rows} x {dim} bfloat16"] = {}
+        call = (ix.vectors, ix.sqnorms, x[:100] + 0.01, ix.n_valid,
+                ix.scales)
+        table["plain_ms"] = {100: cuda_ms(
+            lambda: fk.flat_topk_exact_plain(*call, k=10,
+                                             metric="sqeuclidean"), 3)}
+        for n_q in counts:
+            row = table[n_q] = {
+                "route": fk.exact_plan(rows, n_q, dim, torch.bfloat16, sm,
+                                       10).route,
+                "ms": run(ix, x, n_q, fk._NARROW_MAX_Q)}
+            if n_q in BOTH_ROUTES or dim != 384:
+                row["narrow_ms"] = run(ix, x, n_q, 1 << 30)
+                row["wide_ms"] = run(ix, x, n_q, 0)
+        del ix, x
+    return out
 
 
 def main() -> int:
@@ -64,6 +121,8 @@ def main() -> int:
             del ix
 
     time_rows(6_290_000, 384, ("bfloat16",), (16, 1))
+    if hasattr(fk, "exact_plan"):  # a tree with the wide kernel
+        out["crossover"] = crossover(gen)
     time_rows(1_000_000, 1024, ("bfloat16",), (16, 1))
     time_rows(1 << 20, 384, ("float32", "bfloat16", "int8"), (16,))
 

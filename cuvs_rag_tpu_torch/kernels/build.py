@@ -42,6 +42,10 @@ SIGNATURES = {
             _I, _I, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _L, _I,
             _P, _P, _P, _P, _P,
         ],
+        "flat_exact_wide_topk": [
+            _I, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _L, _I,
+            _P, _P, _P, _P, _P,
+        ],
         "flat_sketch_topk": [
             _I, _I, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _L, _I,
             _P, _P, _P, _P, _P,

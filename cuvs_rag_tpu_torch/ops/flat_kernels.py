@@ -12,7 +12,8 @@ CPU tensor — never a fallback from one to the other:
   flat_topk_large   (K3) replaces flat_topk_large (certified large k)
 
 Each wrapper counts its kernel launches in `<wrapper>.launches`, a plain
-int that a run resets and reads to show which kernels it went through.
+int that a run resets and reads to show which kernels it went through;
+`flat_topk_exact.wide_launches` counts those of K1's wide route.
 K1's launch call is the span `kernel.launch` (utils/profiling).
 
 Shared input contract (as the TPU kernels'): corpus (N, D) fp32, bf16 or
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -71,6 +73,18 @@ _TOPR_BLOCKS_PER_SM = None
 # that is 66 KB of bf16 (131 KB of fp32) and a block already has its SM to
 # itself; deeper rows stay with the older CUDA-core kernels.
 _RING_MAX_DIM = 2048
+# K1's wide route (csrc/flat_topk.cu exact_scan_wide_kernel, WIDE_*): the
+# most query slots a pass (two warpgroups' products of N / 2 each), corpus
+# rows a tile, the ring's stages and bytes a row of a stage, the pitch of
+# the scores of a 64-row block and the alignment slack of the swizzled
+# panels.
+_WIDE_MAX_N, _WIDE_ROWS, _WIDE_STAGES, _WIDE_CHUNK = 128, 128, 5, 128
+_WIDE_SCORE_PITCH, _WIDE_ALIGN = 68, 1024
+# The crossover: calls of at most this many queries keep the 16-query
+# kernel, one tile reading the corpus once; above it the wide kernel reads
+# it once a pass (the sweep of eval/wrapper_times.py, PERF.md).
+# eval/wrapper_times.py changes it to time one route against the other.
+_NARROW_MAX_Q = 16
 _SOURCE = "flat_topk.cu"
 _COMBO = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _INT8_X_INT8 = 3
@@ -201,6 +215,70 @@ def _exact_splits(n_rows: int, n_q: int, sm_count: int,
     return per, -(-n_rows // per)
 
 
+def _wide_smem(width: int, d: int, dtype, k: int) -> int:
+    """Shared memory of the wide kernel at `width` queries a pass and k
+    (csrc wide_smem_bytes): the alignment slack, the pass's queries as bf16
+    panels of 64 values covering every chunk's depth (a chunk of int8 rows
+    is 128 values, two panels), the ring, the half-tile of scores, a
+    threshold and two flags a query, two 8-byte barriers a stage, and
+    each query's top-k (k scores and ids)."""
+    row_bytes = d * (1 if dtype == torch.int8 else 2)
+    panels = -(-row_bytes // _WIDE_CHUNK) * (2 if dtype == torch.int8 else 1)
+    n = topk_ops.round_up(width, 16)
+    return (_WIDE_ALIGN + panels * n * 128 + _WIDE_STAGES * _WIDE_ROWS
+            * _WIDE_CHUNK + n * (_WIDE_SCORE_PITCH + 3) * 4
+            + _WIDE_STAGES * 2 * 8 + n * k * 8)
+
+
+def _wide_width(d: int, dtype, k: int) -> int:
+    """The most queries a pass of the wide kernel takes at depth d and k:
+    the largest multiple of 16 up to _WIDE_MAX_N whose shared memory fits."""
+    n = _WIDE_MAX_N
+    while n > 16 and _wide_smem(n, d, dtype, k) > _MAX_SMEM:
+        n -= 16
+    return n
+
+
+class ExactPlan(NamedTuple):
+    """How K1 runs a call: `route` ("ring_wide" or one of `exact_route`'s),
+    queries a block (`width`) in `passes` blocks over the query axis, and
+    the corpus cut into `n_splits` splits of `rows_per_split` rows."""
+    route: str
+    width: int
+    passes: int
+    rows_per_split: int
+    n_splits: int
+
+
+def exact_plan(n_rows: int, n_q: int, d: int, dtype, sm_count: int,
+               k: int) -> ExactPlan:
+    """K1's kernel and grid for n_q queries at top-k over n_rows rows of
+    `dtype` and depth d on a card of `sm_count` SMs. Where `exact_route`
+    takes the tensor-core ring and the call has more than _NARROW_MAX_Q
+    queries, the wide kernel: as few passes of at most `_wide_width`
+    queries as cover the call, each pass's queries rounded up to 16 (two
+    warpgroups of a multiple of 8: 100 queries at D = 384 are one pass of
+    112 slots, 100 at D = 768 two of 64), and one block an SM over (passes
+    x splits), in one wave where the passes allow, the splits as even as
+    tiles of _WIDE_ROWS rows allow. Otherwise the 16-query tiles of
+    `exact_route`'s kernel (`_exact_splits`). A pure function of its
+    arguments."""
+    route = exact_route(dtype, d)
+    if route == "ring" and n_q > _NARROW_MAX_Q:
+        passes = -(-n_q // _wide_width(d, dtype, k))
+        width = topk_ops.round_up(-(-n_q // passes), 16)
+        passes = -(-n_q // width)
+        # at most one block an SM: a second wave of a few blocks would take
+        # as long as the first
+        n_splits = max(1, min(sm_count // passes, -(-n_rows // _WIDE_ROWS)))
+        per = topk_ops.round_up(-(-n_rows // n_splits), _WIDE_ROWS)
+        return ExactPlan("ring_wide", width, passes, per, -(-n_rows // per))
+    per, n_splits = _exact_splits(
+        n_rows, n_q, sm_count,
+        _BLOCKS_PER_SM if route == "cores" else _RING_BLOCKS_PER_SM)
+    return ExactPlan(route, _TQ, -(-n_q // _TQ), per, n_splits)
+
+
 def sketch_route(dtype, d: int, int8_compute: bool = False) -> str:
     """Which of K2's kernels takes rows of `dtype` and depth `d`. "ring":
     bf16 rows, or int8 rows with bf16 queries, on the tensor cores fed by
@@ -318,13 +396,18 @@ def flat_topk_exact(corpus, corpus_sqnorms, queries, n_valid,
     Replaces cuvs_rag_tpu/ops/pallas_flat.py flat_topk_pallas(mode="exact")
     (`_kernel`, `_score_tile`, `_select_topk_*`). Its floor on the H100 is
     the one HBM read of the corpus (about 16 multiply-adds per byte at a
-    batch of 16). bf16 and int8 rows take the tensor-core route
-    (`exact_route`): blocks over (16-query tile x corpus split), two an SM,
-    stream their split through a three-stage cp.async ring in shared memory
-    and multiply with mma.sync (bf16 x bf16 products are exact, sums fp32;
-    int8 rows are widened in registers), so the read is what bounds it;
-    the 16 x 128 score tile passes through shared memory into the
-    selection. fp32 rows come through the same ring and are multiplied on
+    batch of 16). `exact_plan` chooses the kernel from the call's shape.
+    bf16 and int8 rows take the tensor cores: at most 16 queries
+    (`_NARROW_MAX_Q`), blocks over (16-query tile x corpus split), two an
+    SM, stream their split through a three-stage cp.async ring in shared
+    memory and multiply with mma.sync (bf16 x bf16 products are exact,
+    sums fp32; int8 rows are widened in registers), so the read is what
+    bounds it; the 16 x 128 score tile passes through shared memory into
+    the selection. More queries take the wide kernel, which reads the
+    corpus once a pass of up to 128 queries instead of once a 16-query
+    tile: one block an SM, a TMA-fed ring, wgmma with corpus rows as M and
+    the pass's queries as N, two warpgroups each selecting for half of
+    them. fp32 rows come through the same ring and are multiplied on
     the CUDA cores in fp32 (no TF32), float4 reads from shared memory
     feeding FMA chains in depth order, which bound it; depths neither
     takes keep the older CUDA-core kernel, bound by its scalar inner loop.
@@ -347,34 +430,41 @@ def flat_topk_exact(corpus, corpus_sqnorms, queries, n_valid,
     dev = corpus.device
     n, d = corpus.shape
     n_q = queries.shape[0]
-    ring = exact_route(corpus.dtype, d) != "cores"
-    per, n_splits = _exact_splits(
-        n, n_q, _sm_count(dev),
-        _RING_BLOCKS_PER_SM if ring else _BLOCKS_PER_SM)
-    queries = queries.contiguous()
+    plan = exact_plan(n, n_q, d, corpus.dtype, _sm_count(dev), k)
+    wide = plan.route == "ring_wide"
+    queries = _aligned(queries.contiguous())
     corpus = _aligned(corpus.contiguous())
     sqnorms = corpus_sqnorms.contiguous()
     scales = scales.contiguous()
-    part_s = torch.empty((n_q, n_splits, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((n_q, n_splits, k), dtype=torch.int32, device=dev)
+    part_s = torch.empty((n_q, plan.n_splits, k), dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty((n_q, plan.n_splits, k), dtype=torch.int32,
+                         device=dev)
     out_s = torch.empty((n_q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_q, k), dtype=torch.int32, device=dev)
     lib = build.load(_SOURCE)
+    call = (_ptr(queries), _ptr(corpus), _ptr(sqnorms), _ptr(scales), n_q, d,
+            n, int(n_valid), int(metric == Metric.SQEUCLIDEAN), k)
+    out = (_ptr(part_s), _ptr(part_i), _ptr(out_s), _ptr(out_i),
+           build.raw_stream(dev))
     with build.device_guard(dev), profiling.span(
             "kernel.launch", kernel="K1", device=dev.index):
-        err = lib.flat_exact_topk(
-            _COMBO[corpus.dtype], int(ring), _ptr(queries), _ptr(corpus),
-            _ptr(sqnorms), _ptr(scales),
-            n_q, d, n, int(n_valid), int(metric == Metric.SQEUCLIDEAN), k,
-            per, n_splits, _ptr(part_s), _ptr(part_i), _ptr(out_s),
-            _ptr(out_i), build.raw_stream(dev),
-        )
-    build.check(err, "flat_exact_topk")
+        if wide:
+            err = lib.flat_exact_wide_topk(
+                _COMBO[corpus.dtype], *call, plan.width, plan.passes,
+                plan.rows_per_split, plan.n_splits, *out)
+        else:
+            err = lib.flat_exact_topk(
+                _COMBO[corpus.dtype], int(plan.route != "cores"), *call,
+                plan.rows_per_split, plan.n_splits, *out)
+    build.check(err, "flat_exact_wide_topk" if wide else "flat_exact_topk")
     flat_topk_exact.launches += 1
+    flat_topk_exact.wide_launches += wide
     return out_s, out_i
 
 
 flat_topk_exact.launches = 0
+flat_topk_exact.wide_launches = 0  # of `launches`, those of the wide kernel
 
 
 # ------------------------------------------------------------------- K2 ---

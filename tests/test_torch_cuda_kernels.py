@@ -105,6 +105,81 @@ def test_exact_kernel_tie_order(cuda_device, dtype):
         assert torch.equal(got_s, order.values[:, :k])
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("d", [64, 384, 768])
+def test_exact_wide_route_matches_plain(cuda_device, d, dtype):
+    """K1's wide kernel (more than 16 queries; bf16 rows and int8 rows
+    widened to bf16) on a ragged 100,003-row corpus with pad rows and 1%
+    tombstones, n_q in {17, 25, 100, 128, 129} (one pass or two, as D and
+    k leave room) x k in {1, 10, 32}, both metrics: against
+    the plain version (rtol 1e-5 / atol 1e-3, ids up to ties) and within
+    flat_rounding_bound. Every call is one launch of the wide route; a
+    one-query call takes the 16-query kernel and leaves the wide count."""
+    import chip_smoke
+    from cuvs_rag_tpu_torch.index import flat
+    from cuvs_rag_tpu_torch.ops import flat_kernels as fk
+    from cuvs_rag_tpu_torch.utils.compare import compare_topk
+    from cuvs_rag_tpu_torch.utils.config import FlatParams
+
+    n = 100_003
+    g = torch.Generator(device=cuda_device).manual_seed(d + 1)
+    x = torch.randn((n, d), generator=g, device=cuda_device)
+    ix = flat.build(FlatParams(dtype=dtype, tile_n=2048), x)
+    ix = flat.delete(ix, torch.arange(5, n, 100, device=cuda_device))
+    storage = min(ix.size, n + 1000)
+    assert storage > ix.n_valid  # pad rows in the scan
+    for n_q in (17, 25, 100, 128, 129):
+        q = torch.cat([x[:n_q // 2] + 0.05, torch.randn(
+            (n_q - n_q // 2, d), generator=g, device=cuda_device)])
+        args = (ix.vectors[:storage], ix.sqnorms[:storage], q, ix.n_valid,
+                ix.scales[:storage])
+        plan = fk.exact_plan(storage, n_q, d, ix.vectors.dtype,
+                             fk._sm_count(cuda_device), 32)
+        assert plan.route == "ring_wide"
+        for metric in ("sqeuclidean", "inner_product"):
+            for k in (1, 10, 32):
+                before = (fk.flat_topk_exact.launches,
+                          fk.flat_topk_exact.wide_launches)
+                got = fk.flat_topk_exact(*args, k=k, metric=metric)
+                torch.cuda.synchronize()
+                assert (fk.flat_topk_exact.launches,
+                        fk.flat_topk_exact.wide_launches) == (
+                            before[0] + 1, before[1] + 1)
+                want = fk.flat_topk_exact_plain(*args, k=k, metric=metric)
+                compare_topk(*got, *want, **chip_smoke.TOL)
+                assert chip_smoke.k1_hold(got, args, metric) <= 1.0
+    before = (fk.flat_topk_exact.launches, fk.flat_topk_exact.wide_launches)
+    fk.flat_topk_exact(*args[:2], q[:1], *args[3:], k=10, metric="sqeuclidean")
+    assert (fk.flat_topk_exact.launches,
+            fk.flat_topk_exact.wide_launches) == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_exact_wide_kernel_tie_order(cuda_device, dtype):
+    """The tie case of test_exact_kernel_tie_order through the wide kernel
+    (100 queries, one pass, 132 splits or as many as the card has SMs):
+    ids and scores equal a stable descending sort of the plain scores."""
+    from cuvs_rag_tpu_torch.ops import flat_kernels as fk
+
+    n, d, k = 50_000, 384, 32
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randint(-2, 3, (n, d), generator=g, device=cuda_device).float()
+    x[1000:2000] = x[:1000]
+    x[30_000:31_000] = x[:1000]
+    q = torch.cat([x[:50], torch.randint(-2, 3, (50, d), generator=g,
+                                         device=cuda_device).float()])
+    v, sq = x.to(getattr(torch, dtype)), (x * x).sum(1)
+    for metric in ("sqeuclidean", "inner_product"):
+        before = fk.flat_topk_exact.wide_launches
+        got_s, got_i = fk.flat_topk_exact(v, sq, q, n, None, k=k, metric=metric)
+        assert fk.flat_topk_exact.wide_launches == before + 1
+        qq, _, scales = fk._prepare(v, sq, q, n, None, metric)
+        order = torch.sort(fk._scores_plain(v, sq, qq, n, scales, metric),
+                           dim=1, descending=True, stable=True)
+        assert torch.equal(got_i, order.indices[:, :k].to(torch.int32))
+        assert torch.equal(got_s, order.values[:, :k])
+
+
 @pytest.mark.parametrize("n", [5, 100])
 def test_exact_kernel_on_short_corpora(cuda_device, n):
     """A corpus shorter than k and one shorter than a tile."""
@@ -425,6 +500,57 @@ def test_search_launches_each_kernel(cuda_device):
     # K1's launch call, and only K1's, is the span kernel.launch
     _hold_launch_spans(profiling.spans(), "flat.search", "K1",
                        x.device.index, 3)
+
+    # 100 queries take the wide kernel: still one kernel.launch span and
+    # one exact_scan* kernel a call (what k1_roofline counts), and its merge
+    q = x[:100]
+    wide = fk.flat_topk_exact.wide_launches
+    profiling.clear()
+    profiling.record_spans(True)
+    try:
+        _, i = flat.search(None, ix, q, 5)
+    finally:
+        profiling.record_spans(False)
+    assert i[:, 0].tolist() == list(range(100))
+    assert fk.flat_topk_exact.wide_launches == wide + 1
+    _hold_launch_spans(profiling.spans(), "flat.search", "K1",
+                       x.device.index, 1)
+    calls = 5
+    counts = _kernel_counts(lambda: flat.search(None, ix, q, 5), calls,
+                            ("exact_scan", "merge_partials"))
+    assert counts["exact_scan"] == {"exact_scan_wide_kernel": calls}
+    assert sum(counts["merge_partials"].values()) == calls
+
+
+def _kernel_counts(fn, calls, names, attempts=3):
+    """{name: {kernel: launches}} of the CUDA kernels whose names contain
+    each of `names`, over `calls` fn() under torch.profiler. The profiler
+    has been seen to drop kernel records (eval/roofline.device_ms), so a
+    window that records fewer than `calls` launches of a name is taken
+    again, up to `attempts` windows."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {name: {} for name in names}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            for name in names:
+                if name in e.key:
+                    kernel = re.search(r"(\w*%s\w*)" % name, e.key).group(1)
+                    out[name][kernel] = out[name].get(kernel, 0) + e.count
+        if all(sum(v.values()) >= calls for v in out.values()):
+            return out
+    return out
 
 
 def test_ivf_search_launches_each_kernel(cuda_device):

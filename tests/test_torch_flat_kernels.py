@@ -11,6 +11,8 @@ Tolerances:
     (fp32 sums in another order).
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -218,6 +220,7 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         fk.flat_topk_exact(c, sq, q, 65, k=3, metric="sqeuclidean")
     assert fk.flat_topk_exact.launches == 0  # the CPU path launches nothing
+    assert fk.flat_topk_exact.wide_launches == 0
 
 
 # ------------------------------------------- K1's rounding bound ----------
@@ -353,7 +356,7 @@ def test_planted_faults_break_the_bound(fault, metric):
 
 
 @pytest.mark.parametrize("sm_count", [1, 132])
-@pytest.mark.parametrize("n_q", [1, 16, 17, 40])
+@pytest.mark.parametrize("n_q", [1, 16, 17, 25, 40, 100, 128, 129])
 @pytest.mark.parametrize("n", [1, 127, 128, 129, 1_000_003, 6_290_000])
 def test_exact_splits_cover_every_row_once(n, n_q, sm_count):
     for blocks_per_sm in (fk._RING_BLOCKS_PER_SM, fk._BLOCKS_PER_SM):
@@ -391,6 +394,98 @@ def test_exact_route_table(dtype, d):
     if dtype == torch.int8:
         with pytest.raises(ValueError):
             fk.exact_route(torch.float16, d)
+
+
+_RING_DTYPES = [torch.bfloat16, torch.int8]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("d", [16, 32, 42, 384, 768, 2048, 4096])
+@pytest.mark.parametrize("n_q", [1, 16, 17, 25, 100, 128, 129, 1000])
+def test_exact_plan_covers_every_query_and_row_once(n_q, d, dtype):
+    """K1's plan: passes x width cover the queries, none of the passes
+    empty; splits of whole 128-row tiles cover the rows, none empty; the
+    wide kernel exactly where the tensor-core ring takes the rows and the
+    call has more than the crossover's queries, and then never more
+    blocks than SMs unless a pass needs a block of its own."""
+    for n, sm_count, k in itertools.product((1, 129, 1_000_003, 6_290_000),
+                                            (1, 132), (1, 10, 32)):
+        plan = fk.exact_plan(n, n_q, d, dtype, sm_count, k)
+        assert plan == fk.exact_plan(n, n_q, d, dtype, sm_count, k)
+        wide = (fk.exact_route(dtype, d) == "ring"
+                and n_q > fk._NARROW_MAX_Q)
+        assert (plan.route == "ring_wide") == wide
+        if not wide:
+            assert plan.route == fk.exact_route(dtype, d)
+            assert (plan.width, plan.passes) == (fk._TQ, -(-n_q // fk._TQ))
+        else:
+            assert plan.width % 16 == 0
+            assert plan.width <= fk._wide_width(d, dtype, k)
+            assert plan.n_splits * plan.passes <= max(sm_count,
+                                                      plan.passes)
+        assert (plan.passes - 1) * plan.width < n_q
+        assert n_q <= plan.passes * plan.width
+        per, n_splits = plan.rows_per_split, plan.n_splits
+        assert per % fk._TC == 0 and per > 0 and n_splits >= 1
+        assert (n_splits - 1) * per < n <= n_splits * per
+
+
+@pytest.mark.parametrize("dtype", _RING_DTYPES)
+@pytest.mark.parametrize("n_q", [17, 25, 100, 128])
+def test_exact_plan_reads_the_corpus_once_up_to_128_queries(n_q, dtype):
+    """At D = 384 and k = 10 a call of 17 to 128 queries is one pass of the
+    wide kernel, every SM a split: the corpus is read once."""
+    plan = fk.exact_plan(6_286_775, n_q, 384, dtype, 132, 10)
+    assert plan.route == "ring_wide" and plan.passes == 1
+    assert plan.width == -(-n_q // 16) * 16 and plan.n_splits == 132
+
+
+@pytest.mark.parametrize("dtype", _RING_DTYPES)
+@pytest.mark.parametrize("n_q", [1, 2, 8, 15, 16])
+def test_exact_plan_keeps_the_16_query_kernel_to_the_crossover(n_q, dtype):
+    assert n_q <= fk._NARROW_MAX_Q
+    plan = fk.exact_plan(6_286_775, n_q, 384, dtype, 132, 10)
+    assert plan.route == "ring" and plan.width == fk._TQ
+
+
+@pytest.mark.parametrize("dtype", _RING_DTYPES)
+def test_wide_kernel_fits_shared_memory_at_every_depth(dtype):
+    """At every depth the wide route takes and every k, the widest pass
+    fits a block's shared memory, one wider would not (or is the most the
+    kernel takes), and at least 16 queries fit; the CLI's 100 x 768 is two
+    passes."""
+    step = 16 if dtype == torch.bfloat16 else 32
+    for d, k in itertools.product(range(step, fk._RING_MAX_DIM + 1, step),
+                                  (1, 10, 32)):
+        assert fk.exact_route(dtype, d) == "ring"
+        width = fk._wide_width(d, dtype, k)
+        assert 16 <= width <= fk._WIDE_MAX_N and width % 16 == 0
+        assert fk._wide_smem(width, d, dtype, k) <= fk._MAX_SMEM
+        assert (width == fk._WIDE_MAX_N
+                or fk._wide_smem(width + 16, d, dtype, k) > fk._MAX_SMEM)
+    assert fk.exact_plan(2_000_000, 100, 768, torch.bfloat16, 132,
+                         10).passes == 2
+
+
+def test_wide_plan_mirrors_the_kernel_source():
+    """The planner's copy of the wide kernel's sizes is the source's:
+    csrc/flat_topk.cu's constants, and the shared memory its
+    wide_smem_bytes adds up, term by term."""
+    from cuvs_rag_tpu_torch.kernels import build
+
+    source = (build.CSRC / "flat_topk.cu").read_text()
+    for name, value in (("WIDE_MAX_N", fk._WIDE_MAX_N),
+                        ("WIDE_ROWS", fk._WIDE_ROWS),
+                        ("WIDE_STAGES", fk._WIDE_STAGES),
+                        ("WIDE_CHUNK", fk._WIDE_CHUNK),
+                        ("WIDE_SCORE_PITCH", fk._WIDE_SCORE_PITCH),
+                        ("WIDE_ALIGN", fk._WIDE_ALIGN)):
+        assert f"constexpr int {name} = {value};" in source
+    assert ("return WIDE_ALIGN + panels * n * 128 + WIDE_STAGES * "
+            "WIDE_STAGE_BYTES +\n         n * (WIDE_SCORE_PITCH + 3) * 4 + "
+            "WIDE_STAGES * 2 * 8 + n * k * 8;") in source
+    # the two halves of a pass are each a product's N: multiples of 8
+    assert "const int n = (width + 15) / 16 * 16;" in source
 
 
 def test_ring_sweep_variants_apply_to_the_source():
