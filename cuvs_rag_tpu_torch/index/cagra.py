@@ -26,6 +26,7 @@ from cuvs_rag_tpu_torch.index import base
 from cuvs_rag_tpu_torch.ops import distance as dist_ops
 from cuvs_rag_tpu_torch.ops import graph as graph_ops
 from cuvs_rag_tpu_torch.ops import topk as topk_ops
+from cuvs_rag_tpu_torch.utils import profiling
 from cuvs_rag_tpu_torch.utils.config import (
     CagraParams, CagraSearchParams, IVFFlatParams, Metric)
 from cuvs_rag_tpu_torch.utils.metrics import default_registry
@@ -387,17 +388,45 @@ def _entry_ids(sp: CagraSearchParams, index: CagraIndex,
 def search_scores(search_params: Optional[CagraSearchParams],
                   index: CagraIndex, queries: torch.Tensor, k: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Family-protocol entry: (scores larger-better, ids), descending."""
+    """Family-protocol entry: (scores larger-better, ids), descending.
+
+    The medoid map is the span `cagra.entry` (the coarse centroids scored,
+    each query's entry rows picked), the beam the span `cagra.beam` (the
+    entry rows scored into the first beam, then the fixed iterations).
+    While the span recorder is on, the call adds its nominal work to the
+    counters cagra.queries, cagra.iterations (iterations x queries),
+    cagra.entry_rows and cagra.candidate_rows (queries x iterations x
+    search_width x graph_degree, plus the entry rows): taken from the
+    parameters and shapes, not from what is launched."""
     sp = search_params or default_search_params()
     if index.metric == Metric.COSINE:
         queries = dist_ops.l2_normalize(queries)
     queries = queries.float()
-    return graph_ops.beam_search(
-        index.vectors, index.graph, queries, k=k, metric=index.metric,
-        itopk=sp.itopk_size, max_iters=sp.max_iterations,
-        n_entries=min(sp.num_entry_points, index.size),
-        expansions=sp.search_width,
-        entry_ids=_entry_ids(sp, index, queries))
+    n_entries = min(sp.num_entry_points, index.size)
+    with profiling.span("cagra.entry"):
+        entry_ids = _entry_ids(sp, index, queries)
+    if profiling.recording():
+        _count(sp, index, queries.shape[0], k, n_entries if entry_ids is None
+               else entry_ids.shape[1])
+    with profiling.span("cagra.beam"):
+        return graph_ops.beam_search(
+            index.vectors, index.graph, queries, k=k, metric=index.metric,
+            itopk=sp.itopk_size, max_iters=sp.max_iterations,
+            n_entries=n_entries, expansions=sp.search_width,
+            entry_ids=entry_ids)
+
+
+def _count(sp: CagraSearchParams, index: CagraIndex, n_q: int, k: int,
+           n_entries: int) -> None:
+    """The search's nominal work, added to the cagra.* counters."""
+    _, e, iters = graph_ops.beam_plan(sp.itopk_size, k, sp.search_width,
+                                      sp.max_iterations)
+    entry_rows = n_q * n_entries
+    default_registry.inc("cagra.queries", n_q)
+    default_registry.inc("cagra.iterations", iters * n_q)
+    default_registry.inc("cagra.entry_rows", entry_rows)
+    default_registry.inc("cagra.candidate_rows",
+                         n_q * iters * e * index.graph_degree + entry_rows)
 
 
 def _to_distances(scores, index: CagraIndex, queries) -> torch.Tensor:
@@ -412,8 +441,9 @@ def search(search_params: Optional[CagraSearchParams], index: CagraIndex,
            queries, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """cuVS surface: search(CagraSearchParams, index, queries, k) ->
     (distances (Q, k), ids (Q, k) int32; -1 where the beam saw fewer than
-    k live rows)."""
-    queries = base.validate_queries(base.as_tensor(queries, index.device),
-                                    index.dim)
-    scores, ids = search_scores(search_params, index, queries, k)
-    return _to_distances(scores, index, queries), ids
+    k live rows). The call is the span `cagra.search`."""
+    with profiling.span("cagra.search"):
+        queries = base.validate_queries(
+            base.as_tensor(queries, index.device), index.dim)
+        scores, ids = search_scores(search_params, index, queries, k)
+        return _to_distances(scores, index, queries), ids

@@ -6,10 +6,11 @@ build and search, reshaped for batched tensor ops):
   * Graph build: the intermediate graph is an exact kNN graph
     (`build_knn_graph`, chunked matmul + top-k) up to ~10^5 rows, beyond
     that the list-centric IVF bootstrap (`build_knn_graph_ivf`): each IVF
-    list's window is scored against its own window and its `n_probes - 1`
-    nearest sibling windows in one batched product. The final graph keeps
-    half its slots for forward edges and fills the rest with reverse edges
-    (`augment_reverse_edges`, one stable sort + a segment gather).
+    list's rows are scored against its own rows and those of its
+    `n_probes - 1` nearest sibling lists in one batched product. The
+    final graph keeps half its slots for forward edges and fills the rest
+    with reverse edges (`augment_reverse_edges`, one stable sort + a
+    segment gather).
   * Search: a fixed-width beam over a fixed number of iterations, batched
     over queries as (Q, itopk) tensors. Deduplication uses the MONOTONE
     BEAM: the beam keeps the best `itopk` scores seen so far, so an id
@@ -44,8 +45,8 @@ from cuvs_rag_tpu_torch.utils.config import Metric
 NEG_INF = topk_ops.NEG_INF
 
 # Bytes of the fp32 score tile one step of the IVF bootstrap may hold:
-# B lists x L own rows x r·L candidates x 4 bytes (64 MB a list at L =
-# 2,048, r = 4).
+# B lists x own rows x the r probed lists' rows x 4 bytes (64 MB a list of
+# 2,000 rows probing 4 such lists).
 _IVF_TILE_BYTES = 1 << 30
 # Reverse-edge candidates whose forward rows one dedup step gathers.
 _DEDUP_CHUNK = 1 << 22
@@ -126,64 +127,109 @@ def _windows(ivf_index, lists: torch.Tensor):
 
 def _window_rows(ivf_index, slots: torch.Tensor, lists: torch.Tensor):
     """(rows fp32, sqnorms) at layout `slots`: float storage as stored, int8
-    residual SQ8 as its reconstruction c_list + scale·code."""
+    residual SQ8 as its reconstruction c_list + scale·code (`lists`: each
+    slot's list, the shape of `slots`)."""
     v = ivf_index.vectors[slots].float()
     if ivf_index.vectors.dtype != torch.int8:
         return v, ivf_index.sqnorms[slots]
     cents = ivf_index.centroids.float()[lists]
-    return cents[..., None, :] + ivf_index.scales[slots][..., None] * v, \
+    return cents + ivf_index.scales[slots][..., None] * v, \
         ivf_index.sqnorms[slots]
+
+
+def _bootstrap_steps(counts: np.ndarray, nbrs: np.ndarray, budget: int):
+    """The steps of the IVF bootstrap: the non-empty lists in order of
+    falling size, each step as many as keep its fp32 score tile (lists x
+    own window x candidate window x 4 bytes) within `budget`, the windows
+    sized to the step's largest own list and largest candidate total (the
+    summed sizes of a list's probed lists), each rounded up to 8 rows.
+    -> [(list ids, own window, candidate window)]."""
+    def up8(v):
+        return topk_ops.round_up(int(v), 8)
+
+    totals = counts[nbrs].sum(axis=1)
+    order = [int(i) for i in np.argsort(-counts, kind="stable")
+             if counts[i] > 0]
+    steps, i = [], 0
+    while i < len(order):
+        own, cand, j = up8(counts[order[i]]), up8(totals[order[i]]), i + 1
+        while j < len(order):
+            wider = max(cand, up8(totals[order[j]]))
+            if (j - i + 1) * own * wider * 4 > budget:
+                break
+            cand, j = wider, j + 1
+        steps.append((order[i:j], own, cand))
+        i = j
+    return steps
 
 
 def build_knn_graph_ivf(vectors: torch.Tensor, n_valid: int, ivf_index, *,
                         degree: int, n_probes: int = 4) -> torch.Tensor:
     """Approximate kNN graph from an IVF clustering of the same rows.
 
-    List-centric: each list's own window is scored against the windows of
-    its r = n_probes nearest lists (itself included) in one (L, r·L)
-    product, and each own row keeps its top `degree` candidates. A batch of
-    lists shares one batched product, sized so the fp32 score tile stays
-    within _IVF_TILE_BYTES. Self-matches are dropped; rows with fewer valid
+    List-centric: each list's rows are scored against the rows of its r =
+    n_probes nearest lists (itself included), laid end to end, in one
+    product, and each own row keeps its top `degree` candidates. Lists go
+    in steps of similar size (`_bootstrap_steps`), a step's windows sized
+    to its own lists and candidate totals rather than to the longest list,
+    and one batched product a step, its fp32 score tile within
+    _IVF_TILE_BYTES. Self-matches are dropped; rows with fewer valid
     candidates than `degree` self-loop, as do rows no list holds.
 
     vectors: (n_pad, D) rows in original order (the graph's ids index it);
     ivf_index: an IVFFlatIndex over the same rows (any storage dtype)."""
     n_pad = vectors.shape[0]
     dev = vectors.device
-    L = ivf_index.max_list_size
     cents = ivf_index.centroids.float()
     n_lists = cents.shape[0]
     r = max(1, min(n_probes, n_lists))
     c_scores = dist_ops.scores_from_tile(cents, cents, dist_ops.sqnorms(cents),
                                          Metric.SQEUCLIDEAN)
     list_nbrs = torch.topk(c_scores, r, dim=1).indices  # (C, r), self incl.
-    kk = min(degree, r * L)
+    counts = ivf_index.list_counts.long()
+    offsets = ivf_index.list_offsets.long()
+    last = ivf_index.size - 1
     graph = torch.arange(n_pad, dtype=torch.int32, device=dev)[:, None] \
         .repeat(1, degree)
-    step = max(1, _IVF_TILE_BYTES // (L * r * L * 4))
-    for c0 in range(0, n_lists, step):
-        lists = torch.arange(c0, min(c0 + step, n_lists), device=dev)
+    steps = _bootstrap_steps(counts.cpu().numpy(), list_nbrs.cpu().numpy(),
+                             _IVF_TILE_BYTES)
+    for step, own_w, cand_w in steps:
+        lists = torch.tensor(step, device=dev)
         b = lists.shape[0]
-        own_slots, own_ids, _ = _windows(ivf_index, lists)  # (b, L)
+        # own windows: (b, own_w) slots of each list's rows
+        pos = torch.arange(own_w, device=dev)
+        own_slots = (offsets[lists][:, None] + pos).clamp(max=last)
+        own_ids = torch.where(pos < counts[lists][:, None],
+                              ivf_index.row_ids[own_slots].long(), -1)
+        own_v, _ = _window_rows(ivf_index, own_slots,
+                                lists[:, None].expand_as(own_slots))
+        # candidate windows: the r probed lists' rows end to end, (b, cand_w)
         nb = list_nbrs[lists]  # (b, r)
-        cand_slots, cand_ids, _ = _windows(ivf_index, nb)  # (b, r, L)
-        own_v, _ = _window_rows(ivf_index, own_slots, lists)
-        cand_v, cand_sq = _window_rows(ivf_index, cand_slots, nb)
-        cand_ids = cand_ids.reshape(b, r * L)
+        ends = torch.cumsum(counts[nb], dim=1)
+        pos = torch.arange(cand_w, device=dev).expand(b, cand_w).contiguous()
+        probe = torch.searchsorted(ends, pos, right=True)  # r: past the end
+        at = probe.clamp(max=r - 1)
+        cand_lists = torch.gather(nb, 1, at)
+        first = torch.gather(ends - counts[nb], 1, at)
+        cand_slots = (offsets[cand_lists] + pos - first).clamp(0, last)
+        cand_ids = torch.where(probe < r,
+                               ivf_index.row_ids[cand_slots].long(), -1)
+        cand_v, cand_sq = _window_rows(ivf_index, cand_slots, cand_lists)
         dist_ops._check_fp32_matmul(own_v)
-        scores = 2.0 * torch.bmm(own_v, cand_v.reshape(b, r * L, -1)
-                                 .transpose(1, 2)) \
-            - cand_sq.reshape(b, 1, r * L)
+        scores = 2.0 * torch.bmm(own_v, cand_v.transpose(1, 2)) \
+            - cand_sq[:, None, :]
         bad = (cand_ids < 0)[:, None, :] \
             | (cand_ids[:, None, :] == own_ids[:, :, None])
         scores.masked_fill_(bad, NEG_INF)
+        kk = min(degree, cand_w)
         top_s, order = torch.topk(scores, kk, dim=2)
-        nbrs = torch.gather(cand_ids[:, None, :].expand(b, L, r * L), 2, order)
+        nbrs = torch.gather(cand_ids[:, None, :].expand(b, own_w, cand_w), 2,
+                            order)
         nbrs = torch.where(top_s > NEG_INF, nbrs, own_ids[..., None]
                            .expand_as(nbrs)).clamp(min=0)
         keep = own_ids.reshape(-1) >= 0
-        rows = own_ids.reshape(-1)[keep].long()
-        graph[rows, :kk] = nbrs.reshape(b * L, kk)[keep].to(torch.int32)
+        rows = own_ids.reshape(-1)[keep]
+        graph[rows, :kk] = nbrs.reshape(b * own_w, kk)[keep].to(torch.int32)
         del scores, bad, own_v, cand_v
     return graph
 
@@ -203,7 +249,8 @@ def list_medoids(ivf_index) -> torch.Tensor:
     for c0 in range(0, n_lists, step):
         lists = torch.arange(c0, min(c0 + step, n_lists), device=cents.device)
         slots, ids, raw = _windows(ivf_index, lists)
-        w, wsq = _window_rows(ivf_index, slots, lists)
+        w, wsq = _window_rows(ivf_index, slots,
+                              lists[:, None].expand_as(slots))
         q = cents[lists].to(qdtype).float()
         if ivf_index.vectors.dtype == torch.int8:
             # residual SQ8: the reconstruction already carries c, so the
@@ -319,6 +366,15 @@ def _score_rows(aug_vectors, aq, ids):
     return torch.bmm(vecs.float(), aq[:, :, None])[..., 0]
 
 
+def beam_plan(itopk: int, k: int, expansions: int,
+              max_iters: int = 0) -> Tuple[int, int, int]:
+    """(beam width b = max(itopk, k), parents expanded an iteration, the
+    fixed iteration count: max_iters, else 2·⌈b / e⌉ within [8, 64])."""
+    b = max(itopk, k)
+    e = max(1, min(expansions, b))
+    return b, e, max_iters or min(64, max(8, 2 * -(-b // e)))
+
+
 def beam_search(aug_vectors: torch.Tensor, graph: torch.Tensor,
                 queries: torch.Tensor, *, k: int, metric: str,
                 itopk: int = 64, max_iters: int = 0, n_entries: int = 32,
@@ -346,9 +402,7 @@ def beam_search(aug_vectors: torch.Tensor, graph: torch.Tensor,
     n_pad, width = aug_vectors.shape
     dev = aug_vectors.device
     g = graph.shape[1]
-    b = max(itopk, k)
-    e = max(1, min(expansions, b))
-    iters = max_iters or min(64, max(8, 2 * -(-b // e)))
+    b, e, iters = beam_plan(itopk, k, expansions, max_iters)
     aq = augmented_query(queries, metric, width)
     if entry_ids is None:
         entry_ids = linspace_rows(n_pad, n_entries, dev).expand(n_q, -1)

@@ -221,3 +221,27 @@ def test_earlier_copy_and_topk_first():
     ts, ti = tgraph.topk_first(torch.from_numpy(s), 20)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("budget", [1 << 12, 1 << 16, 1 << 30])
+def test_bootstrap_steps_cover_each_list_once(budget):
+    """The IVF bootstrap's steps: every non-empty list once, by falling
+    size; windows that hold the step's largest list and candidate total,
+    in whole 8-row units; the score tile within the budget unless a step
+    holds one list alone."""
+    g = np.random.default_rng(5)
+    counts = g.integers(0, 300, 57)
+    counts[[3, 9, 40]] = 0
+    nbrs = np.concatenate([np.arange(57)[:, None],
+                           g.integers(0, 57, (57, 3))], axis=1)
+    steps = tgraph._bootstrap_steps(counts, nbrs, budget)
+    lists = [i for s, _, _ in steps for i in s]
+    assert lists == [int(i) for i in np.argsort(-counts, kind="stable")
+                     if counts[i] > 0]
+    totals = counts[nbrs].sum(axis=1)
+    for s, own, cand in steps:
+        assert own % 8 == 0 and cand % 8 == 0
+        assert own >= counts[s].max() and cand >= totals[s].max()
+        assert len(s) == 1 or len(s) * own * cand * 4 <= budget
+    # a budget past the whole tile takes every list in one step
+    assert (len(steps) == 1) == (budget == 1 << 30)
