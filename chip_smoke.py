@@ -61,8 +61,13 @@ is non-zero):
                per batch (CUDA events) and a torch.profiler table of one
                search; delete, allow= (the post-filter), 1,000 rows added by
                extend and found by their own vectors; save and load of a
-               1,048,576-row index built the same way. No hand kernel runs
-               on this path.
+               1,048,576-row index built the same way. The beam's candidate
+               step is the one hand kernel on this path (ops/graph_kernels:
+               one launch an iteration and one for the entry rows, checked
+               on one search); its row at the CAGRA cell's step
+               (CAND_SHAPE over CAND_ROWS rows): ids and masks equal to its
+               plain step's, scores within CAND_TOL of a float64 dot, its
+               time against the plain step's and its bound.
  10. serve_main — the serving layer over the flat retriever of main (after
                cagra_main): the HTTP daemon (rag/server.serve on
                127.0.0.1, a free port) answering 16 client threads x 32
@@ -208,6 +213,7 @@ SOURCES = {
     "read_all": "cuvs_rag_tpu_torch/csrc/stream.cu",
     "gather_rows": "cuvs_rag_tpu_torch/csrc/stream.cu",
     "gather_reduce": "cuvs_rag_tpu_torch/csrc/stream.cu",
+    "cagra_candidates": "cuvs_rag_tpu_torch/csrc/graph.cu",
 }
 REPLACES = {
     "flat_topk_exact": "cuvs_rag_tpu/ops/pallas_flat.py:166",
@@ -220,6 +226,8 @@ REPLACES = {
     "read_all": "scripts/bench_roofline.py:46",
     "gather_rows": "scripts/bench_gather_modes.py:42",
     "gather_reduce": "scripts/bench_gather_modes.py:171",
+    # none: the JAX package's beam (ops/graph.py) is XLA ops
+    "cagra_candidates": None,
 }
 # gather_rows also stands for the span = 1 kernel of this script
 REPLACES_M4 = "scripts/bench_pallas_gather.py:38"
@@ -264,6 +272,13 @@ PQ_RECALL_FLOOR = 0.9
 CAGRA_RECALL_FLOOR = PQ_RECALL_FLOOR  # recall@10 against flat, itopk 64
 CAGRA_EXTEND = 1000  # rows added through the incremental path
 CAGRA_SAVED_ROWS = 1 << 20  # rows of the index saved and loaded
+# The candidate kernel's timing row at the CAGRA cell's step: 100 queries x
+# 16 parents x graph degree 64 over 896-wide bf16 rows, a beam of 128
+CAND_ROWS = 2_000_000
+CAND_SHAPE = dict(n_q=100, parents=16, degree=64, width=896, beam=128)
+# its scores against a float64 dot of the same values, over the dot's scale
+# (sum of |products|): fp32 FMAs and a warp's shuffles in its own order
+CAND_TOL = 1e-6
 PQ_MIN_REACHABLE = 0.75
 PQ_MIN_TOP1 = 0.25
 OOC_CHUNKS = 10  # chunks of the out-of-core build (divides ROWS)
@@ -1474,6 +1489,8 @@ def cagra_main_path(enc, emb, passages, planted, texts, flat_ids, flat_index,
     from cuvs_rag_tpu_torch.eval.roofline import cuda_ms
     from cuvs_rag_tpu_torch.index import cagra, filters, flat
     from cuvs_rag_tpu_torch.index import io as index_io
+    from cuvs_rag_tpu_torch.ops import graph as graph_ops
+    from cuvs_rag_tpu_torch.ops import graph_kernels as gk
     from cuvs_rag_tpu_torch.rag.corpus import Corpus
     from cuvs_rag_tpu_torch.rag.pipeline import Retriever
     from cuvs_rag_tpu_torch.utils.config import CagraParams, CagraSearchParams
@@ -1491,13 +1508,15 @@ def cagra_main_path(enc, emb, passages, planted, texts, flat_ids, flat_index,
                 raise AssertionError(f"an id twice in one result row: {row}")
 
     # the flat ground truth of the corpus-like queries first: K1 runs it,
-    # and the CAGRA path below must launch none of the port's kernels
+    # and the CAGRA path below must launch none of the port's kernels but
+    # the beam's candidate kernel
     src, qs = corpus_like_queries(emb)
     _, want = flat.search(None, flat_index, qs, 10)
     params = CagraParams(dtype="bfloat16")
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    gk.prepare.launches = 0
     t0 = time.perf_counter()
     retriever = Retriever.build(
         Corpus(passages=list(passages), embeddings=emb), enc, family="cagra",
@@ -1553,6 +1572,18 @@ def cagra_main_path(enc, emb, passages, planted, texts, flat_ids, flat_index,
         out[f"search_ms_per_batch_itopk_{itopk}"] = cuda_ms(
             lambda: cagra.search(sp, ix, next(cycle), 10), len(batches))
     out["search_ms_per_batch"] = out["search_ms_per_batch_itopk_64"]
+    # one search at itopk 64: one candidate launch an iteration, one for
+    # the entry rows
+    sp = CagraSearchParams(itopk_size=64)
+    iters = graph_ops.beam_plan(sp.itopk_size, 10, sp.search_width,
+                                sp.max_iterations)[2]
+    before = gk.prepare.launches
+    cagra.search(sp, ix, qs[:BATCH], 10)
+    out["candidate_launches_one_search"] = gk.prepare.launches - before
+    if out["candidate_launches_one_search"] != iters + 1:
+        raise AssertionError(
+            f"{iters} iterations of the beam launched the candidate kernel "
+            f"{out['candidate_launches_one_search']} times")
     if out["corpus_like_recall_at_10_itopk_64"] < CAGRA_RECALL_FLOOR:
         raise AssertionError(f"recall on corpus-like queries: {out}")
     out["profile"] = profile_calls(lambda: cagra.search(None, ix, qs[:BATCH],
@@ -1590,11 +1621,16 @@ def cagra_main_path(enc, emb, passages, planted, texts, flat_ids, flat_index,
         list(new_ids), dtype=torch.int32)).sum())
     if out["extended_top1"] < 0.99 * CAGRA_EXTEND:
         raise AssertionError(f"extended rows not found: {out}")
-    # the path runs on library calls: none of the port's hand kernels
+    # the path runs on library calls and the candidate kernel: none of the
+    # port's other hand kernels
     out["hand_kernel_launches"] = sum(
         kern.launches for kern, _ in kernel_fns().values())
     if out["hand_kernel_launches"]:
-        raise AssertionError("the CAGRA path launched a hand kernel")
+        raise AssertionError("the CAGRA path launched a scan kernel")
+    out["candidate_kernel_launches"] = gk.prepare.launches
+    if not out["candidate_kernel_launches"]:
+        raise AssertionError("the CAGRA path never launched the candidate "
+                             "kernel")
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del retriever, ix
     torch.cuda.empty_cache()
@@ -1615,7 +1651,93 @@ def cagra_main_path(enc, emb, passages, planted, texts, flat_ids, flat_index,
             or not torch.equal(got[0], want[0]):
         raise AssertionError("a saved and loaded CAGRA index answers "
                              "otherwise")
+    del small, back
+    torch.cuda.empty_cache()
+    out["candidate_kernel"] = cagra_candidates_row(
+        0, out["candidate_kernel_launches"])
     return out
+
+
+def cagra_candidates_row(seed: int, launches: int = 0,
+                         n_rows: int = CAND_ROWS) -> dict:
+    """The beam's candidate kernel (ops/graph_kernels, through
+    graph.candidate_step) at the CAGRA cell's step (CAND_SHAPE) over n_rows
+    random bf16 rows and a random graph: ids and -inf masks equal to its
+    plain step's (graph.candidates_plain on the card), every other score
+    within CAND_TOL of the float64 dot's scale (sum of |products|) and the
+    largest such error, CUDA-event ms of both (the
+    rows read, 185 MB at this shape, pass the 50 MB L2), and its bound:
+    the rows it reads (the news not masked: all but the few copies a random
+    graph gives) and the parents' graph rows once, the queries, parents,
+    their scores and the beam, and the (Q, m) ids and scores written; 2
+    fp32 operations a value of a scored row; the kernel's own device ms
+    (torch.profiler) and the host us a call of the launch a beam prepares
+    once. A kernels-line row; no one library call
+    computes the step."""
+    import torch
+
+    from cuvs_rag_tpu_torch.eval.roofline import cuda_ms, device_ms, host_us
+    from cuvs_rag_tpu_torch.ops import graph as graph_ops
+    from cuvs_rag_tpu_torch.ops import graph_kernels as gk
+
+    c = CAND_SHAPE
+    n_q, e, g, w, b = c["n_q"], c["parents"], c["degree"], c["width"], c["beam"]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.randn((n_rows, w), generator=gen, device=dev).to(
+        torch.bfloat16)
+    graph = torch.randint(0, n_rows, (n_rows, g), generator=gen, device=dev,
+                          dtype=torch.int32)
+    aq = torch.randn((n_q, w), generator=gen, device=dev)
+    parents = torch.randint(0, n_rows, (n_q, e), generator=gen, device=dev,
+                            dtype=torch.int32)
+    parent_s = torch.randn((n_q, e), generator=gen, device=dev)
+    beam = torch.randint(0, n_rows, (n_q, b), generator=gen, device=dev,
+                         dtype=torch.int32)
+    # the launch a beam prepares once and calls every iteration
+    route, launch = graph_ops.candidate_step(rows, aq, e, graph=graph,
+                                             beam_width=b)
+    if route != "kernel":
+        raise AssertionError(f"the cell's candidate step took the {route} "
+                             f"route")
+    call = lambda: launch(parents, parent_s, beam)  # noqa: E731
+    nbrs, scores = call()
+    args = (rows, aq, parents)
+    kw = dict(graph=graph, src_scores=parent_s, beam=beam)
+    want = graph_ops.candidates_plain(*args, **kw)
+    masked = torch.isinf(want[1])
+    if not torch.equal(nbrs, want[0]) \
+            or not torch.equal(torch.isinf(scores), masked):
+        raise AssertionError("the candidate kernel's ids or masks differ "
+                             "from its plain step's")
+    prods = rows[nbrs.long()].double() * aq[:, None, :].double()
+    err = ((scores.double() - prods.sum(-1)).abs()
+           / prods.abs().sum(-1))[~masked]
+    if not bool((err <= CAND_TOL).all()):
+        raise AssertionError(
+            f"the candidate kernel's scores: {int((err > CAND_TOL).sum())} "
+            f"of {err.numel()} past {CAND_TOL} of the float64 dot's scale "
+            f"(largest {float(err.max()):.3g})")
+    live = int((~masked).sum())
+    row_bytes = w * rows.element_size()
+    n_bytes = (live * row_bytes + n_q * e * g * 4 + nbytes(aq, parents,
+                                                            parent_s, beam)
+               + nbrs.numel() * 8)
+    del prods
+    ms = cuda_ms(call, 50)
+    return {"name": "cagra_candidates",
+            "shape": f"{n_q} x {e * g} of {n_rows}x{w} bf16, beam {b}",
+            "route": "cuda", "source": SOURCES["cagra_candidates"],
+            "replaces": REPLACES["cagra_candidates"], "launches": launches,
+            "plan": dict(zip(("table_bits", "live_cap", "blocks"), gk.plan(
+                dev.index or 0, 0, w, n_q, e * g, b,
+                torch.cuda.get_device_properties(dev).multi_processor_count))),
+            "max_rel_err": float(err.max()), "live_rows": live,
+            "ms": ms, "device_ms": device_ms(
+                call, ["cagra_candidates_kernel"])["cagra_candidates_kernel"],
+            "host_us": host_us(call), "plain_ms": cuda_ms(
+                lambda: graph_ops.candidates_plain(*args, **kw), 5, 1),
+            **bound(n_bytes, 2.0 * live * w, "fp32"), "library_ms": None}
 
 
 # ----------------------------------------------------------- serving ---
@@ -4117,7 +4239,7 @@ def main() -> int:
     emit("build", sources=sources, seconds=time.perf_counter() - t0,
          ptxas={src: build.resources(src)
                 for src in ("flash_attn.cu", "stream.cu", "flat_topk.cu",
-                            "ivf_scan.cu", "pq_adc.cu")})
+                            "ivf_scan.cu", "pq_adc.cu", "graph.cu")})
 
     t0 = time.perf_counter()
     parity = parity_phase(PARITY_ROWS, PARITY_RAGGED, args.seed)
@@ -4181,6 +4303,7 @@ def main() -> int:
                                 flat_r.index, rng)
     emit("cagra_main", gpu=gpu, seconds=time.perf_counter() - t0, **cagra_out)
     e2e["cagra_search_ms_per_batch"] = cagra_out["search_ms_per_batch"]
+    kernels.append(cagra_out.pop("candidate_kernel"))
     t0 = time.perf_counter()
     serve_out = serve_main_path(enc, emb, flat_r, planted, texts)
     emit("serve_main", gpu=gpu, seconds=time.perf_counter() - t0, **serve_out)

@@ -397,7 +397,9 @@ def search_scores(search_params: Optional[CagraSearchParams],
     counters cagra.queries, cagra.iterations (iterations x queries),
     cagra.entry_rows and cagra.candidate_rows (queries x iterations x
     search_width x graph_degree, plus the entry rows): taken from the
-    parameters and shapes, not from what is launched."""
+    parameters and shapes, not from what is launched. The beam adds the
+    route its candidate steps took (ops/graph.beam_search:
+    cagra.expand.kernel or cagra.expand.torch)."""
     sp = search_params or default_search_params()
     if index.metric == Metric.COSINE:
         queries = dist_ops.l2_normalize(queries)

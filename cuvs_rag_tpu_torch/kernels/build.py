@@ -76,6 +76,13 @@ SIGNATURES = {
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
         ],
     },
+    "graph.cu": {
+        "cagra_candidates_blocks": [_I, _I, _L],
+        "cagra_candidates": [
+            _P, _I, _I, _P, _I, _P, _L, _P, _L, _F, _P, _I, _P, _I, _I, _I,
+            _I, _I, _P, _P, _P,
+        ],
+    },
     "stream.cu": {
         "read_all": [_P, _L, _I, _I, _I, _I, _P, _P, _P],
         "gather_rows": [_P, _P, _P, _L, _I, _L, _I, _I, _P],

@@ -16,7 +16,12 @@ build and search, reshaped for batched tensor ops):
     BEAM: the beam keeps the best `itopk` scores seen so far, so an id
     displaced from it can never re-enter, and "visited and still relevant"
     is "in the current beam". Two masks do it: new ids against the beam,
-    and later copies within the new batch.
+    and later copies within the new batch. An iteration's candidate step
+    (the parents' graph rows, their scores, both masks: `candidates_plain`)
+    is one launch of a hand-written kernel on the card where
+    `ops/graph_kernels.takes` admits the shapes (`candidate_step` routes
+    it), and so is the entry rows' scoring; the picks and the merge stay
+    PyTorch ops.
 
 Every selection of the beam breaks ties by position, lowest first, as
 `lax.top_k` does (`topk_first`): the JAX search relies on that order (a
@@ -33,14 +38,18 @@ reconstruction.
 
 from __future__ import annotations
 
+import warnings
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from cuvs_rag_tpu_torch.ops import distance as dist_ops
+from cuvs_rag_tpu_torch.ops import graph_kernels
 from cuvs_rag_tpu_torch.ops import topk as topk_ops
+from cuvs_rag_tpu_torch.utils import profiling
 from cuvs_rag_tpu_torch.utils.config import Metric
+from cuvs_rag_tpu_torch.utils.metrics import default_registry
 
 NEG_INF = topk_ops.NEG_INF
 
@@ -366,6 +375,66 @@ def _score_rows(aug_vectors, aq, ids):
     return torch.bmm(vecs.float(), aq[:, :, None])[..., 0]
 
 
+def candidates_plain(aug_vectors, aq, src, *, graph=None, src_scores=None,
+                     beam=None):
+    """The beam's candidate step in PyTorch ops: (news ids (Q, m) int32,
+    their scores (Q, m) fp32, -inf where the merge must not take them).
+
+    With `graph`: src (Q, e) holds the parents an iteration expands (-1
+    reads graph row 0) and `src_scores` their pick scores; the news are
+    their graph rows end to end, and a parent at or below the tombstone
+    threshold spends no expansion (its news score -inf, yet still count as
+    earlier copies). Without: src (Q, m) holds the news ids themselves (the
+    entry rows). A news id that `beam` (Q, b) holds, or that an earlier
+    position of the news holds, scores -inf (the monotone beam's dedup, see
+    the module docstring). The plain version of the candidate kernel
+    (ops/graph_kernels), which takes this step in one launch on the card."""
+    nbrs = src
+    if graph is not None:
+        n_q, e = src.shape
+        g = graph.shape[1]
+        nbrs = graph[src.clamp(min=0).long()].reshape(n_q, e * g)
+    scores = _score_rows(aug_vectors, aq, nbrs)
+    if src_scores is not None:
+        # gate on the tombstone threshold: pad and deleted rows score a
+        # finite ~-2e30 and must not spend expansions
+        valid = src_scores > -dist_ops.DELETED_THRESHOLD
+        scores = scores.view(n_q, e, g).masked_fill(
+            ~valid[:, :, None], NEG_INF).view(n_q, e * g)
+    dup = earlier_copy(nbrs)
+    if beam is not None:
+        dup = (nbrs[:, :, None] == beam[:, None, :]).any(dim=2) | dup
+    return nbrs, scores.masked_fill(dup, NEG_INF)
+
+
+def candidate_step(aug_vectors, aq, src_cols: int, *, graph=None,
+                   beam_width: int = 0):
+    """(route, step): a search's candidate step, the kernel's prepared
+    launch where graph_kernels.takes admits the shapes (route "kernel"),
+    else candidates_plain ("torch"); step(src, src_scores=None, beam=None).
+    On the card the kernel takes every CAGRA storage and width; a step of
+    more than graph_kernels.MAX_CANDIDATES news a query or a beam of more
+    than MAX_BEAM ids runs the plain step there, with a warning the first
+    time."""
+    m = src_cols * (1 if graph is None else graph.shape[1])
+    if graph_kernels.takes(aug_vectors, m, beam_width, graph):
+        return "kernel", graph_kernels.prepare(
+            aug_vectors, aq, src_cols, graph=graph, beam_width=beam_width)
+    if aug_vectors.is_cuda and not candidate_step.warned:
+        candidate_step.warned = True
+        warnings.warn(
+            f"the CAGRA beam's candidate step runs as PyTorch ops on "
+            f"{aug_vectors.device}: no kernel for {aug_vectors.dtype} rows "
+            f"{tuple(aug_vectors.shape)}, {m} candidates a query and a beam "
+            f"of {beam_width} (at most {graph_kernels.MAX_CANDIDATES} and "
+            f"{graph_kernels.MAX_BEAM})", RuntimeWarning, stacklevel=2)
+    return "torch", lambda src, src_scores=None, beam=None: candidates_plain(
+        aug_vectors, aq, src, graph=graph, src_scores=src_scores, beam=beam)
+
+
+candidate_step.warned = False
+
+
 def beam_plan(itopk: int, k: int, expansions: int,
               max_iters: int = 0) -> Tuple[int, int, int]:
     """(beam width b = max(itopk, k), parents expanded an iteration, the
@@ -387,8 +456,10 @@ def beam_search(aug_vectors: torch.Tensor, graph: torch.Tensor,
     (Np, G). Entry points: `entry_ids` (Q, E) per query when given (the
     medoid map), else `n_entries` evenly spaced rows. Each iteration expands
     the `expansions` best unexpanded beam entries (cuVS's search_width).
-    Returns (scores (Q, k) descending, ids (Q, k) int32); slots without a
-    live row hold -inf and -1."""
+    While the span recorder is on, the call adds queries x iterations to
+    cagra.expand.kernel or cagra.expand.torch, by the candidate step's
+    route. Returns (scores (Q, k) descending, ids (Q, k) int32); slots
+    without a live row hold -inf and -1."""
     n_q = queries.shape[0]
     if n_q > _BEAM_QUERY_CHUNK:
         parts = [beam_search(
@@ -409,9 +480,14 @@ def beam_search(aug_vectors: torch.Tensor, graph: torch.Tensor,
     entry_ids = entry_ids.to(torch.int32)
     n_e = entry_ids.shape[1]
 
+    # the route of each step, from its shapes: the iterations' is counted
+    # by queries x iterations while the recorder is on
+    route, expand = candidate_step(aug_vectors, aq, e, graph=graph,
+                                   beam_width=b)
+    if profiling.recording():
+        default_registry.inc(f"cagra.expand.{route}", iters * n_q)
     # the monotone-beam dedup needs the initial beam id-distinct too
-    e_scores = _score_rows(aug_vectors, aq, entry_ids)
-    e_scores = e_scores.masked_fill(earlier_copy(entry_ids), NEG_INF)
+    _, e_scores = candidate_step(aug_vectors, aq, n_e)[1](entry_ids)
     top_e, order = topk_first(e_scores, min(b, n_e))
     scores = torch.full((n_q, b), NEG_INF, device=dev)
     ids = torch.full((n_q, b), -1, dtype=torch.int32, device=dev)
@@ -423,18 +499,10 @@ def beam_search(aug_vectors: torch.Tensor, graph: torch.Tensor,
     for _ in range(iters):
         pick_s, picks = topk_first(scores.masked_fill(expanded, NEG_INF), e)
         pick_ids = torch.gather(ids, 1, picks)
-        # gate on the tombstone threshold: pad and deleted rows score a
-        # finite ~-2e30 and must not spend expansions
-        valid = pick_s > -dist_ops.DELETED_THRESHOLD
         expanded = expanded.scatter(1, picks, True)
-        nbrs = graph[pick_ids.clamp(min=0).long()].reshape(n_q, e * g)
-        n_scores = _score_rows(aug_vectors, aq, nbrs).view(n_q, e, g) \
-            .masked_fill(~valid[:, :, None], NEG_INF).view(n_q, e * g)
-        # exact dedup without a visited set: news already in the beam, and
-        # later copies within the news (see the module docstring)
-        dup = (nbrs[:, :, None] == ids[:, None, :]).any(dim=2) \
-            | earlier_copy(nbrs)
-        n_scores = n_scores.masked_fill(dup, NEG_INF)
+        # the news, masked where expanded from a tombstone, already in the
+        # beam, or an earlier news' copy (candidates_plain)
+        nbrs, n_scores = expand(pick_ids, pick_s, ids)
         scores, sel = topk_first(torch.cat([scores, n_scores], 1), b)
         ids = torch.gather(torch.cat([ids, nbrs], 1), 1, sel)
         expanded = torch.gather(torch.cat([expanded, fresh], 1), 1, sel)

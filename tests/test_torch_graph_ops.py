@@ -245,3 +245,230 @@ def test_bootstrap_steps_cover_each_list_once(budget):
         assert len(s) == 1 or len(s) * own * cand * 4 <= budget
     # a budget past the whole tile takes every list in one step
     assert (len(steps) == 1) == (budget == 1 << 30)
+
+
+# ---------------------------------------------- the beam's candidate step ---
+
+
+def _old_loop_body(aug, graph, aq, pick_ids, pick_s, ids):
+    """The candidate step as beam_search wrote it inline before the step
+    was factored out (and given a kernel on the card)."""
+    from cuvs_rag_tpu_torch.ops import distance as dist_ops
+
+    n_q, e = pick_ids.shape
+    g = graph.shape[1]
+    valid = pick_s > -dist_ops.DELETED_THRESHOLD
+    nbrs = graph[pick_ids.clamp(min=0).long()].reshape(n_q, e * g)
+    n_scores = tgraph._score_rows(aug, aq, nbrs).view(n_q, e, g) \
+        .masked_fill(~valid[:, :, None], tgraph.NEG_INF).view(n_q, e * g)
+    dup = (nbrs[:, :, None] == ids[:, None, :]).any(dim=2) \
+        | tgraph.earlier_copy(nbrs)
+    return nbrs, n_scores.masked_fill(dup, tgraph.NEG_INF)
+
+
+def _step_case(case, seed=4):
+    """Rows, graph, queries, parents, their scores and a beam for one of
+    the step's masked cases."""
+    g = torch.Generator().manual_seed(seed)
+    n, d, deg, n_q, e, b = 300, 30, 8, 5, 4, 16
+    x = torch.randn((n, d), generator=g)
+    aug = tgraph.augment_rows(x, (x * x).sum(1), n - 20, "sqeuclidean")
+    aq = tgraph.augmented_query(torch.randn((n_q, d), generator=g),
+                                "sqeuclidean", aug.shape[1])
+    graph = torch.randint(0, n, (n, deg), generator=g, dtype=torch.int32)
+    picks = torch.randint(0, n - 20, (n_q, e), generator=g, dtype=torch.int32)
+    pick_s = torch.randn((n_q, e), generator=g)
+    ids = torch.randint(0, n, (n_q, b), generator=g, dtype=torch.int32)
+    if case == "empty_and_tombstoned_parents":
+        picks[:, 0] = -1  # an empty beam slot picked: it reads graph row 0
+        pick_s[:, 0] = -float("inf")
+        pick_s[:, 2] = -2e30  # a tombstoned row picked
+        graph[0] = graph[picks[0, 1]]  # its news copy a live parent's
+    elif case == "one_id_from_two_parents":
+        graph[picks[:, 1].long(), :3] = graph[picks[:, 0].long(), 5:]
+        graph[picks[:, 2].long(), 4] = graph[picks[:, 2].long(), 6]
+    elif case == "ids_already_in_the_beam":
+        news = graph[picks.long()].reshape(n_q, e * deg)
+        ids[:, ::2] = news[:, 1:2 * (b // 2):2]
+        ids[:, -1] = -1
+    return aug, graph, aq, picks, pick_s, ids
+
+
+@pytest.mark.parametrize("case", ["empty_and_tombstoned_parents",
+                                  "one_id_from_two_parents",
+                                  "ids_already_in_the_beam"])
+def test_candidates_plain_equals_the_old_loop_body(case):
+    """The factored candidate step gives the inline loop body's news ids
+    and scores bit for bit, -inf where a parent is empty or tombstoned
+    (those news still mask later copies), where an id repeats an earlier
+    news' and where the beam holds it; the entry step (no graph, no beam)
+    masks later copies alone."""
+    aug, graph, aq, picks, pick_s, ids = _step_case(case)
+    want = _old_loop_body(aug, graph, aq, picks, pick_s, ids)
+    got = tgraph.candidates_plain(aug, aq, picks, graph=graph,
+                                  src_scores=pick_s, beam=ids)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    masked = torch.isinf(want[1])
+    assert 0 < int(masked.sum()) < masked.numel()
+    if case == "empty_and_tombstoned_parents":
+        # the empty parent's news are graph row 0, masked, and copied by
+        # the live parent's news, which they mask in turn
+        assert torch.equal(got[0][0, :8], graph[0])
+        assert masked[:, :8].all() and masked[0, 8:16].all()
+    entry = torch.cat([picks, picks[:, :2]], dim=1).clamp(min=0)
+    s_entry = tgraph.candidates_plain(aug, aq, entry)[1]
+    want_entry = tgraph._score_rows(aug, aq, entry).masked_fill(
+        tgraph.earlier_copy(entry), tgraph.NEG_INF)
+    assert torch.equal(s_entry, want_entry) and torch.isinf(
+        s_entry[:, -2:]).all()
+
+
+def _card_rows(dtype, width):
+    """A stand-in for (64, width) contiguous rows on the card: the route
+    reads their type and shape, never their data."""
+    import types
+
+    return types.SimpleNamespace(
+        is_cuda=True, ndim=2, dtype=dtype, shape=(64, width),
+        is_contiguous=lambda: True, device=torch.device("cuda", 0))
+
+
+def test_candidate_route_is_the_plain_step_on_the_cpu():
+    """The kernel takes CUDA rows alone: on CPU rows the route is the plain
+    step, whatever the shapes, launches nothing and warns of nothing (the
+    warning is the card's)."""
+    import warnings
+
+    from cuvs_rag_tpu_torch.ops import graph_kernels as gk
+
+    aug, graph, aq, picks, pick_s, ids = _step_case("ids_already_in_the_beam")
+    rows = torch.zeros((64, 896), dtype=torch.bfloat16)
+    assert not gk.takes(rows, 1024, 128)
+    assert gk.takes(_card_rows(rows.dtype, 896), 1024, 128)
+    before = gk.prepare.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        route, step = tgraph.candidate_step(aug, aq, picks.shape[1],
+                                            graph=graph, beam_width=16)
+    assert route == "torch"
+    got = step(picks, pick_s, ids)
+    want = _old_loop_body(aug, graph, aq, picks, pick_s, ids)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert gk.prepare.launches == before
+
+
+@pytest.mark.parametrize("dtype,width,m,b,takes", [
+    (torch.bfloat16, 896, 1024, 128, True),  # the CAGRA cell's step
+    (torch.float32, 896, 1024, 64, True),
+    (torch.bfloat16, 128, 128, 0, True),  # an entry step
+    (torch.float32, 1152, 1024, 128, True),  # fp32 rows of 1,024 dims
+    (torch.bfloat16, 4224, 8192, 4096, True),  # every limit at its edge
+    (torch.float32, 1024, 1, 0, True),
+    (torch.int8, 896, 1024, 128, False),  # storage the kernel does not read
+    (torch.float16, 896, 1024, 128, False),
+    (torch.bfloat16, 900, 1024, 128, False),  # width not a multiple of 8
+    (torch.float32, 0, 1024, 128, False),
+    (torch.bfloat16, 896, 8193, 128, False),  # news past shared memory
+    (torch.bfloat16, 896, 1024, 4097, False),  # a beam past it
+    (torch.bfloat16, 896, 0, 0, False),
+])
+def test_candidate_kernel_limits(dtype, width, m, b, takes):
+    """Which storage types and shapes the kernel takes on the card (the
+    rest run the plain step there too): every CAGRA storage (bf16, fp32)
+    and augmented width (a multiple of 128) at any row length."""
+    from cuvs_rag_tpu_torch.ops import graph_kernels as gk
+
+    assert gk.takes(_card_rows(dtype, width), m, b) is takes
+
+
+def test_candidate_kernel_constants_match_its_source():
+    """The wrapper's limits are the CUDA source's, which checks them again
+    and refuses a launch past them."""
+    import re
+
+    from cuvs_rag_tpu_torch.kernels import build
+    from cuvs_rag_tpu_torch.ops import graph_kernels as gk
+
+    src = (build.CSRC / "graph.cu").read_text()
+
+    def const(name):
+        expr = re.search(rf"constexpr int {name} = ([\d *]+);", src).group(1)
+        return int(np.prod([int(f) for f in expr.split("*")]))
+
+    assert const("MAX_CANDIDATES") == gk.MAX_CANDIDATES
+    assert const("MAX_BEAM") == gk.MAX_BEAM
+    assert const("MAX_TABLE_BITS") == gk._TABLE_BITS[1]
+    assert "bits < 6" in src and gk._TABLE_BITS[0] == 6
+    # a block at every limit within the 227 KB an H100 block may have
+    cap, beam = gk.MAX_CANDIDATES, gk.MAX_BEAM
+    most = 4 * ((2 << gk._TABLE_BITS[1]) + beam + 2 * cap) + beam + cap
+    assert most == 225_280 <= 227 * 1024
+
+
+@pytest.mark.parametrize("n_q,m,b,sms,per_sm", [
+    (100, 1024, 128, 132, 2), (1, 1024, 128, 132, 2), (16, 128, 0, 132, 3),
+    (256, 2048, 1024, 132, 1), (3, 8, 0, 4, 8), (16, 8192, 4096, 132, 1)])
+def test_candidate_kernel_plan(monkeypatch, n_q, m, b, sms, per_sm):
+    """The launch plan: the blocks the card holds at once, no block with
+    fewer than 32 news (but one), each block's share of the positions
+    within its segment capacity, and a table of at least twice the ids."""
+    from cuvs_rag_tpu_torch.ops import graph_kernels as gk
+
+    monkeypatch.setattr(gk, "_blocks_per_sm", lambda *args: per_sm)
+    gk.plan.cache_clear()
+    try:
+        bits, live_cap, blocks = gk.plan(0, 0, 896, n_q, m, b, sms)
+    finally:
+        gk.plan.cache_clear()
+    assert 1 <= blocks <= sms * per_sm
+    assert blocks == 1 or n_q * m // blocks >= 32
+    assert live_cap == min(m, -(-n_q * m // blocks))
+    assert 6 <= bits <= 14 and (1 << bits) >= min(2 * (b + m), 1 << 14)
+
+
+def _route_counts(monkeypatch, kernel):
+    """A CAGRA search on the CPU with the recorder on: the counters it adds,
+    and its answers, with the kernel's route stood in for by the plain
+    step where `kernel`."""
+    from cuvs_rag_tpu_torch.index import cagra
+    from cuvs_rag_tpu_torch.ops import graph_kernels as gk
+    from cuvs_rag_tpu_torch.utils import profiling
+    from cuvs_rag_tpu_torch.utils.config import CagraParams, CagraSearchParams
+    from cuvs_rag_tpu_torch.utils.metrics import default_registry
+
+    names = ("cagra.iterations", "cagra.expand.kernel", "cagra.expand.torch")
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((1024, 24), generator=g)
+    ix = cagra.build(CagraParams(intermediate_graph_degree=16, graph_degree=8),
+                     x)
+    if kernel:
+        monkeypatch.setattr(gk, "takes", lambda *args, **kwargs: True)
+        monkeypatch.setattr(gk, "prepare", lambda rows, aq, cols, graph=None,
+                            beam_width=0: lambda src, s=None, beam=None:
+                            tgraph.candidates_plain(rows, aq, src, graph=graph,
+                                                    src_scores=s, beam=beam))
+    before = default_registry.snapshot()["counters"]
+    profiling.record_spans(True)
+    try:
+        out = cagra.search(CagraSearchParams(itopk_size=32, search_width=4),
+                           ix, x[:9] + 0.01, 5)
+    finally:
+        profiling.record_spans(False)
+        profiling.clear()
+    after = default_registry.snapshot()["counters"]
+    return {k: after.get(k, 0) - before.get(k, 0) for k in names}, out
+
+
+def test_expand_counters_follow_the_route(monkeypatch):
+    """cagra.expand.torch on the CPU, cagra.expand.kernel where the route
+    takes the kernel, each queries x iterations, so equal to
+    cagra.iterations; the two routes' answers agree."""
+    torch_counts, want = _route_counts(monkeypatch, kernel=False)
+    assert torch_counts == {"cagra.iterations": 9 * 16,
+                            "cagra.expand.kernel": 0,
+                            "cagra.expand.torch": 9 * 16}
+    kernel_counts, got = _route_counts(monkeypatch, kernel=True)
+    assert kernel_counts == {"cagra.iterations": 9 * 16,
+                             "cagra.expand.kernel": 9 * 16,
+                             "cagra.expand.torch": 0}
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
