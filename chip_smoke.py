@@ -236,6 +236,16 @@ IVF_KERNELS = ("ivf_scan", "ivf_scan_large")
 PQ_KERNELS = ("pq_adc_scores",)
 ATTN_KERNELS = ("flash_attention",)
 STREAM_KERNELS = ("read_all", "gather_rows", "gather_reduce")
+# The C entry points each wrapper launches, whose launches
+# kernels/build.launches counts: a wrapper's count is the sum of its entries'
+ENTRIES = {
+    "flat_topk_exact": ("flat_exact_topk", "flat_exact_wide_topk"),
+    "flat_topk_sketch": ("flat_sketch_topk",),
+    "flat_topk_large": ("flat_topr",),
+    "ivf_scan": ("ivf_scan_topk",),
+    "ivf_scan_large": ("ivf_scan_topr",),
+    **{n: (n,) for n in PQ_KERNELS + ATTN_KERNELS + STREAM_KERNELS},
+}
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, at the full
 # 700 W limit): the yardsticks of every kernel's bound.
 H100_BYTES_PER_S = 3.35e12
@@ -340,14 +350,23 @@ def kernel_fns():
             for n, m in mods.items()}
 
 
+def launched(name: str) -> int:
+    """Launches of wrapper `name` (or of the CAGRA candidate kernel) since
+    reset_launches."""
+    from cuvs_rag_tpu_torch.kernels import build
+
+    return sum(build.launches[e] for e in ENTRIES.get(name, (name,)))
+
+
 def reset_launches() -> None:
-    for kern, _ in kernel_fns().values():
-        kern.launches = 0
+    from cuvs_rag_tpu_torch.kernels import build
+
+    for entry in build.launches:
+        build.launches[entry] = 0
 
 
 def read_launches(names) -> dict:
-    fns = kernel_fns()
-    launches = {n: fns[n][0].launches for n in names}
+    launches = {n: launched(n) for n in names}
     missing = [n for n, c in launches.items() if c == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
@@ -1490,7 +1509,6 @@ def cagra_main_path(enc, emb, passages, planted, texts, flat_ids, flat_index,
     from cuvs_rag_tpu_torch.index import cagra, filters, flat
     from cuvs_rag_tpu_torch.index import io as index_io
     from cuvs_rag_tpu_torch.ops import graph as graph_ops
-    from cuvs_rag_tpu_torch.ops import graph_kernels as gk
     from cuvs_rag_tpu_torch.rag.corpus import Corpus
     from cuvs_rag_tpu_torch.rag.pipeline import Retriever
     from cuvs_rag_tpu_torch.utils.config import CagraParams, CagraSearchParams
@@ -1516,7 +1534,6 @@ def cagra_main_path(enc, emb, passages, planted, texts, flat_ids, flat_index,
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    gk.prepare.launches = 0
     t0 = time.perf_counter()
     retriever = Retriever.build(
         Corpus(passages=list(passages), embeddings=emb), enc, family="cagra",
@@ -1577,9 +1594,10 @@ def cagra_main_path(enc, emb, passages, planted, texts, flat_ids, flat_index,
     sp = CagraSearchParams(itopk_size=64)
     iters = graph_ops.beam_plan(sp.itopk_size, 10, sp.search_width,
                                 sp.max_iterations)[2]
-    before = gk.prepare.launches
+    before = launched("cagra_candidates")
     cagra.search(sp, ix, qs[:BATCH], 10)
-    out["candidate_launches_one_search"] = gk.prepare.launches - before
+    out["candidate_launches_one_search"] = launched("cagra_candidates") \
+        - before
     if out["candidate_launches_one_search"] != iters + 1:
         raise AssertionError(
             f"{iters} iterations of the beam launched the candidate kernel "
@@ -1623,11 +1641,10 @@ def cagra_main_path(enc, emb, passages, planted, texts, flat_ids, flat_index,
         raise AssertionError(f"extended rows not found: {out}")
     # the path runs on library calls and the candidate kernel: none of the
     # port's other hand kernels
-    out["hand_kernel_launches"] = sum(
-        kern.launches for kern, _ in kernel_fns().values())
+    out["hand_kernel_launches"] = sum(launched(n) for n in ENTRIES)
     if out["hand_kernel_launches"]:
         raise AssertionError("the CAGRA path launched a scan kernel")
-    out["candidate_kernel_launches"] = gk.prepare.launches
+    out["candidate_kernel_launches"] = launched("cagra_candidates")
     if not out["candidate_kernel_launches"]:
         raise AssertionError("the CAGRA path never launched the candidate "
                              "kernel")
@@ -2190,8 +2207,7 @@ SHARD_APPROX_TOL = 0.005
 
 def take_launches(names) -> dict:
     """The wrappers' counts now (set to 0 by reset_launches)."""
-    fns = kernel_fns()
-    return {n: fns[n][0].launches for n in names}
+    return {n: launched(n) for n in names}
 
 
 def overlap_profile(fn, calls: int = 20) -> dict:
@@ -2369,6 +2385,7 @@ def shard_kernel_rows(family: str, ix, q) -> dict:
     plan the wrapper chose at this shape. Launches made here are not
     counted."""
     from cuvs_rag_tpu_torch.index import flat, ivf_flat
+    from cuvs_rag_tpu_torch.kernels import build
     from cuvs_rag_tpu_torch.ops import flat_kernels as fk
     from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
 
@@ -2406,7 +2423,7 @@ def shard_kernel_rows(family: str, ix, q) -> dict:
                 **ivf_shape_row(shape, args, dict(kw, k=10)), "route": route,
                 "rows_a_block_blocks_a_probe": ik.k4_pieces(
                     ix.max_list_size, route, p.numel(),
-                    fk._sm_count(ix.vectors.device))},
+                    build.sm_count(ix.vectors.device))},
             "ivf_scan_large": large_shape_row(
                 "ivf_scan_large", shape, args,
                 dict(kw, k=K_LARGE, n_sub=cfg[0], r_planes=cfg[1]),
@@ -3823,6 +3840,7 @@ def large_shape_row(name: str, shape: str, args, kw, bound_fn,
                     profile: bool = True) -> dict:
     """K3 or K5 at one call shape: `large_hold`, `large_times` and the
     bound; with the plan the wrapper chose."""
+    from cuvs_rag_tpu_torch.kernels import build
     from cuvs_rag_tpu_torch.ops import flat_kernels as fk
     from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
 
@@ -3836,12 +3854,12 @@ def large_shape_row(name: str, shape: str, args, kw, bound_fn,
                          "blocks_an_sm"), plan))
         plan["splits"] = fk._class_splits(
             args[0].shape[0], n_q, tile_c,
-            fk._sm_count(args[0].device), plan["blocks_an_sm"],
+            build.sm_count(args[0].device), plan["blocks_an_sm"],
             plan["queries_a_block"])[1]
     else:
         plan = dict(zip(("route", "tiles_a_split", "splits"), ik.k5_plan(
             n_q, kw["window"], kw["n_sub"], args[4].shape[1], kw["r_planes"],
-            args[0].shape[1], args[0].dtype, fk._sm_count(args[0].device))))
+            args[0].shape[1], args[0].dtype, build.sm_count(args[0].device))))
     return {"shape": shape, "plan": plan, **large_hold(name, args, kw),
             **large_times(name, args, kw, profile), **bound_fn(*args, **kw)}
 
@@ -4163,9 +4181,9 @@ def stream_timing(emb, seed: int):
     read = roofline.read_rates(emb)
     gathers = {}
     for key, (vectors, _) in cases.items():
-        before = sk.gather_rows.launches
+        before = launched("gather_rows")
         gathers[key] = roofline.gather_rates(vectors, sets[key])
-        gathers[key]["gather_rows_launches"] = sk.gather_rows.launches - before
+        gathers[key]["gather_rows_launches"] = launched("gather_rows") - before
     launches = read_launches(STREAM_KERNELS)
     fields = {"read": read, "gather": gathers, "launches": launches,
               "held_against_plain": held}

@@ -7,6 +7,11 @@ source, the shared `.cuh` headers and the flags, so a changed source
 rebuilds and an unchanged one loads the library already built; what
 `ptxas -v` said of each kernel is kept beside the library (`resources`).
 Nothing here runs at import time.
+
+It is also the wrappers' one way to the card: `launcher` makes a launch of
+an entry point, with its span, error check and count (`launches`), and the
+card facts the wrappers plan with live here once (`sm_count`, the shared
+memory limits, `aligned`, `require_cuda`).
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from cuvs_rag_tpu_torch.utils import profiling
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -29,6 +36,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# Shared memory of an H100 SM, what one block may take of it, and what the
+# card keeps back for each resident block (bytes).
+SM_SMEM = 228 * 1024
+MAX_SMEM = 227 * 1024
+BLOCK_RESERVED = 1024
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -89,6 +102,12 @@ SIGNATURES = {
         "gather_reduce": [_P, _P, _L, _I, _I, _I, _P, _P, _P],
     },
 }
+
+
+# Launches of each entry point in this process, counted by `launcher`; a run
+# reads differences, or sets them to 0. A wrapper's count is the sum of its
+# entries'.
+launches = {entry: 0 for entries in SIGNATURES.values() for entry in entries}
 
 
 def _nvcc() -> str:
@@ -186,6 +205,27 @@ def _kernel_name(mangled: str) -> str | None:
     return found
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """SMs of a CUDA device, looked up once a device."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def aligned(t):
+    """`t`, or a copy where its first byte is not 16-byte aligned (a view
+    that starts inside an allocation): the kernels copy 16 bytes a load."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def require_cuda(t) -> None:
+    """Raise unless `t` lies on a CUDA device: the wrappers run their plain
+    versions on CPU tensors and have a kernel for CUDA tensors only."""
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {t.device}")
+
+
 def device_guard(device):
     """A context manager that makes the CUDA `device` current for a launch
     (kernels launch into the current device's context), and nothing where it
@@ -214,3 +254,27 @@ def check(err: int, what: str) -> None:
     never runs, and synchronize() would not report it)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def launcher(source: str, entry: str, device, *, kernel: str):
+    """The one way a wrapper launches a kernel: a callable that takes the
+    arguments of C entry point `entry` of `source` but the last, the
+    stream, and launches on `device`. The C function and PyTorch's current
+    stream of the device are resolved when the launcher is made. Each call
+    makes the device current where it is not, records the C call as the
+    span `kernel.launch` with the label `kernel` and the device's index
+    (the benchmark pins device events to that span's start), raises on a
+    CUDA error under `entry`'s name and counts one launch in
+    `launches[entry]`."""
+    fn = getattr(load(source), entry)
+    stream = raw_stream(device)
+    index = device.index
+
+    def launch(*args):
+        with device_guard(device), profiling.span(
+                "kernel.launch", kernel=kernel, device=index):
+            err = fn(*args, stream)
+        check(err, entry)
+        launches[entry] += 1
+
+    return launch

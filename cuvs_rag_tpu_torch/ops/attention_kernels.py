@@ -5,8 +5,9 @@ Qwen3 encoder calls (`models/flax_qwen.py:157`). One wrapper,
 `flash_attention`, launches the hand-written CUDA kernels of
 `csrc/flash_attn.cu` on a CUDA tensor (bf16: the tensor-core kernel, both
 products as `wgmma`; fp32: the CUDA-core kernel, fp32 math throughout) and runs `flash_attention_plain`
-on a CPU tensor — never a fallback from one to the other. It counts its
-kernel launches in `flash_attention.launches`.
+on a CPU tensor — never a fallback from one to the other. It launches
+through `kernels/build.launcher` (kernel "K7"), which counts the launches
+in `build.launches["flash_attention"]`.
 
 Contract: q (B, S, nh, hd) and k, v (B, S, nkv, hd), the projections' own
 layout (query head h reads kv head h // (nh // nkv): no GQA repeat, no
@@ -31,6 +32,8 @@ elementwise error those two roundings allow, with a factor 2 to spare.
 from __future__ import annotations
 
 import torch
+
+from cuvs_rag_tpu_torch.kernels import build
 
 _SOURCE = "flash_attn.cu"
 _HEAD_DIMS = (64, 128)
@@ -60,12 +63,6 @@ def _prepare(q, k, v, mask):
         if t.device != q.device:
             raise ValueError(f"tensors on {t.device} and {q.device}")
     return mask.to(torch.int32).contiguous()
-
-
-def _aligned(t):
-    """Contiguous, and starting on 16 bytes (the kernel's vector loads)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_attention_plain(q, k, v, mask, sm_scale: float):
@@ -136,27 +133,18 @@ def flash_attention(q, k, v, mask, sm_scale: float):
         raise ValueError(f"sm_scale must be positive, got {sm_scale}")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, mask, sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for tensors on {q.device}")
+    build.require_cuda(q)
     seg = _prepare(q, k, v, mask)
     b, s, nh, hd = q.shape
     if hd not in _HEAD_DIMS or q.dtype not in _DTYPES:
         raise ValueError(f"the kernel takes head_dim in {_HEAD_DIMS} and "
                          f"bfloat16 or float32, got {hd} and {q.dtype}")
-    from cuvs_rag_tpu_torch.kernels import build
-
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)  # held until the return
+    # contiguous and 16-byte aligned (the kernel's vector loads), held
+    # until the return
+    q, k, v = (build.aligned(t.contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)
-    with build.device_guard(q.device):
-        err = build.load(_SOURCE).flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
-            out.data_ptr(), b, s, nh, k.shape[2], hd,
-            int(q.dtype == torch.bfloat16), float(sm_scale),
-            build.raw_stream(q.device),
-        )
-    build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    build.launcher(_SOURCE, "flash_attention", q.device, kernel="K7")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+        out.data_ptr(), b, s, nh, k.shape[2], hd,
+        int(q.dtype == torch.bfloat16), float(sm_scale))
     return out
-
-
-flash_attention.launches = 0

@@ -11,10 +11,10 @@ CPU tensor — never a fallback from one to the other:
                          including the int8 x int8 -> int32 path
   flat_topk_large   (K3) replaces flat_topk_large (certified large k)
 
-Each wrapper counts its kernel launches in `<wrapper>.launches`, a plain
-int that a run resets and reads to show which kernels it went through;
-`flat_topk_exact.wide_launches` counts those of K1's wide route.
-K1's launch call is the span `kernel.launch` (utils/profiling).
+Each launches through `kernels/build.launcher`, which counts the launches
+of each C entry point in `build.launches` (K1's wide route is
+"flat_exact_wide_topk") and makes the call the span `kernel.launch`
+(kernel "K1", "K2", "K3").
 
 Shared input contract (as the TPU kernels'): corpus (N, D) fp32, bf16 or
 int8 rows; corpus_sqnorms (N,) fp32 with tombstoned rows raised past
@@ -30,15 +30,14 @@ not be a multiple of any tile: the CUDA kernels mask the ragged edge.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import NamedTuple
 
 import torch
 
+from cuvs_rag_tpu_torch.kernels import build
 from cuvs_rag_tpu_torch.ops import distance as dist_ops
 from cuvs_rag_tpu_torch.ops import topk as topk_ops
-from cuvs_rag_tpu_torch.utils import profiling
 from cuvs_rag_tpu_torch.utils.config import Metric
 
 MAX_KERNEL_K = 32  # K1/K2 keep a warp-held top-k: one lane per slot
@@ -57,22 +56,14 @@ _TQ, _TC = 16, 128
 # planes need the SM's shared memory (`topr_plan`).
 _BLOCKS_PER_SM = 4
 _RING_BLOCKS_PER_SM = 2
-# Shared memory of an H100 SM, what a block may take of it, and what the
-# card keeps back for each resident block (bytes).
-_SM_SMEM = 228 * 1024
-_MAX_SMEM = 227 * 1024
-_BLOCK_RESERVED = 1024
 # K1's ring (csrc/flat_topk.cu RING_STAGES, RING_CHUNK) and score tile row
 _RING_STAGES, _RING_CHUNK, _SCORE_PITCH = 3, 128, 128 + 8
 # K3's "cores" route: the planes of the queries of a block (csrc topr_scan_kernel)
 _PLANE_SMEM = 88 * 1024
-# K3's ring route by blocks an SM (1 or 2), or None for `topr_plan`'s rule;
-# eval/large_k_times.py sets it to time both.
-_TOPR_BLOCKS_PER_SM = None
 # The ring routes stage the 16 x d query tile beside the ring: at d = 2048
 # that is 66 KB of bf16 (131 KB of fp32) and a block already has its SM to
 # itself; deeper rows stay with the older CUDA-core kernels.
-_RING_MAX_DIM = 2048
+RING_MAX_DIM = 2048
 # K1's wide route (csrc/flat_topk.cu exact_scan_wide_kernel, WIDE_*): the
 # most query slots a pass (two warpgroups' products of N / 2 each), corpus
 # rows a tile, the ring's stages and bytes a row of a stage, the pitch of
@@ -82,8 +73,7 @@ _WIDE_MAX_N, _WIDE_ROWS, _WIDE_STAGES, _WIDE_CHUNK = 128, 128, 5, 128
 _WIDE_SCORE_PITCH, _WIDE_ALIGN = 68, 1024
 # The crossover: calls of at most this many queries keep the 16-query
 # kernel, one tile reading the corpus once; above it the wide kernel reads
-# it once a pass (the sweep of eval/wrapper_times.py, PERF.md).
-# eval/wrapper_times.py changes it to time one route against the other.
+# it once a pass (PERF.md).
 _NARROW_MAX_Q = 16
 _SOURCE = "flat_topk.cu"
 _COMBO = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -171,17 +161,6 @@ def _by_class(scores, tile_c: int):
     return scores.view(q, nt, tile_c)
 
 
-def _require_cuda(corpus):
-    if corpus.device.type != "cuda":
-        raise ValueError(f"no kernel for tensors on {corpus.device}")
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device) -> int:
-    """SMs of a CUDA device, looked up once a device."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def exact_route(dtype, d: int) -> str:
     """Which of K1's kernels takes rows of `dtype` and depth `d`. "ring":
     the tensor cores fed by the copy ring (bf16 rows, or int8 rows widened
@@ -193,7 +172,7 @@ def exact_route(dtype, d: int) -> str:
     arguments; all three are kernels of csrc/flat_topk.cu."""
     if dtype not in _COMBO:
         raise ValueError(f"unsupported storage dtype {dtype}")
-    if d > _RING_MAX_DIM:
+    if d > RING_MAX_DIM:
         return "cores"
     if dtype == torch.float32:
         return "ring_fp32" if d % 4 == 0 else "cores"
@@ -234,7 +213,7 @@ def _wide_width(d: int, dtype, k: int) -> int:
     """The most queries a pass of the wide kernel takes at depth d and k:
     the largest multiple of 16 up to _WIDE_MAX_N whose shared memory fits."""
     n = _WIDE_MAX_N
-    while n > 16 and _wide_smem(n, d, dtype, k) > _MAX_SMEM:
+    while n > 16 and _wide_smem(n, d, dtype, k) > build.MAX_SMEM:
         n -= 16
     return n
 
@@ -314,12 +293,6 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
-def _aligned(t):
-    """`t`, or a copy where its first byte is not 16-byte aligned (a view
-    that starts inside an allocation): K1 copies rows 16 bytes at a time."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 # ------------------------------------------------------------------- K1 ---
 
 
@@ -336,8 +309,8 @@ def flat_topk_exact_plain(corpus, corpus_sqnorms, queries, n_valid,
 # Units in the last place a running fp32 sum may lose per term when its
 # adds truncate, as the tensor cores' accumulation does (round-to-nearest
 # loses half as much): the c of `flat_rounding_bound`.
-_TRUNCATION_ULPS = 2.0
-_FP32_HALF_ULP = 2.0 ** -24
+TRUNCATION_ULPS = 2.0
+FP32_HALF_ULP = 2.0 ** -24
 
 
 def flat_rounding_bound(corpus, corpus_sqnorms, queries, n_valid,
@@ -382,9 +355,9 @@ def flat_rounding_bound(corpus, corpus_sqnorms, queries, n_valid,
         scales, csq = scales[idx], csq[idx]
     term = mult * scales * ip
     want = term - csq
-    allowed = (mult * scales.abs() * _TRUNCATION_ULPS * corpus.shape[1]
-               * _FP32_HALF_ULP * mag
-               + _FP32_HALF_ULP * term.abs() + _FP32_HALF_ULP * want.abs())
+    allowed = (mult * scales.abs() * TRUNCATION_ULPS * corpus.shape[1]
+               * FP32_HALF_ULP * mag
+               + FP32_HALF_ULP * term.abs() + FP32_HALF_ULP * want.abs())
     return want, allowed
 
 
@@ -422,18 +395,15 @@ def flat_topk_exact(corpus, corpus_sqnorms, queries, n_valid,
     if corpus.device.type == "cpu":
         return flat_topk_exact_plain(corpus, corpus_sqnorms, queries, n_valid,
                                      corpus_scales, k=k, metric=metric)
-    _require_cuda(corpus)
+    build.require_cuda(corpus)
     queries, _, scales = _prepare(corpus, corpus_sqnorms, queries, n_valid,
                                   corpus_scales, metric)
-    from cuvs_rag_tpu_torch.kernels import build
-
     dev = corpus.device
     n, d = corpus.shape
     n_q = queries.shape[0]
-    plan = exact_plan(n, n_q, d, corpus.dtype, _sm_count(dev), k)
-    wide = plan.route == "ring_wide"
-    queries = _aligned(queries.contiguous())
-    corpus = _aligned(corpus.contiguous())
+    plan = exact_plan(n, n_q, d, corpus.dtype, build.sm_count(dev), k)
+    queries = build.aligned(queries.contiguous())
+    corpus = build.aligned(corpus.contiguous())
     sqnorms = corpus_sqnorms.contiguous()
     scales = scales.contiguous()
     part_s = torch.empty((n_q, plan.n_splits, k), dtype=torch.float32,
@@ -442,29 +412,18 @@ def flat_topk_exact(corpus, corpus_sqnorms, queries, n_valid,
                          device=dev)
     out_s = torch.empty((n_q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_q, k), dtype=torch.int32, device=dev)
-    lib = build.load(_SOURCE)
     call = (_ptr(queries), _ptr(corpus), _ptr(sqnorms), _ptr(scales), n_q, d,
             n, int(n_valid), int(metric == Metric.SQEUCLIDEAN), k)
-    out = (_ptr(part_s), _ptr(part_i), _ptr(out_s), _ptr(out_i),
-           build.raw_stream(dev))
-    with build.device_guard(dev), profiling.span(
-            "kernel.launch", kernel="K1", device=dev.index):
-        if wide:
-            err = lib.flat_exact_wide_topk(
-                _COMBO[corpus.dtype], *call, plan.width, plan.passes,
-                plan.rows_per_split, plan.n_splits, *out)
-        else:
-            err = lib.flat_exact_topk(
-                _COMBO[corpus.dtype], int(plan.route != "cores"), *call,
-                plan.rows_per_split, plan.n_splits, *out)
-    build.check(err, "flat_exact_wide_topk" if wide else "flat_exact_topk")
-    flat_topk_exact.launches += 1
-    flat_topk_exact.wide_launches += wide
+    out = (_ptr(part_s), _ptr(part_i), _ptr(out_s), _ptr(out_i))
+    if plan.route == "ring_wide":
+        build.launcher(_SOURCE, "flat_exact_wide_topk", dev, kernel="K1")(
+            _COMBO[corpus.dtype], *call, plan.width, plan.passes,
+            plan.rows_per_split, plan.n_splits, *out)
+    else:
+        build.launcher(_SOURCE, "flat_exact_topk", dev, kernel="K1")(
+            _COMBO[corpus.dtype], int(plan.route != "cores"), *call,
+            plan.rows_per_split, plan.n_splits, *out)
     return out_s, out_i
-
-
-flat_topk_exact.launches = 0
-flat_topk_exact.wide_launches = 0  # of `launches`, those of the wide kernel
 
 
 # ------------------------------------------------------------------- K2 ---
@@ -524,41 +483,31 @@ def flat_topk_sketch(corpus, corpus_sqnorms, queries, n_valid,
         return flat_topk_sketch_plain(
             corpus, corpus_sqnorms, queries, n_valid, corpus_scales, k=k,
             metric=metric, tile_c=tile_c, int8_compute=int8_compute)
-    _require_cuda(corpus)
+    build.require_cuda(corpus)
     queries, qscales, scales = _prepare(corpus, corpus_sqnorms, queries,
                                         n_valid, corpus_scales, metric,
                                         int8_compute)
-    from cuvs_rag_tpu_torch.kernels import build
-
     dev = corpus.device
     n, d = corpus.shape
     n_q = queries.shape[0]
     ring = sketch_route(corpus.dtype, d, int8_compute) != "cores"
     per, n_splits = _class_splits(
-        n, n_q, tile_c, _sm_count(dev),
+        n, n_q, tile_c, build.sm_count(dev),
         _RING_BLOCKS_PER_SM if ring else _BLOCKS_PER_SM)
     queries = queries.contiguous()
-    corpus = _aligned(corpus.contiguous())
+    corpus = build.aligned(corpus.contiguous())
     part_s = torch.empty((n_splits, n_q, tile_c), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_splits, n_q, tile_c), dtype=torch.int32, device=dev)
     out_s = torch.empty((n_q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_q, k), dtype=torch.int32, device=dev)
     combo = _INT8_X_INT8 if int8_compute else _COMBO[corpus.dtype]
-    with build.device_guard(dev):
-        err = build.load(_SOURCE).flat_sketch_topk(
-            combo, int(ring), _ptr(queries), _ptr(corpus),
-            _ptr(corpus_sqnorms.contiguous()), _ptr(scales.contiguous()),
-            _ptr(qscales), n_q, d, n, int(n_valid),
-            int(metric == Metric.SQEUCLIDEAN), tile_c, k, per, n_splits,
-            _ptr(part_s), _ptr(part_i), _ptr(out_s), _ptr(out_i),
-            build.raw_stream(dev),
-        )
-    build.check(err, "flat_sketch_topk")
-    flat_topk_sketch.launches += 1
+    build.launcher(_SOURCE, "flat_sketch_topk", dev, kernel="K2")(
+        combo, int(ring), _ptr(queries), _ptr(corpus),
+        _ptr(corpus_sqnorms.contiguous()), _ptr(scales.contiguous()),
+        _ptr(qscales), n_q, d, n, int(n_valid),
+        int(metric == Metric.SQEUCLIDEAN), tile_c, k, per, n_splits,
+        _ptr(part_s), _ptr(part_i), _ptr(out_s), _ptr(out_i))
     return out_s, out_i
-
-
-flat_topk_sketch.launches = 0
 
 
 # ------------------------------------------------------------------- K3 ---
@@ -689,21 +638,19 @@ def topr_plan(n_q: int, r_planes: int, d: int, dtype, n_tiles: int,
     the block's 227 KB), the rule takes the one that reads the corpus
     fewest times, ceil(n_q / qpb), and two blocks on a tie: one query at
     R = 12 fits two blocks, 16 queries fit only one (144 KB of planes
-    beside a 75 KB ring at D = 384 bf16; eval/large_k_times.py times one
-    block with all 16 queries against two with 4 queries a block).
-    `blocks_per_sm` (or
-    _TOPR_BLOCKS_PER_SM) fixes one of the two. Where no plane fits beside
+    beside a 75 KB ring at D = 384 bf16). `blocks_per_sm` fixes one of the
+    two. Where no plane fits beside
     the ring, and at depths the ring does not take, the route is "cores",
     topr_scan_kernel (4 bytes an id, 88 KB of planes, four blocks an SM).
     A pure function of its arguments."""
     route = exact_route(dtype, d)
-    blocks_per_sm = blocks_per_sm or _TOPR_BLOCKS_PER_SM
     if route != "cores":
         id_bytes = 2 if n_tiles <= 0xFFFF else 4
         entry = r_planes * _TC * (4 + id_bytes)
         best = None
         for bps in (blocks_per_sm,) if blocks_per_sm else (2, 1):
-            budget = min(_MAX_SMEM, _SM_SMEM // bps - _BLOCK_RESERVED)
+            budget = min(build.MAX_SMEM,
+                         build.SM_SMEM // bps - build.BLOCK_RESERVED)
             qpb = min(_TQ, n_q, (budget - _ring_bytes(dtype, d)) // entry)
             if qpb >= 1 and (best is None
                              or -(-n_q // qpb) < -(-n_q // best[1])):
@@ -752,19 +699,18 @@ def flat_topk_large(corpus, corpus_sqnorms, queries, n_valid,
         return flat_topk_large_plain(
             corpus, corpus_sqnorms, queries, n_valid, corpus_scales, k=k,
             metric=metric, tile_c=tile_c, r_planes=r_planes, planes=planes)
-    _require_cuda(corpus)
+    build.require_cuda(corpus)
     queries, _, scales = _prepare(corpus, corpus_sqnorms, queries, n_valid,
                                   corpus_scales, metric)
-    from cuvs_rag_tpu_torch.kernels import build
-
     dev = corpus.device
     n, d = corpus.shape
     n_q = queries.shape[0]
     route, qpb, id_bytes, bps = topr_plan(n_q, r_planes, d, corpus.dtype,
                                           -(-n // tile_c))
-    per, n_splits = _class_splits(n, n_q, tile_c, _sm_count(dev), bps, qpb)
+    per, n_splits = _class_splits(n, n_q, tile_c, build.sm_count(dev), bps,
+                                  qpb)
     queries = queries.contiguous()
-    corpus = _aligned(corpus.contiguous())
+    corpus = build.aligned(corpus.contiguous())
     part_s = torch.empty((n_splits, n_q, r_planes, tile_c), dtype=torch.float32,
                          device=dev)
     part_i = torch.empty((n_splits, n_q, r_planes, tile_c), dtype=torch.int32,
@@ -776,21 +722,13 @@ def flat_topk_large(corpus, corpus_sqnorms, queries, n_valid,
     planes_i = torch.empty((n_q, r_planes, tile_c), dtype=torch.int32,
                            device=dev)
     rej = torch.empty((n_q, tile_c), dtype=torch.float32, device=dev)
-    with build.device_guard(dev):
-        err = build.load(_SOURCE).flat_topr(
-            _COMBO[corpus.dtype], int(route != "cores"), qpb, id_bytes,
-            _ptr(queries), _ptr(corpus),
-            _ptr(corpus_sqnorms.contiguous()), _ptr(scales.contiguous()),
-            n_q, d, n, int(n_valid), int(metric == Metric.SQEUCLIDEAN),
-            tile_c, r_planes, per, n_splits, _ptr(part_s), _ptr(part_i),
-            _ptr(part_rej), _ptr(planes_s), _ptr(planes_i), _ptr(rej),
-            build.raw_stream(dev),
-        )
-    build.check(err, "flat_topr")
-    flat_topk_large.launches += 1
+    build.launcher(_SOURCE, "flat_topr", dev, kernel="K3")(
+        _COMBO[corpus.dtype], int(route != "cores"), qpb, id_bytes,
+        _ptr(queries), _ptr(corpus),
+        _ptr(corpus_sqnorms.contiguous()), _ptr(scales.contiguous()),
+        n_q, d, n, int(n_valid), int(metric == Metric.SQEUCLIDEAN),
+        tile_c, r_planes, per, n_splits, _ptr(part_s), _ptr(part_i),
+        _ptr(part_rej), _ptr(planes_s), _ptr(planes_i), _ptr(rej))
     if planes:
         return planes_s, planes_i, rej
     return finish_large(planes_s, planes_i, rej, k)
-
-
-flat_topk_large.launches = 0

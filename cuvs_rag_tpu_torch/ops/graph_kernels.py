@@ -34,9 +34,10 @@ most MAX_CANDIDATES candidates a query and a beam of at most MAX_BEAM ids
 too (`ops/graph.candidate_step` warns once when a card's step does).
 `prepare` checks and plans a search's launches once and returns the
 launch its iterations call: the CAGRA cell waits on the host, and checks
-on every launch would cost it. The launches are counted in
-`prepare.launches`; each launch call is the span `kernel.launch` (kernel
-"cagra_candidates").
+on every launch would cost it. It launches through
+`kernels/build.launcher`, which counts the launches in
+`build.launches["cagra_candidates"]` and makes each launch call the span
+`kernel.launch` (kernel "cagra_candidates").
 """
 
 from __future__ import annotations
@@ -45,8 +46,8 @@ import functools
 
 import torch
 
+from cuvs_rag_tpu_torch.kernels import build
 from cuvs_rag_tpu_torch.ops import distance as dist_ops
-from cuvs_rag_tpu_torch.utils import profiling
 
 _SOURCE = "graph.cu"
 _KINDS = {torch.bfloat16: 0, torch.float32: 2}
@@ -79,8 +80,6 @@ def table_bits(n_ids: int) -> int:
 
 @functools.lru_cache(maxsize=64)
 def _blocks_per_sm(index: int, kind: int, width: int, smem: int) -> int:
-    from cuvs_rag_tpu_torch.kernels import build
-
     with build.device_guard(torch.device("cuda", index)):
         n = build.load(_SOURCE).cagra_candidates_blocks(kind, width, smem)
     if n < 1:
@@ -123,15 +122,12 @@ def prepare(rows: torch.Tensor, aq: torch.Tensor, src_cols: int, *,
             or width != rows.shape[1] or aq.device != rows.device:
         raise ValueError("aq must be (Q, width) contiguous fp32 on the rows' "
                          "device")
-    from cuvs_rag_tpu_torch.kernels import build
-    from cuvs_rag_tpu_torch.ops import flat_kernels
-
     dev = rows.device
     kind = _KINDS[rows.dtype]
     bits, live_cap, blocks = plan(dev.index, kind, width, n_q, m, b,
-                                  flat_kernels._sm_count(dev))
-    fn = build.load(_SOURCE).cagra_candidates
-    stream = build.raw_stream(dev)
+                                  build.sm_count(dev))
+    fn = build.launcher(_SOURCE, "cagra_candidates", dev,
+                        kernel="cagra_candidates")
     head = (rows.data_ptr(), kind, width,
             None if graph is None else graph.data_ptr(), degree)
     tail = (n_q, m, bits, live_cap, blocks)
@@ -159,19 +155,11 @@ def prepare(rows: torch.Tensor, aq: torch.Tensor, src_cols: int, *,
             check(src, src_scores, beam)
         nbrs = torch.empty((n_q, m), dtype=torch.int32, device=dev)
         scores = torch.empty((n_q, m), dtype=torch.float32, device=dev)
-        with build.device_guard(dev), profiling.span(
-                "kernel.launch", kernel="cagra_candidates", device=dev.index):
-            err = fn(*head, src.data_ptr(), src.stride(0),
-                     None if src_scores is None else src_scores.data_ptr(),
-                     0 if src_scores is None else src_scores.stride(0),
-                     _FLOOR, None if beam is None else beam.data_ptr(), b,
-                     aq.data_ptr(), *tail, nbrs.data_ptr(), scores.data_ptr(),
-                     stream)
-        build.check(err, "cagra_candidates")
-        prepare.launches += 1
+        fn(*head, src.data_ptr(), src.stride(0),
+           None if src_scores is None else src_scores.data_ptr(),
+           0 if src_scores is None else src_scores.stride(0),
+           _FLOOR, None if beam is None else beam.data_ptr(), b,
+           aq.data_ptr(), *tail, nbrs.data_ptr(), scores.data_ptr())
         return nbrs, scores
 
     return launch
-
-
-prepare.launches = 0

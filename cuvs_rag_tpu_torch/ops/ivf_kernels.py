@@ -8,8 +8,9 @@ CPU tensor — never a fallback from one to the other:
   ivf_scan        (K4) replaces ivf_scan_pallas (k <= 32)
   ivf_scan_large  (K5) replaces ivf_scan_pallas_large (certified large k)
 
-Each wrapper counts its kernel launches in `<wrapper>.launches`; K4's
-launch call is the span `kernel.launch` (utils/profiling).
+Each launches through `kernels/build.launcher`, which counts the launches
+of each C entry point in `build.launches` and makes the call the span
+`kernel.launch` (kernel "K4", "K5").
 
 Input contract (ivf_scan_pallas's, without its 128-alignment asserts):
 sorted_vectors (cap, D) fp32, bf16 or int8 residual rows; sorted_sqnorms
@@ -28,10 +29,10 @@ from __future__ import annotations
 
 import torch
 
+from cuvs_rag_tpu_torch.kernels import build
 from cuvs_rag_tpu_torch.ops import distance as dist_ops
 from cuvs_rag_tpu_torch.ops import flat_kernels
 from cuvs_rag_tpu_torch.ops import topk as topk_ops
-from cuvs_rag_tpu_torch.utils import profiling
 from cuvs_rag_tpu_torch.utils.config import Metric
 
 MAX_KERNEL_K = 32  # K4 keeps a warp-held top-k: one lane per slot
@@ -40,17 +41,15 @@ MAX_R_PLANES = 64  # past this the insertion chain rivals the window read
 _K4_CHUNK = 256  # window rows per block of K4's "cores" route (csrc CHUNK)
 # Window rows per block of K4's ring route (`k4_pieces`): the largest of
 # _K4_PIECES that still gives _K4_BLOCKS_PER_SM blocks an SM over a call's
-# (query, probe) pairs. _K4_PIECE fixes one instead (0: the whole window),
-# as eval/k4_sweep.py does to time each.
+# (query, probe) pairs.
 _K4_PIECES = (1024, 512, 256)
 _K4_BLOCKS_PER_SM = 4
-_K4_PIECE = None
 _K4_TILE = 128  # the ring's tile (csrc/ring.cuh TC)
 _K5_CLASSES = 128  # classes per K5 block (csrc/ivf_scan.cu CLASSES, ring TC)
 # Shared memory a K5 block may take (`_k5_smem` says what it takes): the
 # card's limit for one block; each of two blocks an SM (the ring's
 # occupancy, as K4's) gets half the SM.
-_K5_SMEM = flat_kernels._MAX_SMEM
+_K5_SMEM = build.MAX_SMEM
 _K5_BLOCKS_PER_SM = 2
 _SOURCE = "ivf_scan.cu"
 _COMBO = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -129,11 +128,6 @@ def _window_scores_plain(vectors, sqnorms, scales, queries, offsets, counts,
             pos.to(torch.int32))
 
 
-def _require_cuda(t):
-    if t.device.type != "cuda":
-        raise ValueError(f"no kernel for tensors on {t.device}")
-
-
 def ivf_route(dtype, d: int) -> str:
     """Which of K4's kernels takes layout rows of `dtype` and depth `d`.
     "ring": rows of a multiple of 16 bytes (any window start is then a
@@ -143,7 +137,7 @@ def ivf_route(dtype, d: int) -> str:
     2- or 4-byte loads a lane. A pure function of its arguments."""
     if dtype not in _COMBO:
         raise ValueError(f"unsupported storage dtype {dtype}")
-    if d > flat_kernels._RING_MAX_DIM or d * _ELEMENT_BYTES[dtype] % 16:
+    if d > flat_kernels.RING_MAX_DIM or d * _ELEMENT_BYTES[dtype] % 16:
         return "cores"
     return "ring"
 
@@ -152,20 +146,18 @@ def k4_pieces(window: int, route: str, pairs: int = 1, sm_count: int = 132,
               piece: int = None):
     """(rows a block, blocks a probe) of K4 for this window and a call of
     `pairs` (query, probe) pairs on `sm_count` SMs. The cores route takes
-    256 rows a block. The ring takes `piece` rows (default _K4_PIECE; 0 =
-    the whole window, rounded up to the ring's tile) or, where neither is
-    set, the largest of _K4_PIECES that still gives _K4_BLOCKS_PER_SM
-    blocks an SM (the smallest where none does): a block's copies stream at
-    a rate its ring depth bounds, so few pairs want short pieces, while
-    many pairs fill the card either way and long pieces start fewer blocks
-    (eval/k4_sweep.py on the H100: 1,024 rows best at 16 queries x 20
-    probes, 256 at one query). Block c of a probe with `count` rows scans
+    256 rows a block. The ring takes `piece` rows (0 = the whole window,
+    rounded up to the ring's tile) or, where it is None, the largest of
+    _K4_PIECES that still gives _K4_BLOCKS_PER_SM blocks an SM (the
+    smallest where none does): a block's copies stream at a rate its ring
+    depth bounds, so few pairs want short pieces, while many pairs fill the
+    card either way and long pieces start fewer blocks (on the H100: 1,024
+    rows best at 16 queries x 20 probes, 256 at one query). Block c of a probe with `count` rows scans
     window rows [c * rows, min(count, window, (c + 1) * rows)) and none at
     all past the count."""
     if route == "cores":
         per = _K4_CHUNK
     else:
-        piece = _K4_PIECE if piece is None else piece
         if piece is None:
             want = _K4_BLOCKS_PER_SM * sm_count
             piece = next((p for p in _K4_PIECES if pairs * -(-window // p) >= want),
@@ -254,8 +246,8 @@ def ivf_rounding_bound(sorted_vectors, sorted_sqnorms, sorted_scales,
     else:
         first = term + cf
         want = first - dist_ops.deletion_penalty(aux0)
-    u = flat_kernels._FP32_HALF_ULP
-    allowed = (mult * scale.abs() * flat_kernels._TRUNCATION_ULPS * d * u * mag
+    u = flat_kernels.FP32_HALF_ULP
+    allowed = (mult * scale.abs() * flat_kernels.TRUNCATION_ULPS * d * u * mag
                + u * term.abs() + u * first.abs() + u * want.abs())
     return want, allowed
 
@@ -288,45 +280,33 @@ def ivf_scan(sorted_vectors, sorted_sqnorms, sorted_scales, queries,
                               queries, probe_offsets, probe_counts, k=k,
                               window=window, metric=metric,
                               coarse_ip=coarse_ip)
-    _require_cuda(sorted_vectors)
+    build.require_cuda(sorted_vectors)
     q, offs, cnts, coarse = _prepare(
         sorted_vectors, sorted_sqnorms, sorted_scales, queries, probe_offsets,
         probe_counts, coarse_ip, window, metric)
-    from cuvs_rag_tpu_torch.kernels import build
-
     dev = sorted_vectors.device
     q_n, p_n = offs.shape
     d = sorted_vectors.shape[1]
     route = ivf_route(sorted_vectors.dtype, d)
     per, n_pieces = k4_pieces(window, route, q_n * p_n,
-                              flat_kernels._sm_count(dev))
+                              build.sm_count(dev))
     part_s = torch.empty((q_n, p_n * n_pieces, k), dtype=torch.float32,
                          device=dev)
     part_i = torch.empty((q_n, p_n * n_pieces, k), dtype=torch.int32,
                          device=dev)
     out_s = torch.empty((q_n, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((q_n, k), dtype=torch.int32, device=dev)
-    args = [q, flat_kernels._aligned(sorted_vectors.contiguous()),
+    args = [q, build.aligned(sorted_vectors.contiguous()),
             sorted_sqnorms, sorted_scales, offs, cnts, coarse]
     args = [t.contiguous() for t in args]  # held until the call returns
-    lib = build.load(_SOURCE)
-    with build.device_guard(dev), profiling.span(
-            "kernel.launch", kernel="K4", device=dev.index):
-        err = lib.ivf_scan_topk(
-            _COMBO[sorted_vectors.dtype], int(route == "ring"),
-            *(t.data_ptr() for t in args), q_n, p_n, d, window,
-            int(metric == Metric.SQEUCLIDEAN),
-            int(sorted_vectors.dtype == torch.int8), k, per, n_pieces,
-            part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
-            out_i.data_ptr(),
-            build.raw_stream(dev),
-        )
-    build.check(err, "ivf_scan_topk")
-    ivf_scan.launches += 1
+    build.launcher(_SOURCE, "ivf_scan_topk", dev, kernel="K4")(
+        _COMBO[sorted_vectors.dtype], int(route == "ring"),
+        *(t.data_ptr() for t in args), q_n, p_n, d, window,
+        int(metric == Metric.SQEUCLIDEAN),
+        int(sorted_vectors.dtype == torch.int8), k, per, n_pieces,
+        part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
+        out_i.data_ptr())
     return out_s, out_i
-
-
-ivf_scan.launches = 0
 
 
 # ------------------------------------------------------------------- K5 ---
@@ -377,7 +357,7 @@ def k5_plan(n_q: int, window: int, n_sub: int, n_probe: int, r_planes: int,
     route = ivf_route(dtype, d)
     if route != "ring":
         return "cores", tiles, 1
-    half = flat_kernels._SM_SMEM // 2 - flat_kernels._BLOCK_RESERVED
+    half = build.SM_SMEM // 2 - build.BLOCK_RESERVED
     bps = _K5_BLOCKS_PER_SM if _k5_smem(
         d, r_planes, d * _ELEMENT_BYTES[dtype]) <= half else 1
     blocks = n_q * -(-(window // n_sub) // _K5_CLASSES)
@@ -463,18 +443,16 @@ def ivf_scan_large(sorted_vectors, sorted_sqnorms, sorted_scales, queries,
             probe_offsets, probe_counts, k=k, window=window, metric=metric,
             coarse_ip=coarse_ip, n_sub=n_sub, r_planes=r_planes,
             planes=planes)
-    _require_cuda(sorted_vectors)
+    build.require_cuda(sorted_vectors)
     q, offs, cnts, coarse = _prepare(
         sorted_vectors, sorted_sqnorms, sorted_scales, queries, probe_offsets,
         probe_counts, coarse_ip, window, metric)
-    from cuvs_rag_tpu_torch.kernels import build
-
     dev = sorted_vectors.device
     q_n, p_n = offs.shape
     d = sorted_vectors.shape[1]
     route, per, n_splits = k5_plan(q_n, window, n_sub, p_n, r_planes, d,
                                    sorted_vectors.dtype,
-                                   flat_kernels._sm_count(dev))
+                                   build.sm_count(dev))
     planes_s = torch.empty((q_n, r_planes, subwin), dtype=torch.float32,
                            device=dev)
     planes_i = torch.empty((q_n, r_planes, subwin), dtype=torch.int32,
@@ -484,25 +462,17 @@ def ivf_scan_large(sorted_vectors, sorted_sqnorms, sorted_scales, queries,
     if n_splits > 1:
         parts = [torch.empty((n_splits,) + t.shape, dtype=t.dtype, device=dev)
                  for t in parts]
-    args = [q, flat_kernels._aligned(sorted_vectors.contiguous()),
+    args = [q, build.aligned(sorted_vectors.contiguous()),
             sorted_sqnorms, sorted_scales, offs, cnts, coarse]
     args = [t.contiguous() for t in args]  # held until the call returns
-    with build.device_guard(dev):
-        err = build.load(_SOURCE).ivf_scan_topr(
-            _COMBO[sorted_vectors.dtype], int(route == "ring"),
-            *(t.data_ptr() for t in args),
-            q_n, p_n, d, window, n_sub,
-            int(metric == Metric.SQEUCLIDEAN),
-            int(sorted_vectors.dtype == torch.int8), r_planes, per, n_splits,
-            *(t.data_ptr() for t in parts),
-            planes_s.data_ptr(), planes_i.data_ptr(), rej.data_ptr(),
-            build.raw_stream(dev),
-        )
-    build.check(err, "ivf_scan_topr")
-    ivf_scan_large.launches += 1
+    build.launcher(_SOURCE, "ivf_scan_topr", dev, kernel="K5")(
+        _COMBO[sorted_vectors.dtype], int(route == "ring"),
+        *(t.data_ptr() for t in args),
+        q_n, p_n, d, window, n_sub,
+        int(metric == Metric.SQEUCLIDEAN),
+        int(sorted_vectors.dtype == torch.int8), r_planes, per, n_splits,
+        *(t.data_ptr() for t in parts),
+        planes_s.data_ptr(), planes_i.data_ptr(), rej.data_ptr())
     if planes:
         return planes_s, planes_i, rej
     return flat_kernels.finish_large(planes_s, planes_i, rej, k)
-
-
-ivf_scan_large.launches = 0

@@ -3,8 +3,9 @@
 The counterpart of the JAX package's `ops/pallas_pq.py`. One wrapper,
 `pq_adc_scores` (K6), launches the hand-written CUDA kernel of
 `csrc/pq_adc.cu` on a CUDA tensor and runs `pq_adc_scores_plain` on a CPU
-tensor — never a fallback from one to the other. It counts its kernel
-launches in `pq_adc_scores.launches`; a check may hand it `route_counts`,
+tensor — never a fallback from one to the other. It launches through
+`kernels/build.launcher` (kernel "K6"), which counts the launches in
+`build.launches["pq_adc_scores"]`; a check may hand it `route_counts`,
 in which the kernel counts its blocks by route (32-bit or one-byte code
 loads) on the card.
 
@@ -37,8 +38,7 @@ _SOURCE = "pq_adc.cu"
 # window slots, four a thread, from the pair's (2 mb, 16) fp32 table in
 # shared memory beside its 16-byte barrier.
 _MAX_CHUNK = 512
-_MAX_SMEM = 227 * 1024
-_MAX_MB = (_MAX_SMEM - 16) // 128  # the most streams whose table fits
+_MAX_MB = (build.MAX_SMEM - 16) // 128  # the most streams whose table fits
 _MAX_POSITION = (1 << 31) - 1
 # Elements of the gathered (queries, probes, 2 mb, window) block per chunk
 # of queries in the plain version: bounds its int64 index at 1 GiB.
@@ -180,12 +180,11 @@ def pq_adc_scores(packed_codes, sorted_row_ids, norm_corr, luts,
     adds one at its route (ROUTES order); searches pass none, and their
     blocks count nothing.
     """
-    if not packed_codes.is_cuda:
-        if packed_codes.device.type == "cpu":
-            return pq_adc_scores_plain(
-                packed_codes, sorted_row_ids, norm_corr, luts, probe_offsets,
-                probe_counts, coarse, window=window, positions=positions)
-        raise ValueError(f"no kernel for tensors on {packed_codes.device}")
+    if packed_codes.device.type == "cpu":
+        return pq_adc_scores_plain(
+            packed_codes, sorted_row_ids, norm_corr, luts, probe_offsets,
+            probe_counts, coarse, window=window, positions=positions)
+    build.require_cuda(packed_codes)
     luts, offs, cnts, coarse = _prepare(
         packed_codes, sorted_row_ids, norm_corr, luts, probe_offsets,
         probe_counts, coarse, window, positions)
@@ -208,19 +207,11 @@ def pq_adc_scores(packed_codes, sorted_row_ids, norm_corr, luts,
             or not route_counts.is_contiguous()):
         raise ValueError("route_counts must be a contiguous (2,) int64 "
                          f"tensor on {dev}")
-    with build.device_guard(dev):
-        err = build.load(_SOURCE).pq_adc_scores(
-            codes.data_ptr(), rids.data_ptr(),
-            None if corr is None else corr.data_ptr(), luts.data_ptr(),
-            offs.data_ptr(), cnts.data_ptr(), coarse.data_ptr(),
-            q_n * p_n, mb, cap, window, chunk, int(positions),
-            out_s.data_ptr(), out_i.data_ptr(),
-            None if route_counts is None else route_counts.data_ptr(),
-            build.raw_stream(dev),
-        )
-    build.check(err, "pq_adc_scores")
-    pq_adc_scores.launches += 1
+    build.launcher(_SOURCE, "pq_adc_scores", dev, kernel="K6")(
+        codes.data_ptr(), rids.data_ptr(),
+        None if corr is None else corr.data_ptr(), luts.data_ptr(),
+        offs.data_ptr(), cnts.data_ptr(), coarse.data_ptr(),
+        q_n * p_n, mb, cap, window, chunk, int(positions),
+        out_s.data_ptr(), out_i.data_ptr(),
+        None if route_counts is None else route_counts.data_ptr())
     return out_s, out_i
-
-
-pq_adc_scores.launches = 0

@@ -7,7 +7,8 @@ The counterparts of the JAX package's four measurement kernels under
 1 case) and `pallas_gather_reduce` (M3, `bench_gather_modes.py:198`). Each
 wrapper launches the hand-written CUDA kernel of `csrc/stream.cu` on a CUDA
 tensor and runs its `_plain` version on a CPU tensor — never a fallback from
-one to the other — and counts its kernel launches in `.launches`.
+one to the other — through `kernels/build.launcher` (kernel "M1", "M2" for
+M2 and M4, "M3"), which counts the launches in `build.launches`.
 
 The kernels take plain (n, d) rows: the TPU scripts' `(n, sub, 128)` 3-D
 view, their `sub_pad` padding, the `tile_c` sweep and the `rows` per grid
@@ -41,6 +42,8 @@ import functools
 import math
 
 import torch
+
+from cuvs_rag_tpu_torch.kernels import build
 
 _SOURCE = "stream.cu"
 TILE_ROWS = 1024  # the tile of read_all's "touch" mode
@@ -140,11 +143,8 @@ def read_all(corpus, full_reduce: bool):
     """
     if corpus.device.type == "cpu":
         return read_all_plain(corpus, full_reduce)
-    if corpus.device.type != "cuda":
-        raise ValueError(f"no kernel for tensors on {corpus.device}")
+    build.require_cuda(corpus)
     _check_corpus(corpus)
-    from cuvs_rag_tpu_torch.kernels import build
-
     x = corpus.contiguous()  # held until the call returns
     n, d = x.shape
     # threads in the grid: a multiple of d, the 16-byte chunks of 8 rows
@@ -153,16 +153,10 @@ def read_all(corpus, full_reduce: bool):
     partial = torch.empty((n_blocks, 8, 128), dtype=torch.float32,
                           device=x.device)
     out = torch.empty((8, 128), dtype=torch.float32, device=x.device)
-    with build.device_guard(x.device):
-        err = build.load(_SOURCE).read_all(
-            x.data_ptr(), n, d, int(bool(full_reduce)), TILE_ROWS, n_blocks,
-            partial.data_ptr(), out.data_ptr(), build.raw_stream(x.device))
-    build.check(err, "read_all")
-    read_all.launches += 1
+    build.launcher(_SOURCE, "read_all", x.device, kernel="M1")(
+        x.data_ptr(), n, d, int(bool(full_reduce)), TILE_ROWS, n_blocks,
+        partial.data_ptr(), out.data_ptr())
     return out
-
-
-read_all.launches = 0
 
 
 # ------------------------------------------------------------- M2 / M4 ---
@@ -191,31 +185,22 @@ def gather_rows(vectors, ids, span: int = 1, *, check_ids: bool = True):
     """
     if vectors.device.type == "cpu":
         return gather_rows_plain(vectors, ids, span, check_ids=check_ids)
-    if vectors.device.type != "cuda":
-        raise ValueError(f"no kernel for tensors on {vectors.device}")
+    build.require_cuda(vectors)
     ids = _check_gather(vectors, ids, span, check_ids)
     row_bytes = vectors.shape[1] * vectors.element_size()
     if row_bytes % 16 != 0:
         raise ValueError(f"rows of {row_bytes} bytes: the kernel moves 16 "
                          f"bytes a load")
-    from cuvs_rag_tpu_torch.kernels import build
-
     # held until the call returns
     src = vectors if vectors.is_contiguous() else vectors.contiguous()
     m = ids.shape[0]
     out = torch.empty((m * span, src.shape[1]), dtype=src.dtype,
                       device=src.device)
     lanes, n_blocks = gather_plan(m, row_bytes // 16 * span)
-    with build.device_guard(src.device):
-        err = build.load(_SOURCE).gather_rows(
-            src.data_ptr(), ids.data_ptr(), out.data_ptr(), m, span,
-            row_bytes, lanes, n_blocks, build.raw_stream(src.device))
-    build.check(err, "gather_rows")
-    gather_rows.launches += 1
+    build.launcher(_SOURCE, "gather_rows", src.device, kernel="M2")(
+        src.data_ptr(), ids.data_ptr(), out.data_ptr(), m, span, row_bytes,
+        lanes, n_blocks)
     return out
-
-
-gather_rows.launches = 0
 
 
 # ------------------------------------------------------------------ M3 ---
@@ -238,8 +223,7 @@ def gather_reduce(vectors, ids, *, check_ids: bool = True):
     """
     if vectors.device.type == "cpu":
         return gather_reduce_plain(vectors, ids, check_ids=check_ids)
-    if vectors.device.type != "cuda":
-        raise ValueError(f"no kernel for tensors on {vectors.device}")
+    build.require_cuda(vectors)
     ids = _check_gather(vectors, ids, 1, check_ids)
     d = vectors.shape[1]
     row_bytes = d * vectors.element_size()
@@ -248,8 +232,6 @@ def gather_reduce(vectors, ids, *, check_ids: bool = True):
         raise ValueError(f"the kernel takes bfloat16, int8 or float32 rows of "
                          f"a multiple of 16 and at most {16 * _THREADS} "
                          f"bytes, got {vectors.dtype} rows of {row_bytes}")
-    from cuvs_rag_tpu_torch.kernels import build
-
     # held until the call returns
     src = vectors if vectors.is_contiguous() else vectors.contiguous()
     m = ids.shape[0]
@@ -257,14 +239,7 @@ def gather_reduce(vectors, ids, *, check_ids: bool = True):
     partial = torch.empty((n_blocks, d), dtype=torch.float32,
                           device=src.device)
     out = torch.empty((d,), dtype=torch.float32, device=src.device)
-    with build.device_guard(src.device):
-        err = build.load(_SOURCE).gather_reduce(
-            src.data_ptr(), ids.data_ptr(), m, d, _REDUCE_KINDS[src.dtype],
-            n_blocks, partial.data_ptr(), out.data_ptr(),
-            build.raw_stream(src.device))
-    build.check(err, "gather_reduce")
-    gather_reduce.launches += 1
+    build.launcher(_SOURCE, "gather_reduce", src.device, kernel="M3")(
+        src.data_ptr(), ids.data_ptr(), m, d, _REDUCE_KINDS[src.dtype],
+        n_blocks, partial.data_ptr(), out.data_ptr())
     return out
-
-
-gather_reduce.launches = 0

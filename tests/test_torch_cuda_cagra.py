@@ -29,6 +29,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from cuvs_rag_tpu_torch.kernels import build  # noqa: E402
+
 pytestmark = pytest.mark.cuda
 
 TOL = dict(rtol=1e-5, atol=1e-4)
@@ -235,17 +237,16 @@ def _hold_kernel_step(device, dtype, width, m, b):
     """The kernel's route of one iteration's step and of two entry steps
     against candidates_plain on the same card tensors (_hold_step)."""
     from cuvs_rag_tpu_torch.ops import graph as graph_ops
-    from cuvs_rag_tpu_torch.ops import graph_kernels as gk
 
     rows, graph, aq, parents, parent_s, beam = _step_inputs(
         device, dtype, width, m, b=b)
     route, step = graph_ops.candidate_step(rows, aq, parents.shape[1],
                                            graph=graph, beam_width=b)
     assert route == "kernel"
-    before = gk.prepare.launches
+    before = build.launches["cagra_candidates"]
     got = step(parents, parent_s, beam)
     torch.cuda.synchronize()
-    assert gk.prepare.launches == before + 1
+    assert build.launches["cagra_candidates"] == before + 1
     want = graph_ops.candidates_plain(rows, aq, parents, graph=graph,
                                       src_scores=parent_s, beam=beam)
     masked = _hold_step(got, want, rows, aq)
@@ -308,11 +309,10 @@ def test_prepared_launch_checks_its_first_call(cuda_device):
     on its first call (the kernel would read past them) and launches
     nothing then; a good first call is checked once."""
     from cuvs_rag_tpu_torch.ops import graph as graph_ops
-    from cuvs_rag_tpu_torch.ops import graph_kernels as gk
 
     rows, graph, aq, parents, parent_s, beam = _step_inputs(
         cuda_device, torch.bfloat16, 512, 256, n_q=8)
-    before = gk.prepare.launches
+    before = build.launches["cagra_candidates"]
     for bad in ((parents.long(), parent_s, beam),
                 (parents[:, :2], parent_s, beam),
                 (parents.cpu(), parent_s, beam),
@@ -323,7 +323,7 @@ def test_prepared_launch_checks_its_first_call(cuda_device):
                                         graph=graph, beam_width=128)[1]
         with pytest.raises(ValueError):
             step(*bad)
-    assert gk.prepare.launches == before
+    assert build.launches["cagra_candidates"] == before
     step = graph_ops.candidate_step(rows, aq, parents.shape[1], graph=graph,
                                     beam_width=128)[1]
     for _ in range(2):
@@ -331,7 +331,7 @@ def test_prepared_launch_checks_its_first_call(cuda_device):
     want = graph_ops.candidates_plain(rows, aq, parents, graph=graph,
                                       src_scores=parent_s, beam=beam)
     _hold_step(got, want, rows, aq)
-    assert gk.prepare.launches == before + 2
+    assert build.launches["cagra_candidates"] == before + 2
 
 
 @pytest.mark.parametrize("dtype,d", [("float32", 64), ("bfloat16", 64),
@@ -367,19 +367,19 @@ def test_beam_by_kernel_matches_torch_route(cuda_device, monkeypatch, dtype,
     for index in (ix, cagra.delete(ix, torch.nonzero(
             torch.arange(ix.n_valid) % 3 != 0).flatten())):
         dev = _to(index, cuda_device)
-        before, counted = gk.prepare.launches, counters()
+        before, counted = build.launches["cagra_candidates"], counters()
         profiling.record_spans(True)
         try:
             _, got = cagra.search(sp, dev, q.to(cuda_device), sp.itopk_size)
         finally:
             profiling.record_spans(False)
             profiling.clear()
-        assert gk.prepare.launches == before + iters + 1
+        assert build.launches["cagra_candidates"] == before + iters + 1
         n = iters * q.shape[0]
         assert [a - b for a, b in zip(counters(), counted)] == [n, n, 0]
         with monkeypatch.context() as patch:
             patch.setattr(gk, "takes", lambda *args, **kwargs: False)
             patch.setattr(graph_ops.candidate_step, "warned", True)
             _, want = cagra.search(sp, dev, q.to(cuda_device), sp.itopk_size)
-        assert gk.prepare.launches == before + iters + 1
+        assert build.launches["cagra_candidates"] == before + iters + 1
         assert (got == want).float().mean() >= 0.99

@@ -10,9 +10,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from cuvs_rag_tpu_torch.kernels import build  # noqa: E402
 from cuvs_rag_tpu_torch.utils import profiling  # noqa: E402
 
 pytestmark = pytest.mark.cuda
+
+
+def _k1_launches():
+    """(K1's launches, those of its wide route) so far."""
+    wide = build.launches["flat_exact_wide_topk"]
+    return build.launches["flat_exact_topk"] + wide, wide
 
 
 @pytest.fixture
@@ -64,7 +71,7 @@ def test_exact_kernel_routes_match_plain(cuda_device, d, dtype):
     ix = flat.build(FlatParams(dtype=dtype, tile_n=2048), x)
     ix = flat.delete(ix, torch.arange(3, n, 100, device=cuda_device))
     storage = min(ix.size, n + 1000)
-    before = fk.flat_topk_exact.launches
+    before = _k1_launches()[0]
     for n_q in (1, 16, 17, 40):
         q = torch.cat([x[:n_q // 2] + 0.05, torch.randn(
             (n_q - n_q // 2, d), generator=g, device=cuda_device)])
@@ -77,7 +84,7 @@ def test_exact_kernel_routes_match_plain(cuda_device, d, dtype):
                 want = fk.flat_topk_exact_plain(*args, k=k, metric=metric)
                 compare_topk(*got, *want, **chip_smoke.TOL)
                 assert chip_smoke.k1_hold(got, args, metric) <= 1.0
-    assert fk.flat_topk_exact.launches == before + 24
+    assert _k1_launches()[0] == before + 24
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
@@ -134,24 +141,20 @@ def test_exact_wide_route_matches_plain(cuda_device, d, dtype):
         args = (ix.vectors[:storage], ix.sqnorms[:storage], q, ix.n_valid,
                 ix.scales[:storage])
         plan = fk.exact_plan(storage, n_q, d, ix.vectors.dtype,
-                             fk._sm_count(cuda_device), 32)
+                             build.sm_count(cuda_device), 32)
         assert plan.route == "ring_wide"
         for metric in ("sqeuclidean", "inner_product"):
             for k in (1, 10, 32):
-                before = (fk.flat_topk_exact.launches,
-                          fk.flat_topk_exact.wide_launches)
+                before = _k1_launches()
                 got = fk.flat_topk_exact(*args, k=k, metric=metric)
                 torch.cuda.synchronize()
-                assert (fk.flat_topk_exact.launches,
-                        fk.flat_topk_exact.wide_launches) == (
-                            before[0] + 1, before[1] + 1)
+                assert _k1_launches() == (before[0] + 1, before[1] + 1)
                 want = fk.flat_topk_exact_plain(*args, k=k, metric=metric)
                 compare_topk(*got, *want, **chip_smoke.TOL)
                 assert chip_smoke.k1_hold(got, args, metric) <= 1.0
-    before = (fk.flat_topk_exact.launches, fk.flat_topk_exact.wide_launches)
+    before = _k1_launches()
     fk.flat_topk_exact(*args[:2], q[:1], *args[3:], k=10, metric="sqeuclidean")
-    assert (fk.flat_topk_exact.launches,
-            fk.flat_topk_exact.wide_launches) == (before[0] + 1, before[1])
+    assert _k1_launches() == (before[0] + 1, before[1])
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
@@ -170,9 +173,9 @@ def test_exact_wide_kernel_tie_order(cuda_device, dtype):
                                          device=cuda_device).float()])
     v, sq = x.to(getattr(torch, dtype)), (x * x).sum(1)
     for metric in ("sqeuclidean", "inner_product"):
-        before = fk.flat_topk_exact.wide_launches
+        before = build.launches["flat_exact_wide_topk"]
         got_s, got_i = fk.flat_topk_exact(v, sq, q, n, None, k=k, metric=metric)
-        assert fk.flat_topk_exact.wide_launches == before + 1
+        assert build.launches["flat_exact_wide_topk"] == before + 1
         qq, _, scales = fk._prepare(v, sq, q, n, None, metric)
         order = torch.sort(fk._scores_plain(v, sq, qq, n, scales, metric),
                            dim=1, descending=True, stable=True)
@@ -223,7 +226,7 @@ def test_sketch_kernel_routes_match_plain(cuda_device, d, dtype, int8c):
     ix = flat.build(FlatParams(dtype=dtype, tile_n=2048), x)
     ix = flat.delete(ix, torch.arange(3, n, 100, device=cuda_device))
     storage = min(ix.size, n + 1000)
-    before = fk.flat_topk_sketch.launches
+    before = build.launches["flat_sketch_topk"]
     for n_q in (1, 16, 17, 40):
         q = torch.cat([x[:n_q // 2] + 0.05, torch.randn(
             (n_q - n_q // 2, d), generator=g, device=cuda_device)])
@@ -235,7 +238,7 @@ def test_sketch_kernel_routes_match_plain(cuda_device, d, dtype, int8c):
                 got = fk.flat_topk_sketch(*args, **kw)
                 torch.cuda.synchronize()
                 assert chip_smoke.sketch_hold(got, args, kw)[1] <= 1.0
-    assert fk.flat_topk_sketch.launches == before + 24
+    assert build.launches["flat_sketch_topk"] == before + 24
 
 
 @pytest.mark.parametrize("dtype,int8c", [("float32", False),
@@ -307,6 +310,7 @@ def test_ivf_kernel_routes_match_plain(cuda_device, dtype, d, piece):
     1% tombstones, n_q in {1, 16, 17} x k in {1, 10, 32}, both metrics:
     within rtol 1e-5 / atol 1e-3 of the plain version (ids up to ties) and
     within ivf_rounding_bound."""
+    import functools
     from unittest import mock
 
     import chip_smoke
@@ -316,9 +320,10 @@ def test_ivf_kernel_routes_match_plain(cuda_device, dtype, d, piece):
     g = torch.Generator(device=cuda_device).manual_seed(d)
     vectors, sq, scales, queries, offs, cnts, coarse = _ivf_windows(
         dtype, d, g, cuda_device)
-    before = ik.ivf_scan.launches
-    with mock.patch.object(ik, "_K4_PIECE",
-                           ik._K4_PIECE if piece is None else piece):
+    before = build.launches["ivf_scan_topk"]
+    pieces = ik.k4_pieces if piece is None else functools.partial(
+        ik.k4_pieces, piece=piece)
+    with mock.patch.object(ik, "k4_pieces", pieces):
         for n_q in (1, 16, 17):
             args = (vectors, sq, scales, queries[:n_q], offs[:n_q], cnts[:n_q])
             for metric in ("sqeuclidean", "inner_product"):
@@ -330,7 +335,7 @@ def test_ivf_kernel_routes_match_plain(cuda_device, dtype, d, piece):
                     want = ik.ivf_scan_plain(*args, k=k, **kw)
                     compare_topk(*got, *want, **chip_smoke.TOL)
                     assert chip_smoke.ivf_hold(got, args, kw) <= 1.0
-    assert ik.ivf_scan.launches == before + 18
+    assert build.launches["ivf_scan_topk"] == before + 18
 
 
 @pytest.mark.parametrize("dtype,d", [("float32", 64), ("bfloat16", 64),
@@ -358,7 +363,7 @@ def test_large_kernel_routes_hold(cuda_device, dtype, d):
     ix = flat.delete(ix, torch.arange(3, n, 100, device=cuda_device))
     storage = min(ix.size, n + 1000)
     want_route = fk.exact_route(ix.vectors.dtype, d)
-    before = fk.flat_topk_large.launches
+    before = build.launches["flat_topr"]
     calls = 0
     for n_q in (1, 16, 40):
         q = torch.cat([x[:n_q // 2] + 0.01, torch.nn.functional.normalize(
@@ -373,7 +378,7 @@ def test_large_kernel_routes_hold(cuda_device, dtype, d):
                                              dict(kw, metric=metric))
                 assert held["route"] == want_route
                 calls += 2
-    assert fk.flat_topk_large.launches == before + calls
+    assert build.launches["flat_topr"] == before + calls
 
 
 @pytest.mark.parametrize("blocks_per_sm", [1, 2])
@@ -382,6 +387,7 @@ def test_large_kernel_plans_agree(cuda_device, blocks_per_sm):
     SM; all 16 at one block an SM) and 4-byte plane ids (a corpus of more
     than 65,535 tiles: 1,100,000 rows of 16 classes) hold by large_hold,
     and the two plans give the same scores and certificates."""
+    import functools
     from unittest import mock
 
     import chip_smoke
@@ -395,7 +401,8 @@ def test_large_kernel_plans_agree(cuda_device, blocks_per_sm):
     args = (v, sq, q, x.shape[0], None)
     for kw in (dict(k=2000), dict(k=100, tile_c=16)):
         kw = dict(kw, metric="sqeuclidean")
-        with mock.patch.object(fk, "_TOPR_BLOCKS_PER_SM", blocks_per_sm):
+        with mock.patch.object(fk, "topr_plan", functools.partial(
+                fk.topr_plan, blocks_per_sm=blocks_per_sm)):
             chip_smoke.large_hold("flat_topk_large", args, kw)
             got = fk.flat_topk_large(*args, **kw)
         want = fk.flat_topk_large(*args, **kw)
@@ -417,7 +424,7 @@ def test_ivf_large_kernel_routes_hold(cuda_device, dtype, d):
     g = torch.Generator(device=cuda_device).manual_seed(d)
     vectors, sq, scales, queries, offs, cnts, coarse = _ivf_windows(
         dtype, d, g, cuda_device)
-    before = ik.ivf_scan_large.launches
+    before = build.launches["ivf_scan_topr"]
     calls = 0
     for n_q in (1, 16, 17):
         for probes in (10, 1):
@@ -432,7 +439,7 @@ def test_ivf_large_kernel_routes_hold(cuda_device, dtype, d):
                                                  dict(kw5, **kw))
                     assert held["route"] == ik.ivf_route(vectors.dtype, d)
                     calls += 2
-    assert ik.ivf_scan_large.launches == before + calls
+    assert build.launches["ivf_scan_topr"] == before + calls
 
 
 def test_ivf_large_kernel_on_ragged_index(cuda_device):
@@ -442,7 +449,6 @@ def test_ivf_large_kernel_on_ragged_index(cuda_device):
 
     import chip_smoke
     from cuvs_rag_tpu_torch.index import ivf_flat
-    from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
 
     g = torch.Generator(device=cuda_device).manual_seed(3)
     x = torch.randn((30_000, chip_smoke.D), generator=g, device=cuda_device)
@@ -454,8 +460,7 @@ def test_ivf_large_kernel_on_ragged_index(cuda_device):
                 ix.list_counts[p])
         kw = dict(k=200, window=ix.max_list_size, metric="sqeuclidean")
         for sms in (132, 1, 100_000):  # splits from one to every probe
-            with mock.patch.object(ik.flat_kernels, "_sm_count",
-                                   lambda dev, n=sms: n):
+            with mock.patch.object(build, "sm_count", lambda dev, n=sms: n):
                 chip_smoke.large_hold("ivf_scan_large", args, kw)
 
 
@@ -476,15 +481,14 @@ def test_ivf_kernels_match_plain_versions(cuda_device):
 
 def test_search_launches_each_kernel(cuda_device):
     from cuvs_rag_tpu_torch.index import flat
-    from cuvs_rag_tpu_torch.ops import flat_kernels as fk
     from cuvs_rag_tpu_torch.utils.config import FlatParams, FlatSearchParams
 
     g = torch.Generator(device=cuda_device).manual_seed(1)
     x = torch.randn((flat._DENSE_THRESHOLD + 5, 64), generator=g,
                     device=cuda_device)
     ix = flat.build(FlatParams(dtype="bfloat16"), x)
-    before = [fk.flat_topk_exact.launches, fk.flat_topk_sketch.launches,
-              fk.flat_topk_large.launches]
+    before = [_k1_launches()[0], build.launches["flat_sketch_topk"],
+              build.launches["flat_topr"]]
     profiling.clear()
     profiling.record_spans(True)
     try:
@@ -494,17 +498,17 @@ def test_search_launches_each_kernel(cuda_device):
             assert i[:, 0].tolist() == [0, 1, 2, 3]
     finally:
         profiling.record_spans(False)
-    after = [fk.flat_topk_exact.launches, fk.flat_topk_sketch.launches,
-             fk.flat_topk_large.launches]
+    after = [_k1_launches()[0], build.launches["flat_sketch_topk"],
+             build.launches["flat_topr"]]
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
-    # K1's launch call, and only K1's, is the span kernel.launch
-    _hold_launch_spans(profiling.spans(), "flat.search", "K1",
-                       x.device.index, 3)
+    # each kernel's launch call is the span kernel.launch, under its label
+    _hold_launch_spans(profiling.spans(), "flat.search", ["K1", "K2", "K3"],
+                       x.device.index)
 
     # 100 queries take the wide kernel: still one kernel.launch span and
     # one exact_scan* kernel a call (what k1_roofline counts), and its merge
     q = x[:100]
-    wide = fk.flat_topk_exact.wide_launches
+    wide = build.launches["flat_exact_wide_topk"]
     profiling.clear()
     profiling.record_spans(True)
     try:
@@ -512,9 +516,9 @@ def test_search_launches_each_kernel(cuda_device):
     finally:
         profiling.record_spans(False)
     assert i[:, 0].tolist() == list(range(100))
-    assert fk.flat_topk_exact.wide_launches == wide + 1
-    _hold_launch_spans(profiling.spans(), "flat.search", "K1",
-                       x.device.index, 1)
+    assert build.launches["flat_exact_wide_topk"] == wide + 1
+    _hold_launch_spans(profiling.spans(), "flat.search", ["K1"],
+                       x.device.index)
     calls = 5
     counts = _kernel_counts(lambda: flat.search(None, ix, q, 5), calls,
                             ("exact_scan", "merge_partials"))
@@ -556,13 +560,12 @@ def _kernel_counts(fn, calls, names, attempts=3):
 def test_ivf_search_launches_each_kernel(cuda_device):
     """IVF-Flat search runs K4 at k <= 32 and K5 above it."""
     from cuvs_rag_tpu_torch.index import ivf_flat
-    from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
     from cuvs_rag_tpu_torch.utils.config import IVFFlatParams
 
     g = torch.Generator(device=cuda_device).manual_seed(2)
     x = torch.randn((20_000, 64), generator=g, device=cuda_device)
     ix = ivf_flat.build(IVFFlatParams(n_lists=40, dtype="bfloat16"), x)
-    before = [ik.ivf_scan.launches, ik.ivf_scan_large.launches]
+    before = [build.launches["ivf_scan_topk"], build.launches["ivf_scan_topr"]]
     profiling.clear()
     profiling.record_spans(True)
     try:
@@ -571,26 +574,30 @@ def test_ivf_search_launches_each_kernel(cuda_device):
             assert i[:, 0].tolist() == [0, 1, 2, 3]
     finally:
         profiling.record_spans(False)
-    after = [ik.ivf_scan.launches, ik.ivf_scan_large.launches]
+    after = [build.launches["ivf_scan_topk"], build.launches["ivf_scan_topr"]]
     assert [a - b for a, b in zip(after, before)] == [1, 1]
-    # K4's launch call, and not K5's, is the span kernel.launch
-    _hold_launch_spans(profiling.spans(), "ivf_flat.search", "K4",
-                       x.device.index, 2)
+    # each kernel's launch call is the span kernel.launch, under its label
+    _hold_launch_spans(profiling.spans(), "ivf_flat.search", ["K4", "K5"],
+                       x.device.index)
 
 
-def _hold_launch_spans(spans, family_span, kernel, device, calls):
-    """One kernel.launch span (kernel, device), inside the first of `calls`
-    family searches; every span inside its parent, in its request."""
+def _hold_launch_spans(spans, family_span, kernels, device):
+    """One kernel.launch span a family search, (kernel, device) of
+    `kernels` in the searches' order, each inside its search; every span
+    inside its parent, in its request."""
     by_id = {s["id"]: s for s in spans}
-    launches = [s for s in spans if s["name"] == "kernel.launch"]
-    assert [s["attrs"] for s in launches] == [{"kernel": kernel,
-                                               "device": device}]
-    tops = [s for s in spans if s["name"] == family_span]
-    assert len(tops) == calls
-    up = by_id[launches[0]["parent"]]
-    while up["name"] != family_span:
-        up = by_id[up["parent"]]
-    assert up is min(tops, key=lambda s: s["start_ns"])
+    launches = sorted((s for s in spans if s["name"] == "kernel.launch"),
+                      key=lambda s: s["start_ns"])
+    assert [s["attrs"] for s in launches] == [
+        {"kernel": kernel, "device": device} for kernel in kernels]
+    tops = sorted((s for s in spans if s["name"] == family_span),
+                  key=lambda s: s["start_ns"])
+    assert len(tops) == len(kernels)
+    for launch, top in zip(launches, tops):
+        up = by_id[launch["parent"]]
+        while up["name"] != family_span:
+            up = by_id[up["parent"]]
+        assert up is top
     for s in spans:
         if s["parent"] is not None:
             p = by_id[s["parent"]]
@@ -607,11 +614,11 @@ def _hold_k6(args, window, positions):
     from cuvs_rag_tpu_torch.ops import pq_kernels as pk
 
     counts = torch.zeros(2, dtype=torch.int64, device=args[0].device)
-    before = pk.pq_adc_scores.launches
+    before = build.launches["pq_adc_scores"]
     s, i = pk.pq_adc_scores(*args, window=window, positions=positions,
                             route_counts=counts)
     torch.cuda.synchronize()
-    assert pk.pq_adc_scores.launches == before + 1
+    assert build.launches["pq_adc_scores"] == before + 1
     routes = dict(zip(pk.ROUTES, counts.tolist()))
     assert routes == pk.adc_route_blocks(args[0], args[4], args[5],
                                          window=window)
@@ -756,7 +763,6 @@ def test_ivf_pq_search_launches_the_kernel(cuda_device):
     """ivf_pq.search scans packed codes through K6 (and finds each row
     first with refine); unpacked one-byte codes never reach it."""
     from cuvs_rag_tpu_torch.index import ivf_pq
-    from cuvs_rag_tpu_torch.ops import pq_kernels as pk
     from cuvs_rag_tpu_torch.utils.config import IVFPQParams, IVFPQSearchParams
 
     g = torch.Generator(device=cuda_device).manual_seed(3)
@@ -765,10 +771,10 @@ def test_ivf_pq_search_launches_the_kernel(cuda_device):
     for kw, launched in ((dict(), 1), (dict(pq_bits=4), 1),
                          (dict(two_level=False), 0)):
         ix = ivf_pq.build(IVFPQParams(n_lists=40, **kw), x)
-        pk.pq_adc_scores.launches = 0
+        before = build.launches["pq_adc_scores"]
         d, i = ivf_pq.search(sp, ix, x[:32], 5)
         torch.cuda.synchronize()
-        assert pk.pq_adc_scores.launches == launched
+        assert build.launches["pq_adc_scores"] == before + launched
         assert i[:, 0].tolist() == list(range(32))
 
 
@@ -827,10 +833,10 @@ def test_flash_attention_raises_on_what_the_kernel_does_not_take(cuda_device,
         else (64, torch.float16)
     q = torch.zeros((1, 8, 2, hd), dtype=dtype, device=cuda_device)
     mask = torch.ones((1, 8), dtype=torch.int32, device=cuda_device)
-    before = ak.flash_attention.launches
+    before = build.launches["flash_attention"]
     with pytest.raises(ValueError, match="the kernel takes"):
         ak.flash_attention(q, q, q, mask, 1.0)
-    assert ak.flash_attention.launches == before
+    assert build.launches["flash_attention"] == before
 
 
 def test_stream_kernels_match_plain(cuda_device):
@@ -870,14 +876,13 @@ def test_stream_kernels_count_launches_and_check_ids(cuda_device):
 
     x = torch.zeros((64, 128), dtype=torch.bfloat16, device=cuda_device)
     ids = torch.tensor([0, 63], device=cuda_device)
-    before = [sk.read_all.launches, sk.gather_rows.launches,
-              sk.gather_reduce.launches]
+    entries = ("read_all", "gather_rows", "gather_reduce")
+    before = [build.launches[e] for e in entries]
     sk.read_all(x, True)
     sk.gather_rows(x, ids)
     sk.gather_reduce(x, ids)
     torch.cuda.synchronize()
-    after = [sk.read_all.launches, sk.gather_rows.launches,
-             sk.gather_reduce.launches]
+    after = [build.launches[e] for e in entries]
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
     with pytest.raises(IndexError):
         sk.gather_rows(x, ids, span=2)
@@ -893,7 +898,6 @@ def test_qwen_encoder_runs_through_the_kernel(cuda_device):
 
     from cuvs_rag_tpu_torch.models import qwen_encoder as qe
     from cuvs_rag_tpu_torch.models.encoder import HashTokenizer
-    from cuvs_rag_tpu_torch.ops import attention_kernels as ak
 
     cfg = qe.QwenConfig(vocab_size=500, hidden_size=128, num_layers=3,
                         num_heads=4, num_kv_heads=2, head_dim=64,
@@ -907,7 +911,7 @@ def test_qwen_encoder_runs_through_the_kernel(cuda_device):
     gpu = qe.QwenEmbeddingEncoder(cfg, copy.deepcopy(model), tok,
                                   max_length=96, dtype=torch.float32,
                                   device=cuda_device)
-    ak.flash_attention.launches = 0
+    before = build.launches["flash_attention"]
     got = gpu.encode(texts, batch_size=2)
-    assert ak.flash_attention.launches == 2 * cfg.num_layers
+    assert build.launches["flash_attention"] == before + 2 * cfg.num_layers
     assert abs(got - want).max() < 1e-4

@@ -37,8 +37,8 @@ def test_threads_launch_with_their_own_shared_memory(cuda_device):
     launch code raises from whichever thread comes first. Each result
     equals the single-threaded run of the same call, and no launch fails."""
     from cuvs_rag_tpu_torch.index import flat
+    from cuvs_rag_tpu_torch.kernels import build
     from cuvs_rag_tpu_torch.ops import attention_kernels as ak
-    from cuvs_rag_tpu_torch.ops import flat_kernels as fk
     from cuvs_rag_tpu_torch.utils.config import FlatParams
 
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -64,8 +64,9 @@ def test_threads_launch_with_their_own_shared_memory(cuda_device):
             return flat.search(None, index, queries[n], k)
         return (ak.flash_attention(*attn[call[1:]], sm_scale=0.125),)
 
-    fk.flat_topk_exact.launches = fk.flat_topk_large.launches = 0
-    ak.flash_attention.launches = 0
+    entries = ("flat_exact_topk", "flat_exact_wide_topk", "flat_topr",
+               "flash_attention")
+    before = {e: build.launches[e] for e in entries}
     want = {c: run(c) for c in calls}
     torch.cuda.synchronize()
     errors, bad = [], []
@@ -91,9 +92,10 @@ def test_threads_launch_with_their_own_shared_memory(cuda_device):
     assert not errors, errors[:3]
     assert not bad, sorted(set(bad), key=str)[:5]
     # every call took its kernel: K1 at k = 10, K3 above 32, K7
-    assert fk.flat_topk_exact.launches >= 3 * 401
-    assert fk.flat_topk_large.launches >= 9 * 401
-    assert ak.flash_attention.launches > 0
+    ran = {e: build.launches[e] - before[e] for e in entries}
+    assert ran["flat_exact_topk"] + ran["flat_exact_wide_topk"] >= 3 * 401
+    assert ran["flat_topr"] >= 9 * 401
+    assert ran["flash_attention"] > 0
 
 
 def test_daemon_on_the_card(cuda_device):
@@ -103,8 +105,8 @@ def test_daemon_on_the_card(cuda_device):
     vectors, a deny list past k = 32 (K3), views, live extend and delete
     beside searches, /healthz and /stats naming the card; K1 and K3 ran."""
     import chip_smoke
+    from cuvs_rag_tpu_torch.kernels import build
     from cuvs_rag_tpu_torch.models.encoder import HashingEncoder
-    from cuvs_rag_tpu_torch.ops import flat_kernels as fk
     from cuvs_rag_tpu_torch.rag.corpus import Corpus
     from cuvs_rag_tpu_torch.rag.pipeline import Retriever
     from cuvs_rag_tpu_torch.utils.config import FlatParams
@@ -126,9 +128,11 @@ def test_daemon_on_the_card(cuda_device):
         Corpus(passages=passages, embeddings=x), enc, family="flat",
         params=FlatParams(dtype="bfloat16"))
     assert retriever.index.device.type == "cuda"
-    fk.flat_topk_exact.launches = fk.flat_topk_large.launches = 0
+    before = dict(build.launches)
     out = chip_smoke.daemon_checks(retriever, enc, planted, texts,
                                    range(16, 16 + 128), view_rows=50_000)
     assert out["device"][1] == torch.cuda.get_device_name(cuda_device)
     assert out["mean_microbatch"] > 1.0
-    assert fk.flat_topk_exact.launches > 0 and fk.flat_topk_large.launches > 0
+    ran = {e: n - before[e] for e, n in build.launches.items()}
+    assert ran["flat_exact_topk"] + ran["flat_exact_wide_topk"] > 0
+    assert ran["flat_topr"] > 0

@@ -66,6 +66,7 @@ def test_streamed_fan_out_equals_a_serial_loop(cuda_device, corpus, family,
     """flat K1 (k = 10) and K3 (k = 2,000), IVF-Flat K4 and K5: each shard
     launches its kernel once on its own stream, and the merge equals a
     serial loop over the shards, bit for bit."""
+    from cuvs_rag_tpu_torch.kernels import build
     from cuvs_rag_tpu_torch.ops import flat_kernels as fk
     from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
     from cuvs_rag_tpu_torch.parallel import search as ps
@@ -76,12 +77,13 @@ def test_streamed_fan_out_equals_a_serial_loop(cuda_device, corpus, family,
     dmesh = DeviceMesh([cuda_device] * S)
     if family == "flat":
         params, sp = config.FlatParams(dtype="bfloat16"), None
-        kern = fk.flat_topk_exact if k <= fk.MAX_KERNEL_K else \
-            fk.flat_topk_large
+        entries = ("flat_exact_topk", "flat_exact_wide_topk") \
+            if k <= fk.MAX_KERNEL_K else ("flat_topr",)
     else:
         params = config.IVFFlatParams(dtype="bfloat16")
         sp = config.IVFFlatSearchParams(n_probes=5)
-        kern = ik.ivf_scan if k <= ik.MAX_KERNEL_K else ik.ivf_scan_large
+        entries = ("ivf_scan_topk",) if k <= ik.MAX_KERNEL_K \
+            else ("ivf_scan_topr",)
     six = ps.build_sharded(family, params, x, dmesh)
     large = ps._sharded_large_route(six, k, sp)
     if k > 32:
@@ -92,9 +94,9 @@ def test_streamed_fan_out_equals_a_serial_loop(cuda_device, corpus, family,
     else:
         def scan(ix, qq):
             return ps.FAMILIES[family].search_scores(sp, ix, qq, k)
-    kern.launches = 0
+    before = sum(build.launches[e] for e in entries)
     got_s, got_i, cert = ps._fan_out_search(dmesh, six, q, k, scan)
-    assert kern.launches == S
+    assert sum(build.launches[e] for e in entries) == before + S
     assert bool(cert.all())
     torch.cuda.synchronize()
     want_s, want_i = _serial(six, q, k, scan)

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 from cuvs_rag_tpu.index import flat as jflat
 from cuvs_rag_tpu.ops import pallas_flat
 from cuvs_rag_tpu.utils.config import FlatParams
+from cuvs_rag_tpu_torch.kernels import build
 from cuvs_rag_tpu_torch.ops import flat_kernels as fk
 from torch_parity import compare_topk, to_torch
 
@@ -219,8 +220,9 @@ def test_wrapper_rejects_bad_inputs():
                             tile_c=64, int8_compute=True)  # needs int8 rows
     with pytest.raises(ValueError):
         fk.flat_topk_exact(c, sq, q, 65, k=3, metric="sqeuclidean")
-    assert fk.flat_topk_exact.launches == 0  # the CPU path launches nothing
-    assert fk.flat_topk_exact.wide_launches == 0
+    # the CPU path launches nothing
+    assert build.launches["flat_exact_topk"] == 0
+    assert build.launches["flat_exact_wide_topk"] == 0
 
 
 # ------------------------------------------- K1's rounding bound ----------
@@ -455,14 +457,14 @@ def test_wide_kernel_fits_shared_memory_at_every_depth(dtype):
     kernel takes), and at least 16 queries fit; the CLI's 100 x 768 is two
     passes."""
     step = 16 if dtype == torch.bfloat16 else 32
-    for d, k in itertools.product(range(step, fk._RING_MAX_DIM + 1, step),
+    for d, k in itertools.product(range(step, fk.RING_MAX_DIM + 1, step),
                                   (1, 10, 32)):
         assert fk.exact_route(dtype, d) == "ring"
         width = fk._wide_width(d, dtype, k)
         assert 16 <= width <= fk._WIDE_MAX_N and width % 16 == 0
-        assert fk._wide_smem(width, d, dtype, k) <= fk._MAX_SMEM
+        assert fk._wide_smem(width, d, dtype, k) <= build.MAX_SMEM
         assert (width == fk._WIDE_MAX_N
-                or fk._wide_smem(width + 16, d, dtype, k) > fk._MAX_SMEM)
+                or fk._wide_smem(width + 16, d, dtype, k) > build.MAX_SMEM)
     assert fk.exact_plan(2_000_000, 100, 768, torch.bfloat16, 132,
                          10).passes == 2
 
@@ -486,28 +488,6 @@ def test_wide_plan_mirrors_the_kernel_source():
             "WIDE_STAGES * 2 * 8 + n * k * 8;") in source
     # the two halves of a pass are each a product's N: multiples of 8
     assert "const int n = (width + 15) / 16 * 16;" in source
-
-
-def test_ring_sweep_variants_apply_to_the_source():
-    """eval/ring_sweep.py makes its variants by replacing constants and two
-    statements of csrc/flat_topk.cu: every replacement must still find its
-    text, the first variant is the source itself, and the rest differ."""
-    from cuvs_rag_tpu_torch.eval import ring_sweep
-    from cuvs_rag_tpu_torch.kernels import build
-
-    source = (build.CSRC / "flat_topk.cu").read_text()
-    made = ring_sweep.variants(source)
-    assert len(made) == len(ring_sweep.SIZES) + len(ring_sweep.LEFT_OUT)
-    names = list(made)
-    stages, chunk, blocks = ring_sweep.SIZES[0]
-    assert made[names[0]] == (source, blocks, True)
-    assert blocks == fk._RING_BLOCKS_PER_SM
-    assert f"RING_STAGES = {stages};" in source
-    assert f"RING_CHUNK = {chunk};" in source
-    texts = [text for text, _, _ in made.values()]
-    assert len(set(texts)) == len(texts)
-    with pytest.raises(RuntimeError):
-        ring_sweep.variants(source.replace("RING_STAGES", "STAGES"))
 
 
 # ---------------------------------------------- K2's routes and splits ----

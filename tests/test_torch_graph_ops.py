@@ -30,6 +30,7 @@ from cuvs_rag_tpu.ops import distance as jdist
 from cuvs_rag_tpu.ops import graph as jgraph
 from cuvs_rag_tpu.utils.config import IVFFlatParams as JIVFParams
 from cuvs_rag_tpu_torch.index import io as tio
+from cuvs_rag_tpu_torch.kernels import build
 from cuvs_rag_tpu_torch.ops import graph as tgraph
 from torch_parity import compare_topk, to_numpy, to_torch
 
@@ -345,7 +346,7 @@ def test_candidate_route_is_the_plain_step_on_the_cpu():
     rows = torch.zeros((64, 896), dtype=torch.bfloat16)
     assert not gk.takes(rows, 1024, 128)
     assert gk.takes(_card_rows(rows.dtype, 896), 1024, 128)
-    before = gk.prepare.launches
+    before = build.launches["cagra_candidates"]
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         route, step = tgraph.candidate_step(aug, aq, picks.shape[1],
@@ -354,7 +355,7 @@ def test_candidate_route_is_the_plain_step_on_the_cpu():
     got = step(picks, pick_s, ids)
     want = _old_loop_body(aug, graph, aq, picks, pick_s, ids)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert gk.prepare.launches == before
+    assert build.launches["cagra_candidates"] == before
 
 
 @pytest.mark.parametrize("dtype,width,m,b,takes", [

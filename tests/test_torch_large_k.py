@@ -17,6 +17,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from cuvs_rag_tpu_torch.kernels import build
 from cuvs_rag_tpu_torch.ops import flat_kernels as fk
 from cuvs_rag_tpu_torch.ops import ivf_kernels as ik
 from cuvs_rag_tpu_torch.utils.compare import compare_planes
@@ -161,7 +162,7 @@ def test_topr_plan_takes_every_call_and_fits(dtype, d, n_q, k, tile_c):
         assert (id_bytes, bps) == (4, fk._BLOCKS_PER_SM)
         assert qpb == min(16, n_q, fk._PLANE_SMEM // (r * 128 * 8))
         if fk.exact_route(dtype, d) != "cores":  # planes fit no ring block
-            room = fk._MAX_SMEM - fk._ring_bytes(dtype, d)
+            room = build.MAX_SMEM - fk._ring_bytes(dtype, d)
             assert room < r * 128 * (4 + (2 if n_tiles <= 65535 else 4))
         return
     assert route == fk.exact_route(dtype, d)
@@ -169,12 +170,13 @@ def test_topr_plan_takes_every_call_and_fits(dtype, d, n_q, k, tile_c):
     entry = r * 128 * (4 + id_bytes)
 
     def fit(blocks):
-        budget = min(fk._MAX_SMEM, fk._SM_SMEM // blocks - fk._BLOCK_RESERVED)
+        budget = min(build.MAX_SMEM,
+                     build.SM_SMEM // blocks - build.BLOCK_RESERVED)
         return min(16, n_q, (budget - fk._ring_bytes(dtype, d)) // entry)
 
     assert qpb == fit(bps)
     assert fk._ring_bytes(dtype, d) + qpb * entry <= min(
-        fk._MAX_SMEM, fk._SM_SMEM // bps - fk._BLOCK_RESERVED)
+        build.MAX_SMEM, build.SM_SMEM // bps - build.BLOCK_RESERVED)
     passes = {b: math.ceil(n_q / fit(b)) if fit(b) >= 1 else math.inf
               for b in (1, 2)}
     assert passes[bps] == min(passes.values())
