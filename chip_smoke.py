@@ -62,12 +62,15 @@ is non-zero):
                search; delete, allow= (the post-filter), 1,000 rows added by
                extend and found by their own vectors; save and load of a
                1,048,576-row index built the same way. The beam's candidate
-               step is the one hand kernel on this path (ops/graph_kernels:
-               one launch an iteration and one for the entry rows, checked
-               on one search); its row at the CAGRA cell's step
-               (CAND_SHAPE over CAND_ROWS rows): ids and masks equal to its
-               plain step's, scores within CAND_TOL of a float64 dot, its
-               time against the plain step's and its bound.
+               and merge steps are the hand kernels on this path
+               (ops/graph_kernels: each one launch an iteration and one for
+               the entry rows, checked on one search); the candidate row at
+               the CAGRA cell's step (CAND_SHAPE over CAND_ROWS rows): ids
+               and masks equal to its plain step's, scores within CAND_TOL
+               of a float64 dot, its time against the plain step's and its
+               bound; the merge row at the same step (MERGE_SHAPE): every
+               output equal to its plain step's bit for bit, its device
+               time, the plain step's and the launches.
  10. serve_main — the serving layer over the flat retriever of main (after
                cagra_main): the HTTP daemon (rag/server.serve on
                127.0.0.1, a free port) answering 16 client threads x 32
@@ -214,6 +217,7 @@ SOURCES = {
     "gather_rows": "cuvs_rag_tpu_torch/csrc/stream.cu",
     "gather_reduce": "cuvs_rag_tpu_torch/csrc/stream.cu",
     "cagra_candidates": "cuvs_rag_tpu_torch/csrc/graph.cu",
+    "cagra_merge": "cuvs_rag_tpu_torch/csrc/graph.cu",
 }
 REPLACES = {
     "flat_topk_exact": "cuvs_rag_tpu/ops/pallas_flat.py:166",
@@ -228,6 +232,7 @@ REPLACES = {
     "gather_reduce": "scripts/bench_gather_modes.py:171",
     # none: the JAX package's beam (ops/graph.py) is XLA ops
     "cagra_candidates": None,
+    "cagra_merge": None,
 }
 # gather_rows also stands for the span = 1 kernel of this script
 REPLACES_M4 = "scripts/bench_pallas_gather.py:38"
@@ -289,6 +294,10 @@ CAND_SHAPE = dict(n_q=100, parents=16, degree=64, width=896, beam=128)
 # its scores against a float64 dot of the same values, over the dot's scale
 # (sum of |products|): fp32 FMAs and a warp's shuffles in its own order
 CAND_TOL = 1e-6
+# The merge kernel's row at the same step: 100 queries, a beam of 128, 1,024
+# news and 16 picks; in a later iteration, 64 of the news above the beam's
+# last slot
+MERGE_SHAPE = dict(n_q=100, beam=128, news=1024, picks=16, above=64)
 PQ_MIN_REACHABLE = 0.75
 PQ_MIN_TOP1 = 0.25
 OOC_CHUNKS = 10  # chunks of the out-of-core build (divides ROWS)
@@ -351,8 +360,8 @@ def kernel_fns():
 
 
 def launched(name: str) -> int:
-    """Launches of wrapper `name` (or of the CAGRA candidate kernel) since
-    reset_launches."""
+    """Launches of wrapper `name` (or of a CAGRA kernel: cagra_candidates,
+    cagra_merge) since reset_launches."""
     from cuvs_rag_tpu_torch.kernels import build
 
     return sum(build.launches[e] for e in ENTRIES.get(name, (name,)))
@@ -1594,14 +1603,15 @@ def cagra_main_path(enc, emb, passages, planted, texts, flat_ids, flat_index,
     sp = CagraSearchParams(itopk_size=64)
     iters = graph_ops.beam_plan(sp.itopk_size, 10, sp.search_width,
                                 sp.max_iterations)[2]
-    before = launched("cagra_candidates")
+    before = {n: launched(n) for n in ("cagra_candidates", "cagra_merge")}
     cagra.search(sp, ix, qs[:BATCH], 10)
-    out["candidate_launches_one_search"] = launched("cagra_candidates") \
-        - before
-    if out["candidate_launches_one_search"] != iters + 1:
-        raise AssertionError(
-            f"{iters} iterations of the beam launched the candidate kernel "
-            f"{out['candidate_launches_one_search']} times")
+    for n, kind in (("cagra_candidates", "candidate"),
+                    ("cagra_merge", "merge")):
+        out[f"{kind}_launches_one_search"] = launched(n) - before[n]
+        if out[f"{kind}_launches_one_search"] != iters + 1:
+            raise AssertionError(
+                f"{iters} iterations of the beam launched the {kind} kernel "
+                f"{out[f'{kind}_launches_one_search']} times")
     if out["corpus_like_recall_at_10_itopk_64"] < CAGRA_RECALL_FLOOR:
         raise AssertionError(f"recall on corpus-like queries: {out}")
     out["profile"] = profile_calls(lambda: cagra.search(None, ix, qs[:BATCH],
@@ -1644,10 +1654,12 @@ def cagra_main_path(enc, emb, passages, planted, texts, flat_ids, flat_index,
     out["hand_kernel_launches"] = sum(launched(n) for n in ENTRIES)
     if out["hand_kernel_launches"]:
         raise AssertionError("the CAGRA path launched a scan kernel")
-    out["candidate_kernel_launches"] = launched("cagra_candidates")
-    if not out["candidate_kernel_launches"]:
-        raise AssertionError("the CAGRA path never launched the candidate "
-                             "kernel")
+    for n, kind in (("cagra_candidates", "candidate"),
+                    ("cagra_merge", "merge")):
+        out[f"{kind}_kernel_launches"] = launched(n)
+        if not out[f"{kind}_kernel_launches"]:
+            raise AssertionError(f"the CAGRA path never launched the {kind} "
+                                 f"kernel")
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del retriever, ix
     torch.cuda.empty_cache()
@@ -1672,6 +1684,7 @@ def cagra_main_path(enc, emb, passages, planted, texts, flat_ids, flat_index,
     torch.cuda.empty_cache()
     out["candidate_kernel"] = cagra_candidates_row(
         0, out["candidate_kernel_launches"])
+    out["merge_kernel"] = cagra_merge_row(0, out["merge_kernel_launches"])
     return out
 
 
@@ -1755,6 +1768,100 @@ def cagra_candidates_row(seed: int, launches: int = 0,
             "host_us": host_us(call), "plain_ms": cuda_ms(
                 lambda: graph_ops.candidates_plain(*args, **kw), 5, 1),
             **bound(n_bytes, 2.0 * live * w, "fp32"), "library_ms": None}
+
+
+def cagra_merge_row(seed: int, launches: int = 0) -> dict:
+    """The beam's merge kernel (ops/graph_kernels, through graph.merge_step)
+    at the CAGRA cell's step (MERGE_SHAPE), in the three states a search
+    passes through: a later iteration (a full live beam, a third of it
+    expanded, and news of which MERGE_SHAPE's `above` score above its last
+    slot, the rest below it or -inf: the kernel ranks the few by counting),
+    an early one (every live news above the beam's last slot: it sorts
+    them) and the entry beam (no beam, 128 entry rows as the news). Scores
+    come from few values, so that beam and news tie. In each, every output
+    (the new beam's scores, ids and flags, the picks' scores and ids)
+    equals its plain step's (graph.merge_plain on the card) bit for bit.
+    The kernel rewrites its beam in place, so each timed call of the later
+    and early states first copies the built beam back in. Reported: the
+    kernel's own device ms in each state (torch.profiler, the copies not
+    counted), CUDA-event ms a call in the later state (less the copies'
+    own), host us a call, the plain step's ms; its bound counts the bytes
+    it must move (the beam read, the news' scores read and the ids of those
+    that can land in the beam, at most the beam's width; the new beam and
+    the picks written): it is bound by latency, far from them. A
+    kernels-line row; no one library call computes the step."""
+    import torch
+
+    from cuvs_rag_tpu_torch.eval.roofline import cuda_ms, device_ms, host_us
+    from cuvs_rag_tpu_torch.ops import graph as graph_ops
+
+    c = MERGE_SHAPE
+    n_q, b, m, e = c["n_q"], c["beam"], c["news"], c["picks"]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(cols, low):
+        """cols scores from 32 values in [low, low + 8), a third -inf"""
+        s = low + torch.randint(0, 32, (n_q, cols), generator=gen,
+                                device=dev).float() / 4
+        return s.masked_fill(torch.rand((n_q, cols), generator=gen,
+                                        device=dev) < 0.33, -float("inf"))
+
+    beam = (torch.sort(draw(b, 8.0).clamp(min=8.0), dim=1, descending=True,
+                       stable=True)[0],
+            torch.randint(0, 1 << 24, (n_q, b), generator=gen, device=dev,
+                          dtype=torch.int32),
+            torch.rand((n_q, b), generator=gen, device=dev) < 0.33)
+    later = draw(m, 0.0)
+    above = torch.rand((n_q, m), generator=gen, device=dev).argsort(dim=1)
+    later.scatter_(1, above[:, :c["above"]], draw(c["above"], 8.0))
+    early = draw(m, 8.0)
+    nbrs = torch.randint(-1, 1 << 24, (n_q, m), generator=gen, device=dev,
+                         dtype=torch.int32)
+    states = {"later": (later, nbrs, beam), "early": (early, nbrs, beam),
+              "entry": (early[:, :128], nbrs[:, :128], None)}
+    calls, out = {}, {}
+    for state, (n_scores, ids, given) in states.items():
+        route, merge = graph_ops.merge_step(n_scores, n_q, b, e)
+        if route != "kernel":
+            raise AssertionError(f"the cell's merge step took the {route} "
+                                 f"route")
+
+        def restore(merge=merge, given=given):
+            for own, built in zip(merge.beam, given or ()):
+                own.copy_(built)
+
+        def call(merge=merge, args=(n_scores, ids), given=given,
+                 restore=restore):
+            restore()
+            return merge(*args, None if given is None else merge.beam)
+
+        want = graph_ops.merge_plain(n_scores, ids, given, b=b, e=e)
+        for name, a, w in zip(("scores", "ids", "expanded", "pick_s",
+                               "pick_ids"), call(), want):
+            same = a.dtype == w.dtype and torch.equal(
+                a.view(torch.int32) if a.dtype == torch.float32 else a,
+                w.view(torch.int32) if w.dtype == torch.float32 else w)
+            if not same:
+                raise AssertionError(f"the merge kernel's {name} differ from "
+                                     f"its plain step's ({state})")
+        calls[state] = (call, restore, merge)
+        out[f"device_ms_{state}"] = device_ms(
+            call, ["cagra_merge_kernel"])["cagra_merge_kernel"]
+    call, restore, merge = calls["later"]
+    n_bytes = n_q * (9 * b + 4 * m + 4 * min(m, b) + 9 * b + 8 * e)
+    return {"name": "cagra_merge",
+            "shape": f"{n_q} queries, beam {b}, {m} news ({c['above']} above "
+                     f"the beam's last slot), {e} picks",
+            "route": "cuda", "source": SOURCES["cagra_merge"],
+            "replaces": REPLACES["cagra_merge"], "launches": launches,
+            "ms": cuda_ms(call, 200) - cuda_ms(restore, 200),
+            "device_ms": out["device_ms_later"], **out,
+            "host_us": host_us(lambda: merge(later, nbrs, merge.beam)),
+            "plain_ms": cuda_ms(
+                lambda: graph_ops.merge_plain(later, nbrs, beam, b=b, e=e),
+                20, 3),
+            **bound(n_bytes, 0.0, "fp32"), "library_ms": None}
 
 
 # ----------------------------------------------------------- serving ---
@@ -3588,7 +3695,8 @@ OWN_KERNELS = ("exact_scan_kernel", "exact_scan_wide_kernel",
                "sketch_ring_kernel", "ivf_ring_kernel",
                "ivf_scan_kernel", "merge_partials_kernel", "pq_adc_kernel",
                "flash_attn_wgmma_kernel", "topr_ring_kernel",
-               "topr_merge_kernel")
+               "topr_merge_kernel", "cagra_candidates_kernel",
+               "cagra_merge_kernel")
 
 
 def profile_calls(fn, calls: int = 20, top: int = 6) -> dict:
@@ -4322,6 +4430,7 @@ def main() -> int:
     emit("cagra_main", gpu=gpu, seconds=time.perf_counter() - t0, **cagra_out)
     e2e["cagra_search_ms_per_batch"] = cagra_out["search_ms_per_batch"]
     kernels.append(cagra_out.pop("candidate_kernel"))
+    kernels.append(cagra_out.pop("merge_kernel"))
     t0 = time.perf_counter()
     serve_out = serve_main_path(enc, emb, flat_r, planted, texts)
     emit("serve_main", gpu=gpu, seconds=time.perf_counter() - t0, **serve_out)

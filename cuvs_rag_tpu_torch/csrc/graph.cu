@@ -1,5 +1,9 @@
-// The CAGRA beam's candidate step on Hopper (sm_90a): one launch an
-// iteration of ops/graph.beam_search, and one for its entry rows.
+// The CAGRA beam on Hopper (sm_90a): its two steps an iteration of
+// ops/graph.beam_search, one launch each. The candidate step
+// (cagra_candidates_kernel) is described first; the merge and next picks
+// (cagra_merge_kernel) after it.
+//
+// The candidate step: one launch an iteration, and one for the entry rows.
 //
 // Replaces no TPU kernel: the JAX package's beam (ops/graph.py) is XLA
 // ops. On the card the step was ~20 PyTorch launches an iteration (the
@@ -43,7 +47,7 @@
 //     gathered, a warp a row with ROWS rows in flight, each lane 16-byte
 //     loads of its chunks, the fp32 query of those chunks in registers.
 //
-// Plain C ABI (built with nvcc, loaded with ctypes): the entry point
+// Plain C ABI (built with nvcc, loaded with ctypes): each entry point
 // launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
 
@@ -51,6 +55,8 @@
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "smem.cuh"
 
 namespace {
 
@@ -308,6 +314,252 @@ bool bad_rows(int kind, int width) {
   return (kind != 0 && kind != 2) || width < 8 || width % 8 != 0;
 }
 
+// ------------------------------------------------------------------------
+// The merge and next picks: one launch an iteration of ops/graph.beam_search
+// (after the candidate step), and one for the entry beam and its first
+// picks.
+//
+// Replaces no TPU kernel (the JAX package's beam is XLA ops). On the card
+// the step was ~16 PyTorch launches an iteration: the masked pick scores, a
+// stable sort and a gather for the picks, the flags' scatter, three cats of
+// beam and news, a stable sort of the b + m scores and three gathers. The
+// work is tiny, ordering b + m numbers a query (1,152 at the CAGRA cell's
+// step), so the step is bound by launches and latency, not by bytes: it
+// moves at most ~7 KB a query. The design keeps the whole step in one block a
+// query and in shared memory, and does as few passes as the order allows:
+//   * What it computes, for query q with the beam (b_in slots: scores S
+//     sorted descending with ties by position, as a stable sort leaves
+//     them, ids, expanded flags) and the news (m scores N, ids):
+//       the new beam = the b best of cat(S, N), ties to the lower position
+//         (S before N), with their ids and flags (news unexpanded); slots
+//         past b_in + m read -inf, id -1, unexpanded;
+//       the picks = the e best of the new beam's scores with its expanded
+//         slots as -inf, ties to the lower position: their scores (-inf
+//         where masked), their ids, and their slots marked expanded.
+//     b_in is b (an iteration), 0 (the entry beam: the news are the
+//     entry rows), or the slots that the entry rows' earlier pieces
+//     filled.
+//   * Scores are compared as keys that keep the float order (-0 as +0),
+//     the news' ending in ~position, so that every key is distinct and a
+//     descending order of keys is the stable order. The beam arrives
+//     sorted, so only the news are ordered, and only those that can enter:
+//     with a full beam, a news scoring at or below its last slot never
+//     does (the beam's slots win ties), and after a few iterations most
+//     news are such. The rest go to shared memory, and are ordered by
+//     counting, for each, the keys above it where they are few (at most
+//     RANK_BY_COUNT: ~n^2 / MERGE_THREADS compares, a block barrier or
+//     two), else by a bitonic sort of their keys (~log^2 n barriers).
+//     Then every beam slot and every one of the ordered news' best
+//     min(n, b) finds its place in the merged order by one binary search
+//     in the other list (the merge path): beam slot i goes to i + the news
+//     above it, news j to j + the beam slots at or above it.
+//   * The new beam is sorted, so its unexpanded live slots, in position
+//     order, are the picks' first part, and the rest follow in position
+//     order: a block count and a block scan of the live flags place every
+//     pick.
+//   * It allocates nothing and rewrites the beam in place: a block reads
+//     its own row of the beam (into the merge path's shared memory) before
+//     the barrier that ends the merge path, and writes the row after it.
+//   * Any number of news: the entry point merges them in pieces of at most
+//     MAX_CANDIDATES (fewer beside a beam too wide for that piece's keys to
+//     fit in shared memory), one launch a piece, the last one making the
+//     picks. Every slot a piece's launch leaves in the beam comes from a
+//     lower position than the next piece's news, so ties still go to the
+//     lower position and the pieces give the one-launch answer. A beam of
+//     at most MERGE_MAX_BEAM slots (13 bytes a slot in shared memory).
+// On an H100 (700 W) at 100 queries, a beam of 128 and 1,024 news: 3.0 us
+// with no news to order, 4.7 us with 64, 10.9 us with 512 (counted), 14.6
+// us with 700 or more (sorted); 6.0 us a launch over the CAGRA cell's
+// searches, where the PyTorch ops took ~16 launches and ~68 us an
+// iteration.
+
+constexpr int MERGE_THREADS = 256;
+constexpr int MERGE_WARPS = MERGE_THREADS / 32;
+// news that can enter, ordered by counting up to this many (two a thread)
+constexpr int RANK_BY_COUNT = 2 * MERGE_THREADS;
+constexpr unsigned ORD_NEG_INF = 0x007fffffu;  // ord_of(-inf)
+constexpr int MERGE_MAX_BEAM = 16384;  // the beam's slots in shared memory
+// a block's dynamic shared memory: an H100's 227 KB less the kernel's static
+constexpr size_t MERGE_SMEM = 227 * 1024 - 1024;
+
+// a float's place in the order of floats, as an unsigned: -0 as +0, and a
+// NaN above +inf, as torch.sort places it
+__device__ __forceinline__ unsigned ord_of(float f) {
+  if (f != f) return 0xffffffffu;
+  if (f == 0.f) return 0x80000000u;
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// Shared memory (dynamic): keys[p2] (the sort keys of the news that can
+// enter, p2 = m rounded up to a power of two), ord[b] (the beam's score
+// keys), then the new beam: scores[b], ids[b], flags[b] (bytes).
+// s, id, x: the beam, rows of b slots, the first b_in of each read (the
+// rest are not yet filled) and the whole row rewritten. e = 0: no picks
+// (a piece before the last), the flags kept.
+__global__ void __launch_bounds__(MERGE_THREADS)
+cagra_merge_kernel(float* s, int* id, unsigned char* x, int b_in,
+                   const float* __restrict__ n_s, long long ns_stride,
+                   const int* __restrict__ n_id, long long ni_stride, int m,
+                   int p2, int b, int e, float* __restrict__ pick_s,
+                   int* __restrict__ pick_id) {
+  extern __shared__ unsigned long long keys[];
+  unsigned* ord = reinterpret_cast<unsigned*>(keys + p2);
+  float* o_s = reinterpret_cast<float*>(ord + b);
+  int* o_id = reinterpret_cast<int*>(o_s + b);
+  unsigned char* o_x = reinterpret_cast<unsigned char*>(o_id + b);
+  __shared__ int warp_live[MERGE_WARPS];
+  __shared__ int n_in;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long q = blockIdx.x, row = q * b;
+  const float* my_ns = n_s + q * ns_stride;
+  const int* my_nid = n_id + q * ni_stride;
+  const float* my_s = s + row;
+
+  // news at or below a full beam's last slot never enter (0: every news
+  // key is above it)
+  const unsigned least = b_in == b ? ord_of(my_s[b - 1]) : 0u;
+  for (int i = tid; i < b_in; i += MERGE_THREADS) ord[i] = ord_of(my_s[i]);
+  if (tid == 0) n_in = 0;
+  __syncthreads();
+  for (int j = tid; j < m; j += MERGE_THREADS) {
+    const unsigned o = ord_of(my_ns[j]);
+    if (o > least)
+      keys[atomicAdd(&n_in, 1)] = (unsigned long long)o << 32 | (unsigned)~j;
+  }
+  __syncthreads();
+
+  // the keys of the news that can enter, descending
+  const int n = n_in;
+  if (n <= RANK_BY_COUNT) {
+    unsigned long long mine[2];
+    int above[2] = {0, 0};
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      mine[u] = tid + u * MERGE_THREADS < n ? keys[tid + u * MERGE_THREADS]
+                                            : ~0ull;
+    for (int c = 0; c < n; ++c) {
+      const unsigned long long key = keys[c];
+      above[0] += key > mine[0];
+      above[1] += key > mine[1];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (tid + u * MERGE_THREADS < n) keys[above[u]] = mine[u];
+    __syncthreads();
+  } else {
+    int p = 1;
+    while (p < n) p <<= 1;
+    for (int j = n + tid; j < p; j += MERGE_THREADS)
+      keys[j] = 0ull;  // below every key of the news
+    __syncthreads();
+    for (int k = 2; k <= p; k <<= 1)
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        for (int t = tid; t < p / 2; t += MERGE_THREADS) {
+          const int i = 2 * t - (t & (j - 1)), l = i + j;
+          const unsigned long long a = keys[i], c = keys[l];
+          if ((a < c) == ((i & k) == 0)) {
+            keys[i] = c;
+            keys[l] = a;
+          }
+        }
+        __syncthreads();
+      }
+  }
+
+  // the merge path: each element's place in the new beam
+  const int n_best = min(n, b);  // news past these land at b or later
+  for (int i = tid; i < b_in; i += MERGE_THREADS) {
+    int lo = 0, hi = n_best;  // the news strictly above beam slot i
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if ((unsigned)(keys[mid] >> 32) > ord[i]) lo = mid + 1; else hi = mid;
+    }
+    const int r = i + lo;
+    if (r < b) {
+      o_s[r] = my_s[i];
+      o_id[r] = id[row + i];
+      o_x[r] = x[row + i];
+    }
+  }
+  for (int j = tid; j < n_best; j += MERGE_THREADS) {
+    const unsigned o = (unsigned)(keys[j] >> 32);
+    int lo = 0, hi = b_in;  // the beam slots at or above news j
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (ord[mid] >= o) lo = mid + 1; else hi = mid;
+    }
+    const int r = j + lo;
+    if (r < b) {
+      const int src = (int)~(unsigned)keys[j];
+      o_s[r] = my_ns[src];
+      o_id[r] = my_nid[src];
+      o_x[r] = 0;
+    }
+  }
+  for (int r = b_in + m + tid; r < b; r += MERGE_THREADS) {
+    o_s[r] = -CUDART_INF_F;
+    o_id[r] = -1;
+    o_x[r] = 0;
+  }
+  __syncthreads();  // the beam's row is read: from here on it is written
+
+  // the live unexpanded slots of the new beam
+  int n_live = 0;
+  for (int base = 0; base < b; base += MERGE_THREADS) {
+    const int r = base + tid;
+    n_live += __syncthreads_count(r < b && !o_x[r] &&
+                                  ord_of(o_s[r]) > ORD_NEG_INF);
+  }
+  // the picks: the live unexpanded slots in order, then the rest in order;
+  // a block scan, a chunk of MERGE_THREADS slots at a time (every thread
+  // keeps the running count)
+  const long long picks = q * e;
+  int seen = 0;
+  for (int base = 0; base < b; base += MERGE_THREADS) {
+    const int r = base + tid;
+    const bool live = r < b && !o_x[r] && ord_of(o_s[r]) > ORD_NEG_INF;
+    const unsigned votes = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) warp_live[warp] = __popc(votes);
+    __syncthreads();
+    int before = seen;
+#pragma unroll
+    for (int w = 0; w < MERGE_WARPS; ++w) {
+      if (w < warp) before += warp_live[w];
+      seen += warp_live[w];
+    }
+    if (r < b) {
+      const int pre = before + __popc(votes & ((1u << lane) - 1));
+      const int rank = live ? pre : n_live + r - pre;
+      unsigned char flag = o_x[r];
+      if (rank < e) {
+        pick_s[picks + rank] = live ? o_s[r] : -CUDART_INF_F;
+        pick_id[picks + rank] = o_id[r];
+        flag = 1;
+      }
+      s[row + r] = o_s[r];
+      id[row + r] = o_id[r];
+      x[row + r] = flag;
+    }
+    __syncthreads();  // warp_live is rewritten by the next chunk
+  }
+}
+
+size_t merge_smem_bytes(int p2, int b) {
+  return sizeof(unsigned long long) * (size_t)p2 +
+         (2 * sizeof(int) + sizeof(float) + 1) * (size_t)b;
+}
+
+// the news a launch merges beside a beam of b slots: MAX_CANDIDATES, or
+// the most (a power of two) whose keys fit in shared memory beside it
+int merge_piece(int b) {
+  int piece = MAX_CANDIDATES;
+  while (piece > 1 && merge_smem_bytes(piece, b) > MERGE_SMEM) piece >>= 1;
+  return piece;
+}
+
 }  // namespace
 
 extern "C" {
@@ -363,6 +615,45 @@ int cagra_candidates(const void* rows, int kind, int width, const int* graph,
                                    src_s, s_stride, s_floor, beam, b, aq, n_q,
                                    m, bits, live_cap, nbrs, scores);
   return (int)cudaGetLastError();
+}
+
+// The beam's merge and next picks, a block a query (see cagra_merge_kernel).
+// s, id, x: the beam, (n_q, b) fp32 scores sorted descending (ties by
+// position), int32 ids and bool flags, contiguous: read where `merge` is 1
+// (0: the entry beam, made from the news alone), and rewritten in place
+// with the new beam, its flags with the picks set. n_s, n_id: the news,
+// (n_q, m) fp32 scores and int32 ids, unit column stride, row strides
+// ns_stride and ni_stride (0 repeats one row); any m, merged in pieces of
+// merge_piece(b), a launch each. pick_s, pick_id: the picks, (n_q, e)
+// contiguous. The news and the picks lie apart from the beam.
+int cagra_merge(float* s, int* id, unsigned char* x, int merge,
+                const float* n_s, long long ns_stride, const int* n_id,
+                long long ni_stride, int m, int n_q, int b, int e,
+                float* pick_s, int* pick_id, cudaStream_t stream) {
+  if (n_q < 1 || b < 1 || b > MERGE_MAX_BEAM || e < 1 || e > b || m < 0 ||
+      (merge != 0 && merge != 1) || s == nullptr || id == nullptr ||
+      x == nullptr || pick_s == nullptr || pick_id == nullptr ||
+      (m > 0 && (n_s == nullptr || n_id == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int piece = merge_piece(b);
+  static int allowed[MAX_DEVICES] = {};
+  int b_in = merge ? b : 0, at = 0;
+  do {
+    const int n = min(m - at, piece);
+    int p2 = n > 0 ? 1 : 0;
+    while (p2 < n) p2 <<= 1;
+    const size_t smem = merge_smem_bytes(p2, b);
+    cudaError_t err = allow_smem(allowed, cagra_merge_kernel, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    cagra_merge_kernel<<<n_q, MERGE_THREADS, smem, stream>>>(
+        s, id, x, b_in, n_s + at, ns_stride, n_id + at, ni_stride, n, p2, b,
+        at + n == m ? e : 0, pick_s, pick_id);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    b_in = min(b, b_in + n);
+    at += n;
+  } while (at < m);
+  return (int)cudaSuccess;
 }
 
 }  // extern "C"

@@ -95,6 +95,9 @@ SIGNATURES = {
             _P, _I, _I, _P, _I, _P, _L, _P, _L, _F, _P, _I, _P, _I, _I, _I,
             _I, _I, _P, _P, _P,
         ],
+        "cagra_merge": [
+            _P, _P, _P, _I, _P, _L, _P, _L, _I, _I, _I, _I, _P, _P, _P,
+        ],
     },
     "stream.cu": {
         "read_all": [_P, _L, _I, _I, _I, _I, _P, _P, _P],

@@ -16,12 +16,14 @@ build and search, reshaped for batched tensor ops):
     BEAM: the beam keeps the best `itopk` scores seen so far, so an id
     displaced from it can never re-enter, and "visited and still relevant"
     is "in the current beam". Two masks do it: new ids against the beam,
-    and later copies within the new batch. An iteration's candidate step
-    (the parents' graph rows, their scores, both masks: `candidates_plain`)
-    is one launch of a hand-written kernel on the card where
-    `ops/graph_kernels.takes` admits the shapes (`candidate_step` routes
-    it), and so is the entry rows' scoring; the picks and the merge stay
-    PyTorch ops.
+    and later copies within the new batch. An iteration is two steps, each
+    one launch of a hand-written kernel on the card where
+    `ops/graph_kernels` admits the shapes: the candidate step (the
+    parents' graph rows, their scores, both masks: `candidates_plain`,
+    routed by `candidate_step`), and the merge step (the new beam and the
+    next iteration's picks: `merge_plain`, routed by `merge_step`, which
+    refuses a card's beam wider than the kernel holds). The entry rows
+    take the same two steps.
 
 Every selection of the beam breaks ties by position, lowest first, as
 `lax.top_k` does (`topk_first`): the JAX search relies on that order (a
@@ -435,6 +437,66 @@ def candidate_step(aug_vectors, aq, src_cols: int, *, graph=None,
 candidate_step.warned = False
 
 
+def merge_plain(n_scores, nbrs, beam=None, *, b: int, e: int):
+    """The beam's merge step in PyTorch ops: -> (scores (Q, b) fp32, ids
+    (Q, b) int32, expanded (Q, b) bool, pick_s (Q, e) fp32, pick_ids (Q, e)
+    int32).
+
+    With `beam` = (scores, ids, expanded), (Q, b) each with the scores
+    sorted descending: the new beam is the b best of the beam and the news
+    (n_scores, nbrs (Q, m)), ties to the lower position (the beam's before
+    the news'), the news unexpanded. Without: the new beam is the news' b
+    best (the entry rows), and its slots past the news hold -inf, -1,
+    unexpanded. Then the picks of the next iteration: the e best slots of
+    the new beam with its expanded ones as -inf, ties to the lower position
+    (so past the live ones, expanded and -inf slots in order: their ids
+    still count as earlier copies in the next candidate step); their scores
+    (-inf where masked) and ids, their slots marked expanded. Scores are
+    finite or -inf. The plain version of the merge kernel
+    (ops/graph_kernels), which takes this step on the card; this one runs
+    on CPU tensors."""
+    n_q, m = n_scores.shape
+    if beam is None:
+        top, order = topk_first(n_scores, min(b, m))
+        scores = torch.full((n_q, b), NEG_INF, device=n_scores.device)
+        ids = torch.full((n_q, b), -1, dtype=torch.int32,
+                         device=n_scores.device)
+        scores[:, :top.shape[1]] = top
+        ids[:, :top.shape[1]] = torch.gather(nbrs, 1, order)
+        expanded = torch.zeros((n_q, b), dtype=torch.bool,
+                               device=n_scores.device)
+    else:
+        scores, ids, expanded = beam
+        fresh = torch.zeros((n_q, m), dtype=torch.bool, device=ids.device)
+        scores, sel = topk_first(torch.cat([scores, n_scores], 1), b)
+        ids = torch.gather(torch.cat([ids, nbrs], 1), 1, sel)
+        expanded = torch.gather(torch.cat([expanded, fresh], 1), 1, sel)
+    pick_s, picks = topk_first(scores.masked_fill(expanded, NEG_INF), e)
+    pick_ids = torch.gather(ids, 1, picks)
+    expanded = expanded.scatter(1, picks, True)
+    return scores, ids, expanded, pick_s, pick_ids
+
+
+def merge_step(aug_vectors, n_q: int, b: int, e: int):
+    """(route, merge): a search's merge steps, the kernel's launches on the
+    card (route "kernel") and merge_plain on CPU tensors ("torch");
+    merge(n_scores, nbrs, beam=None) -> (scores, ids, expanded, pick_s,
+    pick_ids), beam the first three of the previous call's outputs, which
+    the kernel's launches rewrite in place. The kernel takes any number of
+    news; a beam of more than graph_kernels.MERGE_MAX_BEAM slots on the
+    card raises ValueError."""
+    if graph_kernels.merge_takes(aug_vectors, b, e):
+        return "kernel", graph_kernels.prepare_merge(aug_vectors.device, n_q,
+                                                     b, e)
+    if aug_vectors.is_cuda:
+        raise ValueError(
+            f"no merge kernel for a beam of {b} slots and {e} picks on "
+            f"{aug_vectors.device}: at most "
+            f"{graph_kernels.MERGE_MAX_BEAM} slots")
+    return "torch", lambda n_scores, nbrs, beam=None: merge_plain(
+        n_scores, nbrs, beam, b=b, e=e)
+
+
 def beam_plan(itopk: int, k: int, expansions: int,
               max_iters: int = 0) -> Tuple[int, int, int]:
     """(beam width b = max(itopk, k), parents expanded an iteration, the
@@ -458,7 +520,8 @@ def beam_search(aug_vectors: torch.Tensor, graph: torch.Tensor,
     the `expansions` best unexpanded beam entries (cuVS's search_width).
     While the span recorder is on, the call adds queries x iterations to
     cagra.expand.kernel or cagra.expand.torch, by the candidate step's
-    route. Returns (scores (Q, k) descending, ids (Q, k) int32); slots
+    route, and to cagra.merge.kernel or cagra.merge.torch, by the merge
+    step's. Returns (scores (Q, k) descending, ids (Q, k) int32); slots
     without a live row hold -inf and -1."""
     n_q = queries.shape[0]
     if n_q > _BEAM_QUERY_CHUNK:
@@ -472,7 +535,6 @@ def beam_search(aug_vectors: torch.Tensor, graph: torch.Tensor,
         return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
     n_pad, width = aug_vectors.shape
     dev = aug_vectors.device
-    g = graph.shape[1]
     b, e, iters = beam_plan(itopk, k, expansions, max_iters)
     aq = augmented_query(queries, metric, width)
     if entry_ids is None:
@@ -480,37 +542,30 @@ def beam_search(aug_vectors: torch.Tensor, graph: torch.Tensor,
     entry_ids = entry_ids.to(torch.int32)
     n_e = entry_ids.shape[1]
 
-    # the route of each step, from its shapes: the iterations' is counted
+    # the route of each step, from its shapes: the iterations' are counted
     # by queries x iterations while the recorder is on
     route, expand = candidate_step(aug_vectors, aq, e, graph=graph,
                                    beam_width=b)
+    merge_route, merge = merge_step(aug_vectors, n_q, b, e)
     if profiling.recording():
         default_registry.inc(f"cagra.expand.{route}", iters * n_q)
-    # the monotone-beam dedup needs the initial beam id-distinct too
-    _, e_scores = candidate_step(aug_vectors, aq, n_e)[1](entry_ids)
-    top_e, order = topk_first(e_scores, min(b, n_e))
-    scores = torch.full((n_q, b), NEG_INF, device=dev)
-    ids = torch.full((n_q, b), -1, dtype=torch.int32, device=dev)
-    scores[:, :top_e.shape[1]] = top_e
-    ids[:, :top_e.shape[1]] = torch.gather(entry_ids, 1, order)
-    expanded = torch.zeros((n_q, b), dtype=torch.bool, device=dev)
-    fresh = torch.zeros((n_q, e * g), dtype=torch.bool, device=dev)
+        default_registry.inc(f"cagra.merge.{merge_route}", iters * n_q)
+    # the entry rows, id-distinct (the monotone-beam dedup needs the first
+    # beam so), are the first beam; the merge step also makes its picks
+    nbrs, e_scores = candidate_step(aug_vectors, aq, n_e)[1](entry_ids)
+    scores, ids, expanded, pick_s, pick_ids = merge(e_scores, nbrs)
 
     for _ in range(iters):
-        pick_s, picks = topk_first(scores.masked_fill(expanded, NEG_INF), e)
-        pick_ids = torch.gather(ids, 1, picks)
-        expanded = expanded.scatter(1, picks, True)
         # the news, masked where expanded from a tombstone, already in the
         # beam, or an earlier news' copy (candidates_plain)
         nbrs, n_scores = expand(pick_ids, pick_s, ids)
-        scores, sel = topk_first(torch.cat([scores, n_scores], 1), b)
-        ids = torch.gather(torch.cat([ids, nbrs], 1), 1, sel)
-        expanded = torch.gather(torch.cat([expanded, fresh], 1), 1, sel)
+        scores, ids, expanded, pick_s, pick_ids = merge(
+            n_scores, nbrs, (scores, ids, expanded))
 
-    out_s, order = topk_first(scores, k)
+    # the beam is sorted (ties by position), so its first k are its top k;
     # a tombstoned row can hold a slot when the beam saw fewer than k live
     # rows: report it empty, as a pad
+    out_s, out_i = scores[:, :k], ids[:, :k]
     live = out_s > -dist_ops.DELETED_THRESHOLD
-    out_i = torch.gather(ids, 1, order)
     return (out_s.masked_fill(~live, NEG_INF),
             out_i.masked_fill(~live, -1))

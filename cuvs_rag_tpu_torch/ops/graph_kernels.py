@@ -1,5 +1,5 @@
-"""The CAGRA beam's candidate kernel (`csrc/graph.cu`) and the rule that
-routes a beam to it.
+"""The CAGRA beam's kernels (`csrc/graph.cu`): the candidate kernel and the
+merge kernel, and the rules that route a beam to them.
 
 A candidate step is one step of `ops/graph.beam_search`: from the parents
 an iteration expands (or from given entry ids), the candidates' ids and
@@ -38,6 +38,21 @@ on every launch would cost it. It launches through
 `kernels/build.launcher`, which counts the launches in
 `build.launches["cagra_candidates"]` and makes each launch call the span
 `kernel.launch` (kernel "cagra_candidates").
+
+A merge step is the other step of an iteration: the new beam, the b best
+of the beam and the news, and the next iteration's picks from it (the e
+best unexpanded slots). Its plain version is `ops/graph.merge_plain`, the
+beam's PyTorch ops before the kernel, which runs on CPU tensors;
+`ops/graph.merge_step` picks the route. The kernel replaces no TPU kernel
+either: the step was ~16 launches an iteration of sorts, gathers and cats
+over ~1,000 numbers a query, bound by launches, not bytes. Its outputs
+equal the plain version's bit for bit (the same values moved, nothing
+computed). `merge_takes` is its route: a CUDA beam of at most
+MERGE_MAX_BEAM slots, with any number of news (the library merges them in
+pieces of at most MAX_CANDIDATES, a launch each; one piece up to there);
+`ops/graph.merge_step` refuses a wider CUDA beam. `prepare_merge` makes a
+search's beam and picks once, which its launches rewrite in place, and
+launches through `build.launcher` as "cagra_merge".
 """
 
 from __future__ import annotations
@@ -53,6 +68,7 @@ _SOURCE = "graph.cu"
 _KINDS = {torch.bfloat16: 0, torch.float32: 2}
 MAX_CANDIDATES = 8192  # a query's candidate ids held in shared memory
 MAX_BEAM = 4096  # the beam's ids held in shared memory
+MERGE_MAX_BEAM = 16384  # the merge kernel's beam in shared memory
 _TABLE_BITS = (6, 14)  # the dedup table: 64 to 16,384 slots (two of them)
 _MIN_POSITIONS = 32  # candidates a block takes at the least
 _FLOOR = -dist_ops.DELETED_THRESHOLD
@@ -109,8 +125,9 @@ def prepare(rows: torch.Tensor, aq: torch.Tensor, src_cols: int, *,
     (Q, src_cols) int32 with unit column stride, src_scores likewise fp32
     (with `graph`) and beam (Q, beam_width) contiguous int32. The first
     call checks its arguments; the later ones pass what the beam's own ops
-    make the same way, and are not checked again. For CUDA rows that
-    `takes` admits."""
+    make the same way, and are not checked again. Every call returns the
+    same two tensors, made here, which the next call overwrites (the beam
+    merges them before its next step). For CUDA rows that `takes` admits."""
     n_q, width = aq.shape
     degree = 0 if graph is None else graph.shape[1]
     m, b = src_cols * max(degree, 1), beam_width
@@ -130,7 +147,10 @@ def prepare(rows: torch.Tensor, aq: torch.Tensor, src_cols: int, *,
                         kernel="cagra_candidates")
     head = (rows.data_ptr(), kind, width,
             None if graph is None else graph.data_ptr(), degree)
-    tail = (n_q, m, bits, live_cap, blocks)
+    out = (torch.empty((n_q, m), dtype=torch.int32, device=dev),
+           torch.empty((n_q, m), dtype=torch.float32, device=dev))
+    tail = (n_q, m, bits, live_cap, blocks, out[0].data_ptr(),
+            out[1].data_ptr())
     unchecked = [True]
 
     def check(src, src_scores, beam):
@@ -153,13 +173,75 @@ def prepare(rows: torch.Tensor, aq: torch.Tensor, src_cols: int, *,
     def launch(src, src_scores=None, beam=None):
         if unchecked:
             check(src, src_scores, beam)
-        nbrs = torch.empty((n_q, m), dtype=torch.int32, device=dev)
-        scores = torch.empty((n_q, m), dtype=torch.float32, device=dev)
         fn(*head, src.data_ptr(), src.stride(0),
            None if src_scores is None else src_scores.data_ptr(),
            0 if src_scores is None else src_scores.stride(0),
            _FLOOR, None if beam is None else beam.data_ptr(), b,
-           aq.data_ptr(), *tail, nbrs.data_ptr(), scores.data_ptr())
-        return nbrs, scores
+           aq.data_ptr(), *tail)
+        return out
 
+    return launch
+
+
+def merge_takes(rows, b: int, e: int) -> bool:
+    """The route of a search's merge steps, a beam of b slots and e picks:
+    True where `prepare_merge` launches the kernel for a beam on the rows'
+    device (any number of news), False where the plain step runs."""
+    return rows.is_cuda and 0 < e <= b <= MERGE_MAX_BEAM
+
+
+def prepare_merge(device, n_q: int, b: int, e: int):
+    """The launches of one search's merge steps: -> launch(n_scores, nbrs,
+    beam=None) -> (scores, ids, expanded, pick_s, pick_ids), the new beam
+    ((Q, b) fp32 scores, int32 ids, bool flags with the picks set) and the
+    picks ((Q, e) fp32 scores, int32 ids) of `ops/graph.merge_plain`, bit
+    for bit. The five tensors are made here, once, and every launch
+    rewrites them, the beam in place. n_scores, nbrs: the news, (Q, m)
+    fp32 and int32 with unit column stride, any m; beam: None for the
+    entry beam (the news are its rows), else `launch.beam`, the first
+    three of the five (which a caller may fill with a beam of its own
+    first). The first call of each (beam or none, m) checks its arguments
+    and keeps the news' row strides; the later ones pass what the beam's
+    own steps make the same way, and are not checked again. For a CUDA
+    `device` and shapes that `merge_takes` admits."""
+    if not 0 < e <= b <= MERGE_MAX_BEAM:
+        raise ValueError(f"no merge kernel for a beam of {b} and {e} picks")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    fn = build.launcher(_SOURCE, "cagra_merge", device, kernel="cagra_merge")
+    out = (torch.empty((n_q, b), dtype=torch.float32, device=device),
+           torch.empty((n_q, b), dtype=torch.int32, device=device),
+           torch.empty((n_q, b), dtype=torch.bool, device=device),
+           torch.empty((n_q, e), dtype=torch.float32, device=device),
+           torch.empty((n_q, e), dtype=torch.int32, device=device))
+    beam_ptrs = tuple(t.data_ptr() for t in out[:3])
+    pick_ptrs = tuple(t.data_ptr() for t in out[3:])
+    strides = {}  # (no beam, m) -> the news' row strides, from a checked call
+
+    def check(n_scores, nbrs, beam):
+        m = n_scores.shape[1]
+
+        def bad(t, dtype):
+            return (t.dtype != dtype or t.device != device
+                    or tuple(t.shape) != (n_q, m) or t.stride(1) != 1)
+
+        if bad(n_scores, torch.float32) or bad(nbrs, torch.int32):
+            raise ValueError(f"the news must be ({n_q}, m) fp32 scores and "
+                             f"int32 ids with unit column stride on {device}")
+        if beam is not None and (len(beam) != 3 or any(
+                t is not own for t, own in zip(beam, out))):
+            raise ValueError("the merge kernel rewrites its own beam in "
+                             "place: pass launch.beam")
+        strides[beam is None, m] = (n_scores.stride(0), nbrs.stride(0))
+
+    def launch(n_scores, nbrs, beam=None):
+        kind = (beam is None, n_scores.shape[1])
+        if kind not in strides:
+            check(n_scores, nbrs, beam)
+        ns_stride, ni_stride = strides[kind]
+        fn(*beam_ptrs, int(beam is not None), n_scores.data_ptr(), ns_stride,
+           nbrs.data_ptr(), ni_stride, kind[1], n_q, b, e, *pick_ptrs)
+        return out
+
+    launch.beam = out[:3]
     return launch

@@ -1,6 +1,6 @@
 """The CAGRA path on the card against the same path on the CPU, and the
-beam's candidate kernel (ops/graph_kernels, csrc/graph.cu) against its
-plain step. What the card can change is the order of ties (torch.sort and
+beam's candidate and merge kernels (ops/graph_kernels, csrc/graph.cu)
+against their plain steps. What the card can change is the order of ties (torch.sort and
 scatters on CUDA) and of fp32 sums, so these hold the port's explicit tie
 rules there: the beam's stable selections, the reverse edges' stable sort
 and extend's explicit last writer. The candidate kernel gives the plain
@@ -11,7 +11,12 @@ CAGRA cell's shapes, at rows past 4,096 bytes and at the id limits; past
 those, the plain step runs on the card with one warning. A
 whole beam by the kernel's route equals the torch route's on at least 99%
 of positions: the two routes' scores differ in the last bits, which moves
-near-ties. Without a GPU these skip.
+near-ties. The merge kernel moves values and computes none, so its
+outputs equal merge_plain's bit for bit (ties across beam and news, -inf
+runs, tombstones, every slot expanded, few live news, news in pieces, the
+widest beam it holds), and a whole search by its route returns the plain
+merge route's ids and scores exactly; a wider beam on the card raises.
+Without a GPU these skip.
 
 Run on a GPU machine (tests/conftest.py imports jax, which the port's
 machine need not have):
@@ -383,3 +388,213 @@ def test_beam_by_kernel_matches_torch_route(cuda_device, monkeypatch, dtype,
             _, want = cagra.search(sp, dev, q.to(cuda_device), sp.itopk_size)
         assert build.launches["cagra_candidates"] == before + iters + 1
         assert (got == want).float().mean() >= 0.99
+
+
+# ------------------------------------------------------- the merge kernel ---
+
+# scores drawn from few values, so that beam and news tie across each other
+_TIED = (3.0, 1.5, 1.5, 0.0, -1.0, -2e30, -float("inf"))
+MERGE_CASES = ("many_ties", "runs_of_minus_inf", "tombstones",
+               "every_slot_expanded", "fewer_live_news_than_b", "random")
+
+
+def _merge_inputs(device, case, n_q, b, m, seed=0):
+    """A merge step's inputs on `device`: the beam (scores sorted
+    descending with ties by position, ids, flags) and the news (scores,
+    ids), built for one case."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    tied = torch.tensor(_TIED, device=device)
+
+    def draw(cols):
+        if case in ("many_ties", "every_slot_expanded"):
+            return tied[torch.randint(0, len(_TIED), (n_q, cols), generator=g,
+                                      device=device)]
+        s = torch.randn((n_q, cols), generator=g, device=device)
+        if case == "runs_of_minus_inf":
+            s[:, cols // 3:] = -float("inf")
+            s[::2, : cols // 5] = -float("inf")
+        if case == "tombstones":
+            s[torch.rand((n_q, cols), generator=g, device=device) < 0.4] = -2e30
+        if case == "fewer_live_news_than_b":
+            s[:, min(cols, max(1, b // 4)):] = -float("inf")
+        return s
+
+    scores = torch.sort(draw(b), dim=1, descending=True, stable=True)[0]
+    ids = torch.randint(-1, 4 * (b + m), (n_q, b), generator=g, device=device,
+                        dtype=torch.int32)
+    expanded = torch.rand((n_q, b), generator=g, device=device) < 0.4
+    n_scores = draw(m)
+    if case == "every_slot_expanded":
+        expanded[:] = True
+        n_scores[:, : m // 2] = -float("inf")
+    nbrs = torch.randint(-1, 4 * (b + m), (n_q, m), generator=g,
+                         device=device, dtype=torch.int32)
+    return (scores, ids, expanded), n_scores, nbrs
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _hold_merge(got, want):
+    """Every output of the kernel equal to the plain step's, bit for bit."""
+    names = ("scores", "ids", "expanded", "pick_s", "pick_ids")
+    for name, a, w in zip(names, got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert torch.equal(_bits(a), _bits(w)), name
+
+
+def _built_beam(merge, beam):
+    """merge.beam filled with a built beam: the kernel's launches read and
+    rewrite that one beam in place."""
+    for own, built in zip(merge.beam, beam):
+        own.copy_(built)
+    return merge.beam
+
+
+@pytest.mark.parametrize("case", MERGE_CASES)
+@pytest.mark.parametrize("n_q,b,m,e", [
+    (100, 128, 1024, 16),  # the CAGRA cell's step
+    (7, 16, 9, 16),  # every slot picked; fewer news than slots
+    (3, 4096, 8192, 64),  # the candidate kernel's limits: one piece
+    (3, 4096, 20_000, 64),  # news in three pieces
+    (2, 16384, 40_000, 16),  # the widest beam: pieces of 2,048 news
+    (5, 33, 0, 5),  # no news
+])
+def test_merge_kernel_matches_plain_step(cuda_device, case, n_q, b, m, e):
+    """The merge kernel against merge_plain on the same card tensors, bit
+    for bit: the new beam's scores, ids and flags, the picks' scores and
+    ids. One library call a step (a launch a piece of news); an
+    iteration's step reads the beam that the entry step wrote in place,
+    and the entry beam (no beam, the news as its rows: in pieces, the
+    beam part filled between them) is held the same way."""
+    from cuvs_rag_tpu_torch.ops import graph as graph_ops
+
+    beam, n_scores, nbrs = _merge_inputs(cuda_device, case, n_q, b, m)
+    route, merge = graph_ops.merge_step(n_scores, n_q, b, e)
+    assert route == "kernel"
+    before = build.launches["cagra_merge"]
+    want = graph_ops.merge_plain(n_scores, nbrs, beam, b=b, e=e)
+    _hold_merge(merge(n_scores, nbrs, _built_beam(merge, beam)), want)
+    if m:
+        entry = merge(n_scores, nbrs)
+        _hold_merge(entry, graph_ops.merge_plain(n_scores, nbrs, b=b, e=e))
+        # the next step reads the entry's beam and rewrites it
+        want = graph_ops.merge_plain(n_scores, nbrs, tuple(
+            t.clone() for t in entry[:3]), b=b, e=e)
+        again = merge(n_scores, nbrs, merge.beam)
+        assert again[0].data_ptr() == entry[0].data_ptr()
+        _hold_merge(again, want)
+    torch.cuda.synchronize()
+    assert build.launches["cagra_merge"] == before + (3 if m else 1)
+
+
+def test_merge_kernel_takes_strided_entry_ids(cuda_device):
+    """The entry step's ids may be one row repeated (a stride-0 view, the
+    evenly spaced entry rows): the kernel reads them by their row stride."""
+    from cuvs_rag_tpu_torch.ops import graph as graph_ops
+
+    _, n_scores, nbrs = _merge_inputs(cuda_device, "many_ties", 12, 64, 100)
+    ids = nbrs[:1].expand(12, -1)
+    merge = graph_ops.merge_step(n_scores, 12, 64, 8)[1]
+    _hold_merge(merge(n_scores, ids),
+                graph_ops.merge_plain(n_scores, ids, b=64, e=8))
+
+
+def test_prepared_merge_checks_its_first_call(cuda_device):
+    """A prepared merge refuses news of another type, shape or device, and
+    any beam but its own (`launch.beam`, rewritten in place), on the first
+    call of each kind, and launches nothing then."""
+    from cuvs_rag_tpu_torch.ops import graph_kernels as gk
+
+    beam, n_scores, nbrs = _merge_inputs(cuda_device, "random", 8, 64, 256)
+    before = build.launches["cagra_merge"]
+    for bad in ((n_scores.double(), nbrs, beam), (n_scores, nbrs.long(), beam),
+                (n_scores.cpu(), nbrs.cpu(), beam),
+                (n_scores, nbrs[:, :100], beam),
+                (n_scores, nbrs, (beam[0], beam[1], beam[2].int())),
+                (n_scores, nbrs, (beam[0][:, :32], beam[1], beam[2])),
+                (n_scores, nbrs, beam)):
+        with pytest.raises(ValueError):
+            gk.prepare_merge(cuda_device, 8, 64, 8)(*bad)
+    assert build.launches["cagra_merge"] == before
+    with pytest.raises(ValueError):
+        gk.prepare_merge(cuda_device, 8, 64, 65)
+
+
+@pytest.mark.parametrize("dtype,d", [("float32", 64), ("bfloat16", 64),
+                                     ("bfloat16", 1024)])
+def test_beam_by_merge_kernel_equals_plain_merge_route(cuda_device,
+                                                       monkeypatch, dtype, d):
+    """A whole search on the 20,000-row corpus, with and without two rows
+    in three deleted, both with the candidate kernel: by the merge kernel's
+    route it returns the plain merge route's ids and scores exactly; it
+    launches the merge kernel once an iteration and once for the entry
+    beam, and counts queries x iterations in cagra.merge.kernel (equal to
+    cagra.iterations) while the recorder is on."""
+    from cuvs_rag_tpu_torch.index import cagra
+    from cuvs_rag_tpu_torch.ops import graph as graph_ops
+    from cuvs_rag_tpu_torch.ops import graph_kernels as gk
+    from cuvs_rag_tpu_torch.utils import profiling
+    from cuvs_rag_tpu_torch.utils.config import CagraParams, CagraSearchParams
+    from cuvs_rag_tpu_torch.utils.metrics import default_registry
+
+    def counters():
+        c = default_registry.snapshot()["counters"]
+        return [c.get(k, 0) for k in ("cagra.iterations", "cagra.merge.kernel",
+                                      "cagra.merge.torch")]
+
+    def plain_merge_step(rows, n_q, b, e):
+        return "torch", lambda n_scores, nbrs, beam=None: (
+            graph_ops.merge_plain(n_scores, nbrs, beam, b=b, e=e))
+
+    x, q = _corpus(d=d)
+    ix = cagra.build(CagraParams(graph_degree=32, intermediate_graph_degree=64,
+                                 dtype=dtype), x, device="cpu")
+    for sp in (CagraSearchParams(), CagraSearchParams(itopk_size=128,
+                                                      search_width=16)):
+        _, _, iters = graph_ops.beam_plan(sp.itopk_size, 10, sp.search_width,
+                                          sp.max_iterations)
+        for index in (ix, cagra.delete(ix, torch.nonzero(
+                torch.arange(ix.n_valid) % 3 != 0).flatten())):
+            dev = _to(index, cuda_device)
+            before, counted = build.launches["cagra_merge"], counters()
+            cand = build.launches["cagra_candidates"]
+            profiling.record_spans(True)
+            try:
+                got = cagra.search(sp, dev, q.to(cuda_device), 10)
+            finally:
+                profiling.record_spans(False)
+                profiling.clear()
+            assert build.launches["cagra_merge"] == before + iters + 1
+            assert build.launches["cagra_candidates"] == cand + iters + 1
+            n = iters * q.shape[0]
+            assert [a - b for a, b in zip(counters(), counted)] == [n, n, 0]
+            with monkeypatch.context() as patch:
+                patch.setattr(graph_ops, "merge_step", plain_merge_step)
+                want = cagra.search(sp, dev, q.to(cuda_device), 10)
+            assert build.launches["cagra_merge"] == before + iters + 1
+            assert build.launches["cagra_candidates"] == cand + 2 * iters + 2
+            assert torch.equal(got[1], want[1])
+            assert torch.equal(_bits(got[0]), _bits(want[0]))
+
+
+def test_merge_step_past_the_kernel_raises(cuda_device):
+    """A beam wider than the merge kernel holds is refused on the card,
+    and so is a search with such a beam: the plain step runs on CPU
+    tensors only. Nothing is launched."""
+    from cuvs_rag_tpu_torch.ops import graph as graph_ops
+    from cuvs_rag_tpu_torch.ops import graph_kernels as gk
+
+    wide = gk.MERGE_MAX_BEAM + 8
+    _, n_scores, _ = _merge_inputs(cuda_device, "random", 2, 16, 64)
+    before = build.launches["cagra_merge"]
+    with pytest.raises(ValueError, match=str(gk.MERGE_MAX_BEAM)):
+        graph_ops.merge_step(n_scores, 2, wide, 4)
+    rows = torch.zeros((64, 64), dtype=torch.float32, device=cuda_device)
+    graph = torch.zeros((64, 8), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match=str(gk.MERGE_MAX_BEAM)):
+        graph_ops.beam_search(rows, graph, torch.zeros(
+            (2, 62), device=cuda_device), k=10, itopk=wide,
+            metric=graph_ops.Metric.SQEUCLIDEAN)
+    assert build.launches["cagra_merge"] == before

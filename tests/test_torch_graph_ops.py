@@ -427,17 +427,18 @@ def test_candidate_kernel_plan(monkeypatch, n_q, m, b, sms, per_sm):
     assert 6 <= bits <= 14 and (1 << bits) >= min(2 * (b + m), 1 << 14)
 
 
-def _route_counts(monkeypatch, kernel):
+def _route_counts(monkeypatch, kernel, merge=False):
     """A CAGRA search on the CPU with the recorder on: the counters it adds,
-    and its answers, with the kernel's route stood in for by the plain
-    step where `kernel`."""
+    and its answers, with the candidate kernel's route stood in for by the
+    plain step where `kernel`, and the merge kernel's where `merge`."""
     from cuvs_rag_tpu_torch.index import cagra
     from cuvs_rag_tpu_torch.ops import graph_kernels as gk
     from cuvs_rag_tpu_torch.utils import profiling
     from cuvs_rag_tpu_torch.utils.config import CagraParams, CagraSearchParams
     from cuvs_rag_tpu_torch.utils.metrics import default_registry
 
-    names = ("cagra.iterations", "cagra.expand.kernel", "cagra.expand.torch")
+    names = ("cagra.iterations", "cagra.expand.kernel", "cagra.expand.torch",
+             "cagra.merge.kernel", "cagra.merge.torch")
     g = torch.Generator().manual_seed(3)
     x = torch.randn((1024, 24), generator=g)
     ix = cagra.build(CagraParams(intermediate_graph_degree=16, graph_degree=8),
@@ -448,6 +449,11 @@ def _route_counts(monkeypatch, kernel):
                             beam_width=0: lambda src, s=None, beam=None:
                             tgraph.candidates_plain(rows, aq, src, graph=graph,
                                                     src_scores=s, beam=beam))
+    if merge:
+        monkeypatch.setattr(gk, "merge_takes", lambda *args: True)
+        monkeypatch.setattr(gk, "prepare_merge", lambda device, n_q, b, e:
+                            lambda n_s, nbrs, beam=None: tgraph.merge_plain(
+                                n_s, nbrs, beam, b=b, e=e))
     before = default_registry.snapshot()["counters"]
     profiling.record_spans(True)
     try:
@@ -467,9 +473,283 @@ def test_expand_counters_follow_the_route(monkeypatch):
     torch_counts, want = _route_counts(monkeypatch, kernel=False)
     assert torch_counts == {"cagra.iterations": 9 * 16,
                             "cagra.expand.kernel": 0,
-                            "cagra.expand.torch": 9 * 16}
+                            "cagra.expand.torch": 9 * 16,
+                            "cagra.merge.kernel": 0,
+                            "cagra.merge.torch": 9 * 16}
     kernel_counts, got = _route_counts(monkeypatch, kernel=True)
     assert kernel_counts == {"cagra.iterations": 9 * 16,
                              "cagra.expand.kernel": 9 * 16,
-                             "cagra.expand.torch": 0}
+                             "cagra.expand.torch": 0,
+                             "cagra.merge.kernel": 0,
+                             "cagra.merge.torch": 9 * 16}
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+def test_merge_counters_follow_the_route(monkeypatch):
+    """cagra.merge.torch on the CPU, cagra.merge.kernel where the merge
+    step's route takes the kernel, each queries x iterations, so equal to
+    cagra.iterations, whatever the candidate step's route; the answers
+    agree."""
+    _, want = _route_counts(monkeypatch, kernel=False)
+    counts, got = _route_counts(monkeypatch, kernel=False, merge=True)
+    assert counts == {"cagra.iterations": 9 * 16, "cagra.expand.kernel": 0,
+                      "cagra.expand.torch": 9 * 16,
+                      "cagra.merge.kernel": 9 * 16, "cagra.merge.torch": 0}
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    counts, got = _route_counts(monkeypatch, kernel=True, merge=True)
+    assert counts["cagra.expand.kernel"] == counts["cagra.merge.kernel"] \
+        == counts["cagra.iterations"] == 9 * 16
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+# -------------------------------------------------- the beam's merge step ---
+
+
+def _old_merge_body(scores, ids, expanded, n_scores, nbrs, b, e):
+    """The merge and the next iteration's picks as beam_search wrote them
+    inline before the step was factored out (and given a kernel on the
+    card); the picks opened the next iteration there."""
+    fresh = torch.zeros(nbrs.shape, dtype=torch.bool)
+    scores, sel = tgraph.topk_first(torch.cat([scores, n_scores], 1), b)
+    ids = torch.gather(torch.cat([ids, nbrs], 1), 1, sel)
+    expanded = torch.gather(torch.cat([expanded, fresh], 1), 1, sel)
+    pick_s, picks = tgraph.topk_first(scores.masked_fill(expanded,
+                                                         tgraph.NEG_INF), e)
+    pick_ids = torch.gather(ids, 1, picks)
+    expanded = expanded.scatter(1, picks, True)
+    return scores, ids, expanded, pick_s, pick_ids
+
+
+def _old_entry_body(e_scores, entry_ids, b, e):
+    """The entry beam as beam_search built it inline before, and the first
+    iteration's picks."""
+    n_q, n_e = e_scores.shape
+    top_e, order = tgraph.topk_first(e_scores, min(b, n_e))
+    scores = torch.full((n_q, b), tgraph.NEG_INF)
+    ids = torch.full((n_q, b), -1, dtype=torch.int32)
+    scores[:, :top_e.shape[1]] = top_e
+    ids[:, :top_e.shape[1]] = torch.gather(entry_ids, 1, order)
+    expanded = torch.zeros((n_q, b), dtype=torch.bool)
+    pick_s, picks = tgraph.topk_first(scores.masked_fill(expanded,
+                                                         tgraph.NEG_INF), e)
+    pick_ids = torch.gather(ids, 1, picks)
+    return scores, ids, expanded.scatter(1, picks, True), pick_s, pick_ids
+
+
+# scores drawn from few values, so that beam and news tie across each other
+_TIED = (3.0, 1.5, 1.5, 0.0, -1.0, -2e30, -float("inf"))
+
+
+def _merge_case(case, seed=6, n_q=4, b=16, m=48, e=4):
+    """(beam (scores sorted descending, ids, flags), news scores, news ids,
+    b, e) for one of the merge step's built cases."""
+    g = torch.Generator().manual_seed(seed)
+    if case == "fewer_live_news_than_b":
+        m = 6
+    tied = torch.tensor(_TIED)
+
+    def draw(cols):
+        if case in ("many_ties", "every_slot_expanded"):
+            return tied[torch.randint(0, len(_TIED), (n_q, cols),
+                                      generator=g)]
+        s = torch.randn((n_q, cols), generator=g)
+        if case == "runs_of_minus_inf":
+            s[:, cols // 3:] = -float("inf")
+        if case == "tombstones":
+            s[torch.rand((n_q, cols), generator=g) < 0.4] = -2e30
+        if case == "fewer_live_news_than_b":
+            s[:, 1::2] = -float("inf")
+        return s
+
+    scores = torch.sort(draw(b), dim=1, descending=True, stable=True)[0]
+    ids = torch.randint(-1, 200, (n_q, b), generator=g, dtype=torch.int32)
+    expanded = torch.rand((n_q, b), generator=g) < 0.4
+    n_scores = draw(m)
+    if case == "every_slot_expanded":
+        expanded[:] = True
+        n_scores[:] = -float("inf")
+    nbrs = torch.randint(-1, 200, (n_q, m), generator=g, dtype=torch.int32)
+    return (scores, ids, expanded), n_scores, nbrs, b, e
+
+
+MERGE_CASES = ("many_ties", "runs_of_minus_inf", "tombstones",
+               "every_slot_expanded", "fewer_live_news_than_b")
+
+
+@pytest.mark.parametrize("case", MERGE_CASES)
+def test_merge_plain_equals_the_old_loop_body(case):
+    """The factored merge step gives the inline loop body's new beam and
+    the next iteration's picks bit for bit: ties between beam and news to
+    the beam, -inf and tombstoned scores in their places, expanded and -inf
+    slots picked in position order once the live ones run out; and the
+    entry beam (no beam, the entry rows as news) as beam_search built it."""
+    beam, n_scores, nbrs, b, e = _merge_case(case)
+    got = tgraph.merge_plain(n_scores, nbrs, beam, b=b, e=e)
+    want = _old_merge_body(*beam, n_scores, nbrs, b, e)
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and torch.equal(a, w)
+    if case == "every_slot_expanded":
+        # the news all -inf stay behind the beam, so nothing live is left
+        # to pick: the first e slots, in order, scored -inf
+        assert torch.equal(got[1], beam[1]) and got[2].all()
+        assert torch.equal(got[4], beam[1][:, :e])
+        assert torch.isinf(got[3]).all()
+    for n_e in (3, b, 2 * b):
+        entry_s, entry_ids = n_scores[:, :n_e], nbrs[:, :n_e]
+        got = tgraph.merge_plain(entry_s, entry_ids, b=b, e=e)
+        want = _old_entry_body(entry_s, entry_ids, b, e)
+        for a, w in zip(got, want):
+            assert a.dtype == w.dtype and torch.equal(a, w)
+
+
+def test_merge_route_is_the_plain_step_on_the_cpu():
+    """The merge kernel takes a beam on the card alone: on the CPU the
+    route is the plain step, launches nothing and warns of nothing."""
+    import warnings
+
+    from cuvs_rag_tpu_torch.ops import graph_kernels as gk
+
+    beam, n_scores, nbrs, b, e = _merge_case("many_ties")
+    rows = torch.zeros((64, 896), dtype=torch.bfloat16)
+    assert not gk.merge_takes(rows, 128, 16)
+    assert gk.merge_takes(_card_rows(rows.dtype, 896), 128, 16)
+    before = build.launches["cagra_merge"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        route, merge = tgraph.merge_step(rows, n_scores.shape[0], b, e)
+    assert route == "torch"
+    for a, w in zip(merge(n_scores, nbrs, beam),
+                    _old_merge_body(*beam, n_scores, nbrs, b, e)):
+        assert torch.equal(a, w)
+    assert build.launches["cagra_merge"] == before
+
+
+@pytest.mark.parametrize("b,e,takes", [
+    (128, 16, True),  # the CAGRA cell's beam
+    (1, 1, True),
+    (4096, 4096, True),  # the candidate kernel's widest beam
+    (4097, 16, True),  # past it: the merge kernel holds wider beams
+    (16384, 16, True),  # the widest beam shared memory holds
+    (16385, 16, False),  # a beam past it
+    (128, 0, False),  # no picks
+    (16, 17, False),  # more picks than slots
+])
+def test_merge_kernel_limits(b, e, takes):
+    """Which beams the merge kernel takes on the card, with any number of
+    news (it merges them in pieces): a beam past MERGE_MAX_BEAM slots is
+    refused there (`merge_step` raises) and only CPU tensors run the plain
+    step."""
+    from cuvs_rag_tpu_torch.ops import graph_kernels as gk
+
+    assert gk.merge_takes(_card_rows(torch.bfloat16, 896), b, e) is takes
+
+
+def test_merge_step_past_the_kernel_raises_on_the_card():
+    """A CUDA beam wider than the merge kernel holds is refused with the
+    limit in the message: the plain step does not run on the card; the same
+    beam on the CPU takes the plain step."""
+    from cuvs_rag_tpu_torch.ops import graph_kernels as gk
+
+    wide = gk.MERGE_MAX_BEAM + 1
+    before = build.launches["cagra_merge"]
+    with pytest.raises(ValueError, match=str(gk.MERGE_MAX_BEAM)):
+        tgraph.merge_step(_card_rows(torch.bfloat16, 896), 2, wide, 4)
+    assert build.launches["cagra_merge"] == before
+    rows = torch.zeros((64, 896), dtype=torch.bfloat16)
+    assert tgraph.merge_step(rows, 2, wide, 4)[0] == "torch"
+
+
+def _merge_piece(b):
+    """graph.cu's merge_piece: the news a launch merges beside b slots."""
+    from cuvs_rag_tpu_torch.ops import graph_kernels as gk
+
+    piece = gk.MAX_CANDIDATES
+    while piece > 1 and 8 * piece + 13 * b > 227 * 1024 - 1024:
+        piece >>= 1
+    return piece
+
+
+def test_merge_kernel_constants_match_its_source():
+    """The merge kernel's beam limit is the library's, which its entry
+    point checks again; its news come in pieces of the candidate kernel's
+    MAX_CANDIDATES beside the beams that kernel takes (one launch a step
+    wherever the candidate kernel runs), and of 2,048 beside the widest,
+    each block within the 227 KB an H100 block may have."""
+    import re
+
+    from cuvs_rag_tpu_torch.ops import graph_kernels as gk
+
+    src = (build.CSRC / "graph.cu").read_text()
+    entry = src[src.index("int cagra_merge("):]
+    assert re.search(r"constexpr int MERGE_MAX_BEAM = (\d+);",
+                     src).group(1) == str(gk.MERGE_MAX_BEAM)
+    assert "b > MERGE_MAX_BEAM" in entry and "e > b" in entry
+    assert "const int piece = merge_piece(b);" in entry
+    assert "constexpr size_t MERGE_SMEM = 227 * 1024 - 1024;" in src
+    body = re.search(r"size_t merge_smem_bytes\(int p2, int b\) "
+                     r"\{\s*return ([^;]+);", src).group(1)
+    assert body.split() == (
+        "sizeof(unsigned long long) * (size_t)p2 + (2 * sizeof(int) + "
+        "sizeof(float) + 1) * (size_t)b").split()
+    assert "int piece = MAX_CANDIDATES;" in src
+    assert _merge_piece(gk.MAX_BEAM) == gk.MAX_CANDIDATES
+    assert _merge_piece(gk.MERGE_MAX_BEAM) == 2048
+    most = 8 * 2048 + 13 * gk.MERGE_MAX_BEAM
+    assert most == 229_376 <= 227 * 1024 - 1024
+
+
+def test_prepared_merge_rewrites_its_beam_in_place(monkeypatch):
+    """A search's prepared merge, with a stub library in place of the card's
+    (the launch seam's own path, held on the CPU): every launch passes the
+    one beam made at preparation (read where a beam is given, rewritten in
+    place either way), the news' pointers, their row strides from their
+    kind's first call, the shapes and the picks, and returns those same
+    tensors; a bad first call, or a beam other than `launch.beam`, raises
+    and launches nothing."""
+    from unittest import mock
+
+    from cuvs_rag_tpu_torch.ops import graph_kernels as gk
+
+    calls = []
+
+    class Stub:
+        def cagra_merge(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(build, "load", lambda source: Stub())
+    monkeypatch.setattr(build, "raw_stream", lambda device: 7)
+    n_q, b, e = 3, 8, 2
+    cpu = torch.device("cpu")
+    with mock.patch.object(build, "device_guard",
+                           lambda device: mock.MagicMock()):
+        merge = gk.prepare_merge(cpu, n_q, b, e)
+        entry_s = torch.zeros((n_q, 12))[:, :5]  # a row stride of 12
+        entry_ids = torch.zeros((1, 5), dtype=torch.int32).expand(n_q, -1)
+        with pytest.raises(ValueError):
+            merge(entry_s.double(), entry_ids)
+        assert calls == []
+        first = merge(entry_s, entry_ids)
+        news_s = torch.zeros((n_q, 16))
+        news_ids = torch.zeros((n_q, 16), dtype=torch.int32)
+        with pytest.raises(ValueError, match="launch.beam"):
+            merge(news_s, news_ids, tuple(t.clone() for t in first[:3]))
+        assert len(calls) == 1
+        second = merge(news_s, news_ids, first[:3])
+        third = merge(news_s, news_ids, merge.beam)
+    assert first is second is third and merge.beam == first[:3]
+    assert all(t.device == cpu for t in first)
+    assert [tuple(t.shape) for t in first] == [(n_q, b)] * 3 + [(n_q, e)] * 2
+    assert [t.dtype for t in first] == [torch.float32, torch.int32,
+                                        torch.bool, torch.float32,
+                                        torch.int32]
+    (c0, c1, c2) = calls
+    # (beam scores, ids, flags, merge, news scores, row stride, news ids,
+    # row stride, m, n_q, b, e, pick scores, pick ids, stream)
+    ptrs = tuple(t.data_ptr() for t in first)
+    assert c0[:4] == ptrs[:3] + (0,) and c0[5] == 12 and c0[7] == 0
+    assert c0[8:12] == (5, n_q, b, e) and c0[12:14] == ptrs[3:]
+    assert c0[-1] == 7 and len(c0) == 15
+    assert c1[:4] == c2[:4] == ptrs[:3] + (1,)
+    assert c1[4:9] == (news_s.data_ptr(), 16, news_ids.data_ptr(), 16, 16)
+    assert c1[12:14] == c2[12:14] == ptrs[3:]

@@ -37,6 +37,7 @@ LABELS = {
     "gather_rows": "M2",
     "gather_reduce": "M3",
     "cagra_candidates": "cagra_candidates",
+    "cagra_merge": "cagra_merge",
 }
 # the one entry point that is no launch: graph_kernels' occupancy query
 QUERIES = {"cagra_candidates_blocks"}
